@@ -19,7 +19,20 @@ out-of-tolerance result raises and exits non-zero:
   5. the main path: configs/raft_stereo/pallas.json, bf16, 1x736x1280,
      32 iterations, seeded random weights, through make_forward_fn/_run_one,
      counting the kernel launches of the timed frames;
-  6. a per-kernel profile of one main-path frame (torch.profiler), the
+  6. a per-kernel profile of one main-path frame (torch.profiler);
+  7. K1's backward (corr lookup bwd) vs its plain version at the training
+     shapes (8x80x180, W2 180/90/45/22), bf16 and fp32 pyramids, and the
+     adjoint check <K1(v), g> = <v, K1^T(g)> against the forward kernel,
+     and the time autograd spends summing the per-iteration d/dpyramid;
+     K2 refusing inputs that require grad (it has no backward yet);
+  8. DKT train-step parity, kernels (card) vs plain path (CPU): fp32, TF32
+     off, 1x64x128, 2 student and 2 teacher iterations, same weights and
+     draws; losses, and gradients by module (fnet, cnet, update block);
+  9. the training path: configs/raft_stereo/train.json as shipped (bf16,
+     reg_cuda, remat_iters), B=8, 320x720, 16 student and 32 teacher
+     iterations, through create_dkt_state/make_dkt_train_step on seeded
+     synthetic batches: 1 warm-up and 5 timed steps with the time of each
+     part, exact K1 launch counts, and a profile of one step; then the
      "kernels" JSON line and the card's line.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -257,16 +270,46 @@ def phase_main(torch, config, card):
     return model, forward, (img1, img2), launches
 
 
-def phase_profile(torch, forward, images):
-    """Device time by kernel over one main-path frame, and the share of the
-    frame's host-clock time in which no kernel ran."""
+# device-time buckets of a profile, by kernel name; the first match wins
+BUCKETS = (
+    ("K1 bwd", r"corr_lookup_bwd_kernel"),
+    ("K1", r"corr_lookup_kernel"),
+    ("K2", r"encoder_stage"),
+    ("convolutions/GEMMs", r"xmma|cutlass|gemm|nvjet|conv|wgrad|dgrad|fprop"),
+    ("cuDNN layout transforms", r"nchwToNhwc|nhwcToNchw|AddPadding"),
+    ("strided bf16 adds", r"elementwise_kernel<128, 4, at::native::gpu_kernel_impl_nocast"
+                          r"<at::native::CUDAFunctor_add<c10::BFloat16>"),
+    ("casts/copies", r"copy_kernel|Memcpy|Memset|CatArray"),
+    ("batch norm", r"batch_norm"),
+    ("reductions", r"reduce_kernel"),
+    ("resize/pool/softmax", r"upsample|pool|SoftMax"),
+    ("optimizer", r"Optimizer|multi_tensor"),
+    ("other elementwise", r""),
+)
+
+
+def bucket_line(by_name):
+    """``name ms/launches`` per bucket of a {kernel name: (ms, launches)}."""
+    import re
+
+    tot = {b: [0.0, 0] for b, _ in BUCKETS}
+    for name, (t, n) in by_name.items():
+        b = next(b for b, pat in BUCKETS if re.search(pat, name))
+        tot[b][0] += t
+        tot[b][1] += n
+    return " | ".join(f"{b} {t:.2f} ms/{n}" for b, (t, n) in tot.items())
+
+
+def device_profile(torch, run, name):
+    """Profile one call of ``run`` (which returns its own wall seconds):
+    device time by kernel into the output directory's ``name``, and the
+    share of the wall time in which no kernel ran. Returns (wall ms, busy
+    ms, lines, bucket line)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dkt_stereo_tpu_torch.eval.validate import _run_one
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = _run_one(forward, *images)
+        wall = run()
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -277,11 +320,315 @@ def phase_profile(torch, forward, images):
     lines = [f"{t:9.3f} ms {n:6d}x  {name}" for name, (t, n) in ranked]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "chip_smoke_profile.txt").write_text("\n".join(lines) + "\n")
-    print(f"profile of one frame (profiler on): wall {wall * 1e3:.2f} ms, kernels {busy:.2f} ms, "
-          f"device idle share {1 - busy / (wall * 1e3):.3f}; top kernels:")
+    (out / name).write_text("\n".join(lines) + "\n")
+    return wall * 1e3, busy, lines, bucket_line(by_name)
+
+
+def phase_profile(torch, forward, images):
+    """Device time by kernel over one main-path frame, and the share of the
+    frame's host-clock time in which no kernel ran."""
+    from dkt_stereo_tpu_torch.eval.validate import _run_one
+
+    wall, busy, lines, buckets = device_profile(torch, lambda: _run_one(forward, *images)[1],
+                                                "chip_smoke_profile.txt")
+    print(f"profile of one frame (profiler on): wall {wall:.2f} ms, kernels {busy:.2f} ms, "
+          f"device idle share {1 - busy / wall:.3f}; by bucket: {buckets}; top kernels:")
     for line in lines[:12]:
         print("  " + line[:160])
+
+
+TRAIN_SHAPE = (8, 80, 180)  # 1/4 resolution of the 8x320x720 training crops
+TRAIN_W2 = (180, 90, 45, 22)
+
+
+def phase_k1_bwd(torch):
+    """K1 backward vs its plain version at the training shapes, and the
+    adjoint check against the forward kernel."""
+    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import (
+        corr_lookup, corr_lookup_bwd, corr_lookup_bwd_plain)
+
+    B, H, W1 = TRAIN_SHAPE
+    r = 4
+    taps = 2 * r + 1
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    coords = torch.rand((B, H, W1, 1), generator=gen, device="cuda") * (W1 + 40) - 20
+    coords.view(-1)[:8] = torch.tensor([-1e9, 1e9, 3e7, -0.5, -1.0, 0.0, 17.0, W1 - 1.0])
+    g = torch.randn((B, H, W1, len(TRAIN_W2) * taps), generator=gen, device="cuda")
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        meta = [((B, H, W1, w2), dt) for w2 in TRAIN_W2]
+        got = corr_lookup_bwd(meta, coords, g, r)
+        want = corr_lookup_bwd_plain(meta, coords, g, r)
+        check([d.dtype for d in got] == [dt] * 4, f"K1 bwd output dtypes {[d.dtype for d in got]}")
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        if dt == torch.float32:
+            # the kernel shares one fractional weight per (pixel, level); the
+            # plain version rounds each tap position (< 256 here) on its
+            # own: <= 2 * 2^-17 of |g| per entry
+            tol = 1e-4 * float(g.abs().max())
+        else:
+            # one bf16 rounding of fp32 sums that may differ in their last
+            # bits: one bf16 step (2^-8) can flip
+            tol = 2**-7 * max(float(b.float().abs().max()) for b in want)
+        check(err <= tol, f"K1 bwd {dt} max-abs {err} > {tol}")
+        res[dt] = err
+        del got, want
+
+    # adjoint: <K1(v), g> == <v, K1^T(g)>, both kernels, fp64 sums
+    pyr = [torch.randn((B, H, W1, w2), generator=gen, device="cuda") for w2 in TRAIN_W2]
+    with torch.no_grad():
+        out = corr_lookup(pyr, coords, r)
+    dv = corr_lookup_bwd([(v.shape, v.dtype) for v in pyr], coords, g, r)
+    lhs = float((out.double() * g.double()).sum())
+    rhs = float(sum((v.double() * d.double()).sum() for v, d in zip(pyr, dv)))
+    adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+    check(adj <= 1e-5, f"K1 adjoint check: relative {adj} > 1e-5")
+    del pyr, out, dv
+
+    meta = [((B, H, W1, w2), torch.bfloat16) for w2 in TRAIN_W2]
+    ms = cuda_ms(torch, lambda: corr_lookup_bwd(meta, coords, g, r), 100)
+    plain_ms = cuda_ms(torch, lambda: corr_lookup_bwd_plain(meta, coords, g, r), 3)
+    # what autograd adds per iteration: summing one iteration's four dense
+    # d/dvolume tensors into the running d/dpyramid (15 such sums per step)
+    acc = corr_lookup_bwd(meta, coords, g, r)
+    new = corr_lookup_bwd(meta, coords, g, r)
+    accum_ms = cuda_ms(torch, lambda: [a.add_(b) for a, b in zip(acc, new)], 20)
+    del acc, new
+    # bytes this run needs: every dvol entry written once (zeros included),
+    # the g taps that land on at least one in-range entry, the coords
+    out_bytes = sum(B * H * W1 * w2 * 2 for w2 in TRAIN_W2)
+    g_read = 0
+    k = torch.arange(taps, device="cuda")
+    for i, w2 in enumerate(TRAIN_W2):
+        p0 = (coords / 2**i - r).clamp(-(taps + 2), w2 + 1)
+        x0 = torch.floor(p0) + k
+        g_read += int((((x0 >= 0) & (x0 < w2)) | ((x0 + 1 >= 0) & (x0 + 1 < w2))).sum()) * 4
+    nbytes = out_bytes + g_read + coords.numel() * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"K1 corr_lookup_bwd: max_abs fp32 {res[torch.float32]:.3e} (tol 1e-4*max|g|) bf16 "
+          f"{res[torch.bfloat16]:.3e} (tol 2^-7*max|dvol|) | adjoint rel {adj:.2e} (tol 1e-5) | "
+          f"bf16 pyramid {TRAIN_SHAPE} W2 {TRAIN_W2}: kernel_ms {ms:.4f} plain_ms {plain_ms:.3f} "
+          f"library_ms none (no single PyTorch call computes the four-level transposed lookup) "
+          f"bound_ms {bound_ms:.4f} ({nbytes / 1e6:.2f} MB: {out_bytes / 1e6:.2f} written) | "
+          f"autograd's sum of one iteration's d/dpyramid into the running one: {accum_ms:.4f} ms "
+          f"(x15 per step: {15 * accum_ms:.3f} ms)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                max_abs_err=max(res.values()))
+
+
+def phase_k2_refuses_grad(torch):
+    """K2 has no backward: on the card it must raise rather than cut the
+    graph when an input requires grad."""
+    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage
+
+    u = torch.randn((1, 8, 16, 64), device="cuda", requires_grad=True)
+    ab = torch.ones((1, 64), device="cuda")
+    w = torch.zeros((64, 64, 3, 3), device="cuda")
+    n = encoder_stage.launches
+    try:
+        encoder_stage(u, ab, ab, w)
+    except RuntimeError as e:
+        check("K2 VJP" in str(e), f"K2 refusal names no ROADMAP entry: {e}")
+    else:
+        raise SmokeFailure("encoder_stage accepted an input that requires grad")
+    check(encoder_stage.launches == n, "encoder_stage launched on a refused call")
+    with torch.no_grad():
+        encoder_stage(u, ab, ab, w)
+    print("K2 encoder_stage with an input that requires grad: RuntimeError naming the K2 VJP "
+          "entry; under no_grad it runs")
+
+
+def _train_batch(torch, gen, B, H, W, device):
+    """Synthetic DKT batch: clean pairs in [0, 255], the augmented pair a
+    per-image gain of the clean one, negative disparity in [-64, 0] and a
+    valid mask of about 70 % ones."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=gen.device).to(device)
+
+    b = {"img1_clean": 255 * rand(B, H, W, 3), "img2_clean": 255 * rand(B, H, W, 3)}
+    for k in ("img1", "img2"):
+        b[k] = (b[k + "_clean"] * (0.8 + 0.4 * rand(B, 1, 1, 1))).clamp(0, 255)
+    b["flow"] = -64 * rand(B, H, W)
+    b["valid"] = (rand(B, H, W) < 0.7).float()
+    return b
+
+
+def phase_train_parity(torch, train_cfg):
+    """One DKT step with the kernels on the card vs the plain path on the
+    CPU, from the same weights, batch and draws, fp32 with TF32 off."""
+    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup, corr_lookup_bwd
+    from dkt_stereo_tpu_torch.train.dkt_step import (
+        create_dkt_state, fande_draws, make_dkt_train_step)
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = {**train_cfg, "mixed_precision": False, "corr_dtype": "float32"}
+    hyper = DKTHyperParams(train_iters=2, teacher_iters=2)
+    gpu = create_dkt_state(cfg, hyper, seed=0, device="cuda")
+    to_cpu = {k: v.to("cpu", copy=True) for k, v in gpu.student.state_dict().items()}
+    cpu = create_dkt_state(cfg, hyper, params=to_cpu, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    batch = _train_batch(torch, gen, 1, 64, 128, "cpu")
+    draws = fande_draws(1, "cpu", gen)
+    step = make_dkt_train_step(cfg, hyper)
+    n_fwd, n_bwd = corr_lookup.launches, corr_lookup_bwd.launches
+    gpu, m_gpu = step(gpu, {k: v.cuda() for k, v in batch.items()},
+                      draws={k: v.cuda() for k, v in draws.items()})
+    launches = (corr_lookup.launches - n_fwd, corr_lookup_bwd.launches - n_bwd)
+    cpu, m_cpu = step(cpu, batch, draws=draws)
+    # the chaos floor: the same CPU step from weights scaled by
+    # 1 + 1e-5 N(0, 1), which moves the losses by about as much as fp32
+    # reordering between the card and the CPU does
+    noise = torch.Generator().manual_seed(7)
+    nudged = {k: v * (1 + 1e-5 * torch.randn(v.shape, generator=noise))
+              if v.is_floating_point() else v for k, v in to_cpu.items()}
+    cpu2, _ = step(create_dkt_state(cfg, hyper, params=nudged, device="cpu"), batch, draws=draws)
+    torch.backends.cudnn.allow_tf32 = True
+
+    check(m_gpu["ok"] == m_cpu["ok"] == 1.0, f"ok gpu {m_gpu['ok']} cpu {m_cpu['ok']}")
+    # teachers 2 + 2, student 2, remat recompute 2; backward 2
+    check(launches == (8, 2), f"K1 launches fwd/bwd {launches} != (8, 2)")
+    loss_err = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+                for k in ("loss", "loss_GT", "loss_PL")}
+    for k, e in loss_err.items():
+        check(e <= 1e-3, f"train parity {k}: relative {e} > 1e-3")
+    # gradients (after the step's clipping) by module: relative L2 error.
+    # Random-weight RAFT is chaotic, and a gradient is a sum of per-pixel
+    # terms of both signs: one pixel whose L1 sign or F&E mask flips under
+    # fp32 reordering moves a module's gradient by ~2/sqrt(8192) = 2 %. The
+    # 1e-5 nudge above shows the floor without the card. A wrong or missing
+    # K1 backward moves the fnet's gradient by order 1.
+    want = dict(cpu.student.named_parameters())
+
+    def rel_by_module(got):
+        err2, norm2 = {}, {}
+        for k, p in got:
+            group = k.split(".")[0]
+            err2[group] = err2.get(group, 0.0) + float((p.grad.cpu() - want[k].grad).square().sum())
+            norm2[group] = norm2.get(group, 0.0) + float(want[k].grad.square().sum())
+        rel = {g: (err2[g] / norm2[g]) ** 0.5 for g in err2}
+        rel["all"] = (sum(err2.values()) / sum(norm2.values())) ** 0.5
+        return rel, norm2
+
+    rel, norm2 = rel_by_module(gpu.student.named_parameters())
+    floor, _ = rel_by_module(cpu2.student.named_parameters())
+    for g, e in rel.items():
+        check(e <= (0.05 if g == "all" else 0.1), f"train parity gradient of {g}: relative {e}")
+    fnet = norm2["fnet"] ** 0.5
+    check(fnet > 0, "the fnet got no gradient through K1's backward")
+    gpu_fnet = float(torch.stack([p.grad.norm() for k, p in gpu.student.named_parameters()
+                                  if k.startswith("fnet.")]).norm())
+    check(gpu_fnet > 0, "the fnet got no gradient through K1's backward on the card")
+    print(f"train-step parity (fp32, TF32 off, 1x64x128, 2+2 iters), kernels vs plain: loss "
+          f"{m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f}, relative errors "
+          + " ".join(f"{k} {e:.2e}" for k, e in loss_err.items()) + " (tol 1e-3) | gradient "
+          "relative L2 error by module " + " ".join(f"{g} {e:.2e}" for g, e in rel.items())
+          + " (tol 0.1 per module, 0.05 all; chaos floor on the CPU from a 1e-5 weight nudge: "
+          + " ".join(f"{g} {e:.2e}" for g, e in floor.items())
+          + f") | fnet gradient norm card {gpu_fnet:.3e} "
+          f"cpu {fnet:.3e} | K1 launches fwd {launches[0]} bwd {launches[1]}")
+    del gpu, cpu
+
+
+
+TRAIN_STEPS = 5
+TRAIN_PARTS = ("ema", "teachers", "fande", "student", "optimizer")
+
+
+def phase_train(torch, train_cfg, card):
+    """train.json at full width: 1 warm-up and TRAIN_STEPS timed DKT steps
+    at B=8, 320x720, 16 student / 32 teacher iterations."""
+    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup, corr_lookup_bwd
+    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage
+    from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    B, H, W = 8, 320, 720  # cli/train.py:49,53 defaults
+    hyper = DKTHyperParams(train_iters=16, teacher_iters=32)
+    state = create_dkt_state(train_cfg, hyper, seed=0)
+    step = make_dkt_train_step(train_cfg, hyper)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def snap(m, keep=lambda k: True):
+        return {k: v.detach().clone() for k, v in m.state_dict().items() if keep(k)}
+
+    teacher0 = snap(state.teacher)
+    student0 = snap(state.student)
+    bn0 = snap(state.student, lambda k: "running" in k)
+    check(len(bn0) > 0, "train.json's cnet has no batch norm statistics")
+
+    state, m = step(state, _train_batch(torch, gen, B, H, W, "cuda"), generator=gen)  # warm-up
+    check(m["ok"] == 1.0, f"warm-up step not ok: {m}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    corr_lookup.launches = corr_lookup_bwd.launches = encoder_stage.launches = 0
+    times, parts, per_step, metrics = [], {p: [] for p in TRAIN_PARTS}, [], []
+    for _ in range(TRAIN_STEPS):
+        batch = _train_batch(torch, gen, B, H, W, "cuda")
+        events = {}
+
+        def mark(name):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+
+        before = (corr_lookup.launches, corr_lookup_bwd.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        state, m = step(state, batch, generator=gen, mark=mark)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        prev = "start"
+        for p in TRAIN_PARTS:
+            parts[p].append(events[prev].elapsed_time(events[p]))
+            prev = p
+        per_step.append((corr_lookup.launches - before[0], corr_lookup_bwd.launches - before[1]))
+        metrics.append(m)
+    launches = {"corr_lookup": corr_lookup.launches, "corr_lookup_bwd": corr_lookup_bwd.launches,
+                "encoder_stage": encoder_stage.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    check(all(x["ok"] == 1.0 for x in metrics), f"a step was not ok: {[x['ok'] for x in metrics]}")
+    check(all(np.isfinite(x["loss"]) for x in metrics), "non-finite loss")
+    # 2 x 32 teacher iterations + 16 student + 16 recomputed by remat; 16 backward
+    check(all(c == (96, 16) for c in per_step), f"K1 launches per step {per_step} != (96, 16)")
+    check(launches["encoder_stage"] == 0, "K2 launched on the training path")
+    moved = [k for k, v in state.student.named_parameters() if not torch.equal(v, student0[k])]
+    n_params = len(list(state.student.parameters()))
+    check(len(moved) == n_params, f"only {len(moved)} of {n_params} student tensors moved")
+    check(all(torch.equal(v, teacher0[k]) for k, v in state.teacher.state_dict().items()),
+          "the frozen teacher changed")
+    check(all(torch.equal(state.student.state_dict()[k], v) for k, v in bn0.items()),
+          "student BN running statistics changed")
+
+    ms = 1e3 * np.asarray(times)
+    part_ms = {p: float(np.mean(v)) for p, v in parts.items()}
+    print(f"training path (train.json, bf16, remat, B={B} {H}x{W}, {hyper.train_iters}/"
+          f"{hyper.teacher_iters} iters, {TRAIN_STEPS} "
+          f"steps after 1 warm-up): ms/step median {np.median(ms):.2f} mean {ms.mean():.2f} "
+          f"min {ms.min():.2f} max {ms.max():.2f} | device ms per part (mean) "
+          + " ".join(f"{p} {t:.2f}" for p, t in part_ms.items())
+          + f" | peak mem {peak:.2f} GiB | launches {launches} | loss "
+          + ", ".join(f"{x['loss']:.3f}" for x in metrics)
+          + f" | lr {metrics[-1]['learning_rate']:.3e} | {card}")
+
+    def one_step():
+        batch = _train_batch(torch, gen, B, H, W, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall, busy, lines, buckets = device_profile(torch, one_step, "chip_smoke_train_profile.txt")
+    print(f"profile of one training step (profiler on): wall {wall:.2f} ms, kernels "
+          f"{busy:.2f} ms, device idle share {1 - busy / wall:.3f}; by bucket: {buckets}; "
+          "top kernels:")
+    for line in lines[:15]:
+        print("  " + line[:160])
+    return launches
 
 
 def main():
@@ -308,18 +655,32 @@ def main():
     k2 = phase_k2(torch)
     config = json.loads((ROOT / "configs/raft_stereo/pallas.json").read_text())
     phase_parity(torch, config)
-    _, forward, images, launches = phase_main(torch, config, card)
+    _, forward, images, infer = phase_main(torch, config, card)
     phase_profile(torch, forward, images)
+
+    k1b = phase_k1_bwd(torch)
+    phase_k2_refuses_grad(torch)
+    train_cfg = json.loads((ROOT / "configs/raft_stereo/train.json").read_text())
+    phase_train_parity(torch, train_cfg)
+    train = phase_train(torch, train_cfg, card)
+
+    def launches(name):
+        by_path = {"inference": infer.get(name, 0), "training": train.get(name, 0)}
+        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     k2p = k2["plain"]
     kernels = [
         dict(name="corr_lookup", route="cuda", source="dkt_stereo_tpu_torch/csrc/corr_lookup.cu",
              replaces="dkt_stereo_tpu/ops/pallas/corr_lookup.py:290",
-             launches=launches["corr_lookup"], **k1),
+             **launches("corr_lookup"), **k1),
+        dict(name="corr_lookup_bwd", route="cuda",
+             source="dkt_stereo_tpu_torch/csrc/corr_lookup_bwd.cu",
+             replaces="dkt_stereo_tpu/ops/pallas/corr_lookup.py:254",
+             **launches("corr_lookup_bwd"), **k1b),
         dict(name="encoder_stage", route="cuda",
              source="dkt_stereo_tpu_torch/csrc/encoder_stage.cu",
              replaces="dkt_stereo_tpu/ops/pallas/encoder_conv.py:274",
-             launches=launches["encoder_stage"],
+             **launches("encoder_stage"),
              max_abs_err=max(r["max_abs_err"] for r in k2.values()),
              **{k: k2p[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
     ]

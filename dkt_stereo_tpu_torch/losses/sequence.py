@@ -1,0 +1,51 @@
+"""RAFT sequence loss (``dkt_stereo_tpu/losses/sequence.py:22-57``; the
+reference's meta_arch/raft_stereo/loss.py:3-41).
+
+The reference returns ``(None, None, None)`` on non-finite GT or
+predictions, and the training loop then skips the step. Here, as in the JAX
+package, the loss comes back with a 0-dim bool ``ok`` and is zeroed when not
+ok; the DKT step skips the update on ``ok`` without a graph break.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    denom = mask.sum().float().clamp_min(1.0)
+    return torch.where(mask, x, 0.0).sum() / denom
+
+
+def sequence_loss_raft(disp_preds: torch.Tensor, flow_gt: torch.Tensor, valid: torch.Tensor,
+                       loss_gamma: float = 0.9, max_flow: float = 700.0):
+    """``disp_preds`` (N, B, H, W), ``flow_gt`` (B, H, W) negative
+    disparity, ``valid`` (B, H, W) in {0, 1}. Returns ``(loss, metrics, mask,
+    ok)``: the gamma-weighted L1 over iterations (gamma adjusted for N,
+    loss.py:25), the last iteration's EPE and 1/3/5 px rates, the pixel mask
+    and whether GT and predictions are finite."""
+    n = disp_preds.shape[0]
+    if n < 1:
+        raise ValueError("sequence_loss_raft: no predictions")
+    flow_gt = flow_gt.float()
+    preds = disp_preds.float()
+
+    # 1-channel L2 == abs (loss.py:11)
+    m = (valid >= 0.5) & (flow_gt.abs() < max_flow)
+    ok = torch.isfinite(torch.where(m, flow_gt, 0.0)).all() & torch.isfinite(preds).all()
+
+    gamma_adj = loss_gamma ** (15.0 / (n - 1)) if n > 1 else 1.0
+    weights = torch.tensor([gamma_adj ** (n - 1 - i) for i in range(n)], dtype=torch.float32,
+                           device=preds.device)
+    abs_err = (preds - flow_gt[None]).abs()
+    per_iter = torch.stack([_masked_mean(abs_err[i], m) for i in range(n)])
+    loss = torch.where(ok, (weights * per_iter).sum(), 0.0)
+
+    epe = (preds[-1] - flow_gt).abs()
+    metrics = {
+        "epe": _masked_mean(epe, m),
+        "1px": _masked_mean((epe < 1).float(), m),
+        "3px": _masked_mean((epe < 3).float(), m),
+        "5px": _masked_mean((epe < 5).float(), m),
+    }
+    return loss, metrics, m, ok

@@ -1,9 +1,11 @@
-"""RAFT-Stereo inference (``dkt_stereo_tpu/models/raft_stereo.py``; the
-reference's meta_arch/raft_stereo/raft_stereo.py:30-187).
+"""RAFT-Stereo (``dkt_stereo_tpu/models/raft_stereo.py``; the reference's
+meta_arch/raft_stereo/raft_stereo.py:30-187), test and train mode.
 
-Public conventions are the JAX package's: NHWC images in [0, 255] in, and in
-test mode ``(coarse (B, H/f, W/f, 1), disp_up (B, H, W))`` out, disparity as
-negative flow-x. Inside, modules run NCHW and refinement is a Python loop.
+Public conventions are the JAX package's: NHWC images in [0, 255] in;
+disparity as negative flow-x out. Test mode returns ``(coarse (B, H/f, W/f,
+1), disp_up (B, H, W))``; train mode returns ``{"disp_preds": (iters, B, H,
+W)}``, one convex-upsampled disparity per iteration. Inside, modules run
+NCHW and refinement is a Python loop.
 
 Mixed precision follows the JAX package (and the reference's autocast): the
 normalised images are cast to bf16, encoders and GRUs run under bf16
@@ -13,18 +15,22 @@ component of the GRU's delta is kept, and the flow fed back to the motion
 encoder has a zero y channel.
 
 On CUDA tensors both ``reg`` and ``reg_cuda`` look the pyramid up through
-the K1 kernel (``ops/cuda/corr_lookup.py``); the fnet's full-resolution
-section runs through the K2 kernel when ``pallas_encoder`` is set.
+the K1 kernel and differentiate it through K1's backward
+(``ops/cuda/corr_lookup.py``); the fnet's full-resolution section runs
+through the K2 kernel when ``pallas_encoder`` is set (test mode only: K2 has
+no backward yet). Batch norm is frozen in both modes
+(``nn/norms.py::FrozenBatchNorm2d``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dkt_stereo_tpu_torch.nn.blocks import BasicEncoder, MultiBasicEncoder
 from dkt_stereo_tpu_torch.nn.gru import BasicMultiUpdateBlock
@@ -39,12 +45,11 @@ _UNPORTED = {
     "alt": "Queue 1 item 2 (corr_lookup_alt) / Queue 2 K3",
     "alt_cuda": "Queue 2 K3 (corr_lookup_alt_pallas)",
     "cosine": "Queue 1 item 4 (cosine corr mode)",
-    "mix_fmap_image": "Queue 1 item 4 (train-time corr modes)",
+    "mix_fmap_image": "Queue 1 item 4 (mix_fmap_image, train-time image/feature volume mix)",
     "interpolate": "Queue 1 item 4 (backbone_type='interpolate')",
     "fast_in_stats": "Queue 1 item 4 (subsampled IN statistics)",
-    "remat_iters": "Queue 1 item 5 (training: torch.utils.checkpoint)",
     "shared_backbone": "Queue 1 item 4 (shared backbone)",
-    "train": "Queue 1 item 4 (train mode) and item 5 (DKT training)",
+    "pallas_encoder_train": "Queue 2 K2 VJP (encoder_stage_ad: pallas_encoder in train mode)",
 }
 
 
@@ -97,22 +102,23 @@ class RAFTStereoConfig:
             raise _unported(self.corr_implementation)
         if self.backbone_type != "default":
             raise _unported(self.backbone_type)
-        for flag in ("shared_backbone", "fast_in_stats", "remat_iters"):
+        for flag in ("shared_backbone", "fast_in_stats"):
             if getattr(self, flag):
                 raise _unported(flag)
 
 
 class RAFTStereo(nn.Module):
-    """Test-mode RAFT-Stereo. ``iters`` GRU refinement iterations."""
+    """RAFT-Stereo with ``iters`` GRU refinement iterations, in test mode
+    (``test_mode=True``) or train mode."""
 
     def __init__(self, cfg: RAFTStereoConfig, iters: int = 12, test_mode: bool = True):
         super().__init__()
         cfg.check_ported()
-        if not test_mode:
-            raise _unported("train")
+        if not test_mode and cfg.pallas_encoder:
+            raise _unported("pallas_encoder_train")
         if iters < 1:
             raise ValueError(f"iters must be at least 1, got {iters}")
-        self.cfg, self.iters = cfg, iters
+        self.cfg, self.iters, self.test_mode = cfg, iters, test_mode
         hd = tuple(cfg.hidden_dims)
         self.cnet = MultiBasicEncoder(
             output_dim=(hd, hd), norm_fn=cfg.context_norm, downsample=cfg.n_downsample,
@@ -133,13 +139,50 @@ class RAFTStereo(nn.Module):
             return contextlib.nullcontext()
         return torch.autocast(device.type, dtype=torch.bfloat16)
 
-    def forward(self, image1: torch.Tensor, image2: torch.Tensor):
-        """(image1, image2) NHWC in [0, 255] -> (coarse (B, H/f, W/f, 1),
-        disp_up (B, H, W)), disparity as negative flow-x."""
+    def _iteration(self, net, inp, pyramid, coords0, coords1, with_mask: bool, upsample: bool):
+        """One refinement iteration (the JAX ``_IterStep._one_iter``). The
+        incoming coordinates are detached (the reference's
+        ``coords1.detach()``); the GRU state is not. Returns ``(net, coords1,
+        mask)``, or ``(net, coords1, disp_up)`` with ``upsample`` (train
+        mode: each iteration's convex-upsampled disparity)."""
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        n = cfg.n_gru_layers
+        coords1 = coords1.detach().contiguous()
+        corr = corr_lookup(pyramid, coords1, cfg.corr_radius)
+        flow_x = coords1 - coords0
+        flow2 = torch.cat([flow_x, torch.zeros_like(flow_x)], dim=-1).permute(0, 3, 1, 2)
+        with self._autocast(coords1.device):
+            if n == 3 and cfg.slow_fast_gru:
+                net = self.update_block(net, inp, iter32=True, iter16=False, iter08=False,
+                                        update=False)
+            if n >= 2 and cfg.slow_fast_gru:
+                net = self.update_block(net, inp, iter32=n == 3, iter16=True, iter08=False,
+                                        update=False)
+            net, mask, delta = self.update_block(
+                net, inp, corr.permute(0, 3, 1, 2).to(dt), flow2.to(dt),
+                iter32=n == 3, iter16=n >= 2, with_mask=with_mask,
+            )
+        # stereo: only the x component of the delta survives
+        coords1 = coords1 + delta[:, 0:1].float().permute(0, 2, 3, 1)
+        if upsample:
+            disp = (coords1 - coords0).permute(0, 3, 1, 2)
+            return net, coords1, convex_upsample(disp, mask.float(), 2**cfg.n_downsample)[:, 0]
+        return net, coords1, mask
+
+    def forward(self, image1: torch.Tensor, image2: torch.Tensor,
+                flow_init: Optional[torch.Tensor] = None):
+        """(image1, image2) NHWC in [0, 255]; ``flow_init`` (B, H/f, W/f, 1)
+        is added to the starting coordinates. Test mode returns (coarse
+        (B, H/f, W/f, 1), disp_up (B, H, W)); train mode returns
+        ``{"disp_preds": (iters, B, H, W)}``. Disparity is negative flow-x.
+
+        With ``remat_iters`` in train mode each iteration runs under
+        ``torch.utils.checkpoint``: its activations are recomputed in the
+        backward pass (K1's forward included) instead of kept."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         factor = 2**cfg.n_downsample
-        n = cfg.n_gru_layers
         x1 = (2.0 * (image1 / 255.0) - 1.0).to(dt).permute(0, 3, 1, 2)
         x2 = (2.0 * (image2 / 255.0) - 1.0).to(dt).permute(0, 3, 1, 2)
 
@@ -158,28 +201,24 @@ class RAFTStereo(nn.Module):
 
         B, Hc, Wc, _ = fmap1.shape
         coords0 = coords_grid_x(B, Hc, Wc, device=fmap1.device)
-        coords1 = coords0
-        up_mask = None
-        for itr in range(self.iters):
-            corr = corr_lookup(pyramid, coords1, cfg.corr_radius)
-            flow_x = coords1 - coords0
-            flow2 = torch.cat([flow_x, torch.zeros_like(flow_x)], dim=-1).permute(0, 3, 1, 2)
-            with self._autocast(x1.device):
-                if n == 3 and cfg.slow_fast_gru:
-                    net = self.update_block(net, inp, iter32=True, iter16=False, iter08=False,
-                                            update=False)
-                if n >= 2 and cfg.slow_fast_gru:
-                    net = self.update_block(net, inp, iter32=n == 3, iter16=True, iter08=False,
-                                            update=False)
-                net, mask, delta = self.update_block(
-                    net, inp, corr.permute(0, 3, 1, 2).to(dt), flow2.to(dt),
-                    iter32=n == 3, iter16=n >= 2, with_mask=itr == self.iters - 1,
-                )
-            # stereo: only the x component of the delta survives
-            coords1 = coords1 + delta[:, 0:1].float().permute(0, 2, 3, 1)
-            if mask is not None:
-                up_mask = mask
+        coords1 = coords0 if flow_init is None else coords0 + flow_init
 
+        if not self.test_mode:
+            preds = []
+            for _ in range(self.iters):
+                args = (net, inp, pyramid, coords0, coords1, True, True)
+                if cfg.remat_iters:
+                    net, coords1, disp_up = checkpoint(self._iteration, *args, use_reentrant=False)
+                else:
+                    net, coords1, disp_up = self._iteration(*args)
+                preds.append(disp_up)
+            return {"disp_preds": torch.stack(preds)}
+
+        for itr in range(self.iters):
+            # test mode consumes only the final iteration's mask
+            net, coords1, mask = self._iteration(
+                net, inp, pyramid, coords0, coords1, itr == self.iters - 1, False
+            )
         disp = coords1 - coords0
-        disp_up = convex_upsample(disp.permute(0, 3, 1, 2), up_mask.float(), factor)[:, 0]
+        disp_up = convex_upsample(disp.permute(0, 3, 1, 2), mask.float(), factor)[:, 0]
         return disp, disp_up

@@ -1,14 +1,16 @@
 """Name -> (model class, config class) registry
-(``dkt_stereo_tpu/models/registry.py``) and the model factory.
+(``dkt_stereo_tpu/models/registry.py``), the model factory and the loss
+adapter of the DKT step.
 
-Only RAFTStereo is ported; the other names of the JAX registry raise a
-KeyError naming their ROADMAP.md queue entry."""
+Only RAFTStereo and its ``sequence_loss_raft`` are ported; the other names
+of the JAX registries raise a KeyError naming their ROADMAP.md queue entry."""
 
 from __future__ import annotations
 
 import torch
 
 from dkt_stereo_tpu_torch.device import resolve_device
+from dkt_stereo_tpu_torch.losses.sequence import sequence_loss_raft
 from dkt_stereo_tpu_torch.models.raft_stereo import RAFTStereo, RAFTStereoConfig
 
 MODELS: dict[str, tuple] = {"RAFTStereo": (RAFTStereo, RAFTStereoConfig)}
@@ -18,6 +20,17 @@ _QUEUED = {
     "PCVNet": "Queue 1 item 8",
     "GWCNet": "Queue 1 item 9",
     "CGI_Stereo": "Queue 1 item 9",
+}
+
+# the reference's ``__losses__`` names (meta_arch/__init__.py:15-21) and the
+# model defaults of the JAX registry
+DEFAULT_LOSS = {"RAFTStereo": "sequence_loss_raft"}
+_QUEUED_LOSSES = {
+    "sequence_loss_igev": "Queue 1 item 7",
+    "sequence_loss_pcvnet": "Queue 1 item 8",
+    "loss_gwcnet": "Queue 1 item 9",
+    "loss_cgi": "Queue 1 item 9",
+    "ns_loss": "Queue 1 item 10",
 }
 
 
@@ -43,14 +56,31 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
                     m.bias.zero_()
 
 
-def create_model(config: dict, iters: int = 32, device=None, seed: int | None = None):
-    """Build the model a config dict names, in eval mode, on ``device``
-    (the GPU unless ``device="cpu"`` is passed). ``seed`` draws random
-    weights from a ``torch.Generator``; otherwise they are left to be
-    loaded (``weights.load_reference_pth``)."""
+def create_model(config: dict, iters: int = 32, device=None, seed: int | None = None,
+                 test_mode: bool = True):
+    """Build the model a config dict names on ``device`` (the GPU unless
+    ``device="cpu"`` is passed): in eval mode for ``test_mode``, else in
+    train mode. ``seed`` draws random weights from a ``torch.Generator``;
+    otherwise they are left to be loaded (``weights.load_reference_pth``)."""
     dev = resolve_device(device)
     model_cls, cfg_cls = get_model(config["model"])
-    model = model_cls(cfg_cls.from_dict(config), iters=iters, test_mode=True)
+    model = model_cls(cfg_cls.from_dict(config), iters=iters, test_mode=test_mode)
     if seed is not None:
         init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(dev).eval()
+    return model.to(dev).train(not test_mode)
+
+
+def make_loss_adapter(name: str, cfg=None, loss_func: str | None = None):
+    """The DKT step's loss interface, ``fn(outputs, flow_gt, valid) -> (loss,
+    metrics, mask, ok)`` (``dkt_stereo_tpu/models/registry.py:43-70``).
+    ``loss_func`` picks the loss by its reference name; None takes the
+    model's default. Names not ported yet raise a KeyError naming their
+    ROADMAP.md entry."""
+    get_model(name)
+    loss_func = loss_func or DEFAULT_LOSS[name]
+    if loss_func == "sequence_loss_raft":
+        return lambda out, gt, v: sequence_loss_raft(out["disp_preds"], gt, v)
+    where = _QUEUED_LOSSES.get(loss_func)
+    if where is not None:
+        raise KeyError(f"loss_func {loss_func!r} is not ported yet: ROADMAP.md {where}")
+    raise KeyError(f"unknown loss_func {loss_func!r}; ported: ['sequence_loss_raft']")

@@ -2,13 +2,15 @@
 
 The reference selects norms by string (core/extractor.py). On this slice:
   - ``"instance"``: InstanceNorm2d, eps 1e-5, no affine, no running stats.
-  - ``"batch"``: BatchNorm2d with eval-mode running statistics (the DKT
-    recipe always freezes BN; raft_stereo.py:56-59).
+  - ``"batch"``: :class:`FrozenBatchNorm2d`, BatchNorm with its running
+    statistics in train and eval mode alike (the DKT recipe always freezes
+    BN; raft_stereo.py:56-59). Its affine weight and bias stay trainable.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -39,12 +41,24 @@ class InstanceNorm(nn.Module):
         return c * torch.rsqrt(var + self.eps)
 
 
+class FrozenBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d that always normalises with its running statistics and
+    never updates them, whatever ``train()`` says: the reference's freeze_bn
+    (tools/ft_dkt.py:155-167) and the JAX package's
+    ``use_running_average=True``. The affine weight and bias are ordinary
+    parameters; the state dict keeps BatchNorm2d's names."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                            False, 0.0, self.eps)
+
+
 def Norm(norm_fn: str, channels: int) -> nn.Module:
     """String-dispatched norm module. A factory rather than a wrapper, so
     the BatchNorm's parameters sit at the reference's names (``norm1.weight``,
     not ``norm1.bn.weight``)."""
     if norm_fn == "batch":
-        return nn.BatchNorm2d(channels)
+        return FrozenBatchNorm2d(channels)
     if norm_fn == "instance":
         return InstanceNorm()
     raise NotImplementedError(

@@ -8,6 +8,9 @@ returns statistics per logical channel.
 
 :func:`encoder_stage` takes the plain path (:func:`encoder_stage_plain`)
 only for CPU tensors; for CUDA tensors it launches the kernel or raises.
+The kernel has no backward yet: on CUDA it refuses inputs that require grad
+while grad mode is on, rather than cut the graph (the plain CPU path keeps
+its autograd).
 """
 
 from __future__ import annotations
@@ -109,6 +112,9 @@ def encoder_stage(u, a1, b1, w, v=None, a2=None, b2=None, emit_h=False, relu_u=T
         _check("v", v, (B, H, W, C), u.dtype, dev)
         _check("a2", a2, (B, C), f32, dev)
         _check("b2", b2, (B, C), f32, dev)
+
+    _build.refuse_grad("encoder_stage", "Queue 2 K2 VJP (encoder_stage_ad)",
+                       u, a1, b1, w, v, a2, b2)
 
     w_hwio = w.to(u.dtype).permute(2, 3, 1, 0).contiguous()
     y = torch.empty_like(u)

@@ -20,7 +20,8 @@ def sample_row_1d(rows: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
     def tap(ix):
         inb = (ix >= 0) & (ix <= S - 1)
-        idx = ix.clamp(0, S - 1).long()
+        # a NaN position reads index 0 with weight 0 (its output is NaN)
+        idx = ix.nan_to_num(0.0).clamp(0, S - 1).long()
         # interpolation always in fp32 (rows may be a bf16 volume)
         return torch.gather(rows, -1, idx).float() * inb
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import re
 from collections import OrderedDict
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -36,7 +37,7 @@ _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
 
 def _walk(tree: dict, prefix=()):
     for k, v in tree.items():
-        if isinstance(v, dict):
+        if isinstance(v, Mapping):
             yield from _walk(v, prefix + (k,))
         else:
             yield prefix + (k,), v
@@ -67,6 +68,18 @@ def state_dict_from_flax(variables: dict) -> "OrderedDict[str, torch.Tensor]":
                 if name == "mean":
                     out[prefix + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return out
+
+
+def dkt_state_from_flax(state) -> dict:
+    """The port's student, EMA and teacher state dicts from a JAX
+    ``DKTTrainState`` whose leaves are numpy arrays (``params``,
+    ``ema_params``, ``teacher_params``), each through
+    :func:`state_dict_from_flax`. The optimizer state is not carried over."""
+    return {
+        "student": state_dict_from_flax(state.params),
+        "ema": state_dict_from_flax(state.ema_params),
+        "teacher": state_dict_from_flax(state.teacher_params),
+    }
 
 
 def load_reference_pth(model: torch.nn.Module, path) -> torch.nn.Module:

@@ -151,12 +151,20 @@ def test_registry_and_unported_options():
         get_model("NoSuchNet")
     for override in ({"corr_implementation": "alt"}, {"corr_implementation": "alt_cuda"},
                      {"corr_implementation": "cosine"}, {"backbone_type": "interpolate"},
-                     {"fast_in_stats": True}, {"remat_iters": True}):
+                     {"fast_in_stats": True}, {"shared_backbone": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             RAFTStereo(RAFTStereoConfig.from_dict({**PALLAS, **override}))
-    with pytest.raises(NotImplementedError, match="train mode"):
-        RAFTStereo(RAFTStereoConfig.from_dict(PALLAS), test_mode=False)
-    # the shipped training config names an option this slice lacks
+    # the shipped training config builds in train mode (remat_iters on)
     train = json.loads((ROOT / "configs/raft_stereo/train.json").read_text())
-    with pytest.raises(NotImplementedError, match="remat_iters"):
-        RAFTStereo(RAFTStereoConfig.from_dict(train))
+    model = create_model(train, iters=2, device="cpu", seed=0, test_mode=False)
+    assert model.training and not model.test_mode and model.cfg.remat_iters
+    # training options still to come name their ROADMAP entry
+    with pytest.raises(NotImplementedError, match="ROADMAP.md .*mix_fmap_image"):
+        RAFTStereo(RAFTStereoConfig.from_dict({**train, "corr_implementation": "mix_fmap_image"}),
+                   test_mode=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md .*K2 VJP"):
+        RAFTStereo(RAFTStereoConfig.from_dict(PALLAS), test_mode=False)
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md .*batched_teachers"):
+        DKTHyperParams(batched_teachers=True)
