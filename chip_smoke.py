@@ -32,8 +32,9 @@ out-of-tolerance result raises and exits non-zero:
      reg_cuda, remat_iters), B=8, 320x720, 16 student and 32 teacher
      iterations, through create_dkt_state/make_dkt_train_step on seeded
      synthetic batches: 1 warm-up and 5 timed steps with the time of each
-     part, exact K1 launch counts, and a profile of one step; then the
-     "kernels" JSON line and the card's line.
+     part, exact K1 launch counts, a profile of one step and an estimate
+     of the untraced idle share; then the "kernels" JSON line and the
+     card's line.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
@@ -628,6 +629,10 @@ def phase_train(torch, train_cfg, card):
           "top kernels:")
     for line in lines[:15]:
         print("  " + line[:160])
+    # not a measurement: the profiled step's kernel time against the timed
+    # steps' host time, which the profiler cannot see
+    print(f"untraced device idle share, estimated as 1 - profiled kernel ms / timed mean "
+          f"ms/step: {1 - busy / ms.mean():.3f}")
     return launches
 
 

@@ -27,7 +27,7 @@ import torch
 from dkt_stereo_tpu_torch.device import resolve_device
 from dkt_stereo_tpu_torch.dkt.ema import ema_update
 from dkt_stereo_tpu_torch.dkt.fande import fande_ensemble, fande_filter
-from dkt_stereo_tpu_torch.models.registry import create_model, get_model, make_loss_adapter
+from dkt_stereo_tpu_torch.models.registry import create_model, make_loss_adapter
 from dkt_stereo_tpu_torch.train.state import (
     DKTHyperParams,
     DKTTrainState,
@@ -90,7 +90,7 @@ def _l2_dist(a: torch.nn.Module, b: torch.nn.Module) -> torch.Tensor:
     return torch.stack(sq).sum().sqrt()
 
 
-def make_dkt_train_step(config: dict, hyper: DKTHyperParams, loss_adapter=None):
+def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
     """Returns ``step_fn(state, batch, generator=None, draws=None, mark=None)
     -> (state, metrics)``.
 
@@ -102,10 +102,7 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams, loss_adapter=None):
     "teachers", "fande", "student", "optimizer"), e.g. to record CUDA
     events. ``metrics`` are Python floats: loss, loss_GT, loss_PL, epe, 1px,
     3px, 5px, ema_divergence, teacher_divergence, ok, learning_rate."""
-    if loss_adapter is None:
-        _, cfg_cls = get_model(config["model"])
-        loss_adapter = make_loss_adapter(config["model"], cfg_cls.from_dict(config),
-                                         config.get("loss_func"))
+    loss_adapter = make_loss_adapter(config["model"], None, config.get("loss_func"))
     schedule = make_schedule(hyper)
 
     def step_fn(state: DKTTrainState, batch: dict, generator=None, draws=None, mark=None):

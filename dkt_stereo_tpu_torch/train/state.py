@@ -86,14 +86,15 @@ def make_optimizer(student: nn.Module, hyper: DKTHyperParams):
 
 @torch.no_grad()
 def clip_by_global_norm_(grads, max_norm: float = 1.0) -> torch.Tensor:
-    """optax.clip_by_global_norm in place: ``g`` stays when the global norm
-    is below ``max_norm``, else becomes ``(g / norm) * max_norm``. (torch's
-    ``clip_grad_norm_`` scales by ``max_norm / (norm + 1e-6)`` instead.)
-    Returns the norm before clipping. No host synchronisation."""
-    norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
-    keep = norm < max_norm
-    for g in grads:
-        g.copy_(torch.where(keep, g, (g / norm) * max_norm))
+    """optax.clip_by_global_norm in place: every ``g`` is divided by
+    ``max(norm, max_norm) / max_norm``, which for ``max_norm = 1`` is
+    optax's ``g`` below the norm and ``(g / norm) * 1`` above it, to the bit.
+    (torch's ``clip_grad_norm_`` scales by ``max_norm / (norm + 1e-6)``
+    instead.) A handful of foreach launches, no host synchronisation.
+    Returns the norm before clipping."""
+    grads = list(grads)
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    torch._foreach_div_(grads, norm.clamp_min(max_norm) / max_norm)
     return norm
 
 
