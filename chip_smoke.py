@@ -33,8 +33,20 @@ out-of-tolerance result raises and exits non-zero:
      iterations, through create_dkt_state/make_dkt_train_step on seeded
      synthetic batches: 1 warm-up and 5 timed steps with the time of each
      part, exact K1 launch counts, a profile of one step and an estimate
-     of the untraced idle share; then the "kernels" JSON line and the
-     card's line.
+     of the untraced idle share;
+ 10. K4 (IGEV geo lookup) vs its plain version at the IGEV main path's
+     shapes (1x184x320, geo D 48/24 x 8 channels, corr W2 320/160), bf16 and
+     fp32 pyramids, disparities far out of range, negative, above D and NaN
+     included; K4 refusing pyramids that require grad (it has no backward
+     yet);
+ 11. IGEV parity, kernels (card) vs plain path (CPU): fp32, corr_dtype
+     float32, TF32 off, 1x256x512, 2 iterations;
+ 12. the IGEV main path: configs/igev_stereo/pallas.json as shipped, bf16,
+     1x736x1280, 32 iterations, seeded random weights, through
+     make_forward_fn/_run_one, with exact launch counts (32 K4 a frame, no
+     K1 or K2), and a profile of one frame
+     (chiprun_out/chip_smoke_igev_profile.txt); then the "kernels" JSON line
+     and the card's line.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
@@ -273,6 +285,7 @@ def phase_main(torch, config, card):
 
 # device-time buckets of a profile, by kernel name; the first match wins
 BUCKETS = (
+    ("K4", r"geo_lookup_kernel"),
     ("K1 bwd", r"corr_lookup_bwd_kernel"),
     ("K1", r"corr_lookup_kernel"),
     ("K2", r"encoder_stage"),
@@ -636,6 +649,175 @@ def phase_train(torch, train_cfg, card):
     return launches
 
 
+IGEV_SHAPE = (1, 184, 320)  # 1/4 resolution of the 736x1280 main path
+IGEV_D = 48  # max_disp 192 / 4
+
+
+def phase_k4(torch):
+    """K4 vs its plain version at the IGEV main path's shapes, and its
+    refusal of pyramids that require grad."""
+    from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import geo_lookup, geo_lookup_plain
+
+    B, H, W1 = IGEV_SHAPE
+    C, r, L = 8, 4, 2
+    taps = 2 * r + 1
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    disp = torch.rand((B, H, W1, 1), generator=gen, device="cuda") * (IGEV_D + 20) - 10
+    disp.view(-1)[:9] = torch.tensor([-1e9, 1e9, -3.0, -0.5, 0.0, 17.0, IGEV_D - 1.0,
+                                      IGEV_D + 0.25, float("nan")])
+    coords = torch.arange(W1, dtype=torch.float32, device="cuda").view(1, 1, W1, 1)
+    coords = coords.expand(B, H, W1, 1).contiguous()
+    finite = torch.isfinite(disp[..., 0])
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        geo = [torch.randn((B, H, W1, IGEV_D >> i, C), generator=gen, device="cuda").to(dt)
+               for i in range(L)]
+        cor = [(4 * torch.randn((B, H, W1, W1 >> i), generator=gen, device="cuda")).to(dt)
+               for i in range(L)]
+        got = geo_lookup(geo, cor, disp, coords, r)
+        want = geo_lookup_plain(geo, cor, disp, coords, r)
+        check(got.shape == (B, H, W1, L * (C + 1) * taps), f"K4 output shape {tuple(got.shape)}")
+        # a NaN disparity gives zeros in the kernel (its position is clamped
+        # to the far left), NaN in the plain version
+        check(bool((got[~finite] == 0).all()), "K4: a NaN disparity did not give zeros")
+        err = float((got[finite] - want[finite]).abs().max())
+        vmax = max(float(v.abs().max()) for v in geo + cor)
+        # the kernel shares one fractional weight across the taps of a
+        # (pixel, level, channel); the plain version rounds each tap position
+        # on its own: at positions < 512 that moves a weight by <= 2^-15
+        tol = 1e-4 * vmax
+        check(err <= tol, f"K4 {dt} max-abs {err} > {tol}")
+        res[str(dt).split(".")[-1]] = (geo, cor, err)
+    geo, cor, _ = res["bfloat16"]
+    ms = cuda_ms(torch, lambda: geo_lookup(geo, cor, disp, coords, r), 200)
+    plain_ms = cuda_ms(torch, lambda: geo_lookup_plain(geo, cor, disp, coords, r), 20)
+    # bytes this run's data needs: the in-range geo slots (C values each)
+    # and corr entries that the taps read, disp and coords, the output
+    taps_read = 0
+    j = torch.arange(taps + 1, device="cuda")
+    d = disp.clamp(-1e6, 1e6)
+    for i in range(L):
+        for x, n, per in ((d / 2**i, geo[i].shape[3], C), ((coords - d) / 2**i, cor[i].shape[3], 1)):
+            idx = torch.floor(x - r) + j
+            taps_read += int(((idx >= 0) & (idx < n)).sum()) * per * geo[i].element_size()
+    out_bytes = B * H * W1 * L * (C + 1) * taps * 4
+    nbytes = taps_read + 2 * disp.numel() * 4 + out_bytes
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+
+    # no backward yet: refuse rather than cut the graph
+    n = geo_lookup.launches
+    try:
+        geo_lookup([geo[0].float().requires_grad_(), geo[1].float()], [c.float() for c in cor],
+                   disp, coords, r)
+    except RuntimeError as e:
+        check("K4 bwd" in str(e), f"K4 refusal names no ROADMAP entry: {e}")
+    else:
+        raise SmokeFailure("geo_lookup accepted a pyramid that requires grad")
+    check(geo_lookup.launches == n, "geo_lookup launched on a refused call")
+
+    print(f"K4 geo_lookup: max_abs fp32 {res['float32'][2]:.3e} bf16 {res['bfloat16'][2]:.3e} "
+          f"(tol 1e-4 x the volumes' scale; NaN disparity -> zeros) | bf16 pyramids geo "
+          f"{[tuple(v.shape) for v in geo]} corr {[tuple(v.shape) for v in cor]}: kernel_ms "
+          f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms none (no single PyTorch call computes "
+          f"the two-volume, two-level lookup) bound_ms {bound_ms:.4f} ({nbytes / 1e6:.2f} MB: "
+          f"{out_bytes / 1e6:.2f} written) | refuses a pyramid that requires grad (K4 bwd)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=None, max_abs_err=max(e for _, _, e in res.values()))
+
+
+def phase_igev_parity(torch, config):
+    """IGEV with the kernels on the card vs the plain path on the CPU, fp32
+    with TF32 off, 2 iterations; and the plain path on the card vs the CPU,
+    which measures what fp32 reordering alone moves."""
+    import dkt_stereo_tpu_torch.models.igev_stereo as igev
+    from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
+    from dkt_stereo_tpu_torch.models.registry import create_model
+    from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import geo_lookup, geo_lookup_plain
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = {**config, "mixed_precision": False, "corr_dtype": "float32"}
+    iters = 2
+    gpu = create_model(cfg, iters=iters, device="cuda", seed=0)
+    # the disparity head's last conv scaled by 0.05, as in the CPU test
+    # (tests/test_torch_igev.py): an iteration then moves the disparity by a
+    # few px, as a trained model's does, rather than by ~100 px, where fp32
+    # reordering alone grows about fivefold an iteration
+    with torch.no_grad():
+        gpu.update_block.disp_head.conv2.weight.mul_(0.05)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    rng = np.random.default_rng(9)
+    img1, img2 = (rng.uniform(0, 255, (256, 512, 3)).astype(np.float32) for _ in range(2))
+    n = geo_lookup.launches
+    d_gpu, _ = _run_one(make_forward_fn(gpu, device="cuda"), img1, img2)
+    check(geo_lookup.launches - n == iters, f"K4 launches {geo_lookup.launches - n} != {iters}")
+    d_cpu, _ = _run_one(make_forward_fn(cpu, device="cpu"), img1, img2)
+    igev.geo_lookup = geo_lookup_plain  # the plain lookup on the card, for the floor only
+    try:
+        d_plain, _ = _run_one(make_forward_fn(gpu, device="cuda"), img1, img2)
+    finally:
+        igev.geo_lookup = geo_lookup
+    torch.backends.cudnn.allow_tf32 = True
+    err = float(np.abs(d_gpu - d_cpu).max())
+    floor = float(np.abs(d_plain - d_cpu).max())
+    # the JAX package's bound between its reg and Pallas lookups
+    # (tests/test_pallas_geo.py) and its packed and direct aggregation
+    # (tests/test_igev_packed.py); twice the plain-vs-plain difference
+    # where fp32 reordering alone comes near it
+    tol = max(1e-3, 2 * floor)
+    print(f"IGEV parity (fp32, corr_dtype float32, TF32 off, 1x256x512, {iters} iters): disp_up "
+          f"max_abs kernels-vs-plain {err:.3e} px (max |disp| {np.abs(d_cpu).max():.1f} px, tol "
+          f"{tol:.1e}) | plain on the card vs plain on the CPU {floor:.3e} px")
+    check(np.isfinite(d_gpu).all() and err <= tol, f"IGEV parity {err} > {tol}")
+    del gpu, cpu
+
+
+def phase_igev_main(torch, config, card):
+    from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
+    from dkt_stereo_tpu_torch.models.registry import create_model
+    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup, corr_lookup_bwd
+    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage
+    from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import geo_lookup
+
+    iters = 32
+    model = create_model(config, iters=iters, seed=0)
+    forward = make_forward_fn(model)
+    rng = np.random.default_rng(10)
+    img1, img2 = (rng.uniform(0, 255, (736, 1280, 3)).astype(np.float32) for _ in range(2))
+    _run_one(forward, img1, img2)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+
+    geo_lookup.launches = corr_lookup.launches = corr_lookup_bwd.launches = 0
+    encoder_stage.launches = 0
+    times = []
+    for _ in range(MAIN_FRAMES):
+        disp, dt = _run_one(forward, img1, img2)
+        times.append(dt)
+    launches = {"geo_lookup": geo_lookup.launches, "corr_lookup": corr_lookup.launches,
+                "corr_lookup_bwd": corr_lookup_bwd.launches,
+                "encoder_stage": encoder_stage.launches}
+
+    check(disp.shape == (736, 1280), f"IGEV disp shape {disp.shape}")
+    check(bool(np.isfinite(disp).all()), "IGEV: non-finite disparity")
+    want = {"geo_lookup": iters * MAIN_FRAMES, "corr_lookup": 0, "corr_lookup_bwd": 0,
+            "encoder_stage": 0}
+    check(launches == want, f"IGEV launch counts {launches} != {want}")
+    ms = 1e3 * np.asarray(times)
+    print(f"IGEV main path (igev_stereo/pallas.json, bf16, 1x736x1280, {iters} iters, "
+          f"{MAIN_FRAMES} frames): ms/frame median {np.median(ms):.2f} mean {ms.mean():.2f} "
+          f"min {ms.min():.2f} max {ms.max():.2f} | frames/s {1e3 / ms.mean():.3f} | "
+          f"launches {launches} | peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"| disp range [{disp.min():.2f}, {disp.max():.2f}] | {card}")
+
+    wall, busy, lines, buckets = device_profile(
+        torch, lambda: _run_one(forward, img1, img2)[1], "chip_smoke_igev_profile.txt")
+    print(f"profile of one IGEV frame (profiler on): wall {wall:.2f} ms, kernels {busy:.2f} ms, "
+          f"device idle share {1 - busy / wall:.3f}; by bucket: {buckets}; top kernels:")
+    for line in lines[:12]:
+        print("  " + line[:160])
+    return launches
+
+
 def main():
     import torch
 
@@ -669,8 +851,14 @@ def main():
     phase_train_parity(torch, train_cfg)
     train = phase_train(torch, train_cfg, card)
 
+    k4 = phase_k4(torch)
+    igev_cfg = json.loads((ROOT / "configs/igev_stereo/pallas.json").read_text())
+    phase_igev_parity(torch, igev_cfg)
+    igev = phase_igev_main(torch, igev_cfg, card)
+
     def launches(name):
-        by_path = {"inference": infer.get(name, 0), "training": train.get(name, 0)}
+        by_path = {"inference": infer.get(name, 0), "training": train.get(name, 0),
+                   "igev_inference": igev.get(name, 0)}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     k2p = k2["plain"]
@@ -688,6 +876,9 @@ def main():
              **launches("encoder_stage"),
              max_abs_err=max(r["max_abs_err"] for r in k2.values()),
              **{k: k2p[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+        dict(name="geo_lookup", route="cuda", source="dkt_stereo_tpu_torch/csrc/geo_lookup.cu",
+             replaces="dkt_stereo_tpu/ops/pallas/geo_lookup.py:302",
+             **launches("geo_lookup"), **k4),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,8 +2,9 @@
 (``dkt_stereo_tpu/models/registry.py``), the model factory and the loss
 adapter of the DKT step.
 
-Only RAFTStereo and its ``sequence_loss_raft`` are ported; the other names
-of the JAX registries raise a KeyError naming their ROADMAP.md queue entry."""
+RAFTStereo (test and train mode, with its ``sequence_loss_raft``) and
+IGEVStereo (test mode) are ported; the other names of the JAX registries
+raise a KeyError naming their ROADMAP.md queue entry."""
 
 from __future__ import annotations
 
@@ -11,12 +12,15 @@ import torch
 
 from dkt_stereo_tpu_torch.device import resolve_device
 from dkt_stereo_tpu_torch.losses.sequence import sequence_loss_raft
+from dkt_stereo_tpu_torch.models.igev_stereo import IGEVStereo, IGEVStereoConfig
 from dkt_stereo_tpu_torch.models.raft_stereo import RAFTStereo, RAFTStereoConfig
 
-MODELS: dict[str, tuple] = {"RAFTStereo": (RAFTStereo, RAFTStereoConfig)}
+MODELS: dict[str, tuple] = {
+    "RAFTStereo": (RAFTStereo, RAFTStereoConfig),
+    "IGEVStereo": (IGEVStereo, IGEVStereoConfig),
+}
 
 _QUEUED = {
-    "IGEVStereo": "Queue 1 item 7",
     "PCVNet": "Queue 1 item 8",
     "GWCNet": "Queue 1 item 9",
     "CGI_Stereo": "Queue 1 item 9",
@@ -24,7 +28,7 @@ _QUEUED = {
 
 # the reference's ``__losses__`` names (meta_arch/__init__.py:15-21) and the
 # model defaults of the JAX registry
-DEFAULT_LOSS = {"RAFTStereo": "sequence_loss_raft"}
+DEFAULT_LOSS = {"RAFTStereo": "sequence_loss_raft", "IGEVStereo": "sequence_loss_igev"}
 _QUEUED_LOSSES = {
     "sequence_loss_igev": "Queue 1 item 7",
     "sequence_loss_pcvnet": "Queue 1 item 8",
@@ -44,13 +48,19 @@ def get_model(name: str):
 
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
-    """Seeded random init: kaiming-normal fan-out conv weights and zero
-    biases (core/extractor.py:155-162, the JAX package's ``kaiming_out``);
-    norms keep their identity init."""
+    """Seeded random init: kaiming-normal fan-out weights for every 2-D and
+    3-D conv and transposed conv, and zero biases (core/extractor.py:155-162,
+    the JAX package's ``kaiming_out`` / ``he_3d``); norms keep their
+    identity init. The fan-out is ``weight.shape[0]`` times the kernel's
+    size, as torch's ``kaiming_normal_(mode="fan_out")`` counts it: the
+    output channels of a conv (a depthwise conv included), the input
+    channels of a transposed conv, which is also what the JAX initializer
+    counts on that conv's (k, k, O, I) kernel."""
+    convs = (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.ConvTranspose2d, torch.nn.ConvTranspose3d)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, torch.nn.Conv2d):
-                fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+            if isinstance(m, convs):
+                fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
                 m.weight.normal_(0.0, (2.0 / fan_out) ** 0.5, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()

@@ -162,10 +162,14 @@ class MultiBasicEncoder(nn.Module):
     Returns a tuple over scales (1/4, 1/8, 1/16 at downsample=2) of
     ``[head_0(x), head_1(x), ...]``, one head per entry of ``output_dim``;
     the finest scale uses dim[2], the coarsest dim[0]. All modules are built
-    whatever ``num_layers`` is, as in the reference."""
+    whatever ``num_layers`` is, as in the reference. ``head_names`` names the
+    three head lists fine -> coarse: RAFT's ``outputs08/16/32``, or IGEV's
+    copy of the encoder, which names them by true scale
+    (``outputs04/08/16``)."""
 
     def __init__(self, output_dim=((128, 128, 128),), norm_fn="batch", downsample=3,
-                 num_layers=3, fused_fullres=False):
+                 num_layers=3, fused_fullres=False,
+                 head_names=("outputs08", "outputs16", "outputs32")):
         super().__init__()
         d = downsample
         self.norm_fn, self.downsample, self.num_layers = norm_fn, d, num_layers
@@ -178,15 +182,15 @@ class MultiBasicEncoder(nn.Module):
         self.layer3 = _res_pair(96, 128, norm_fn, 1 + (d > 0))
         self.layer4 = _res_pair(128, 128, norm_fn, 2)
         self.layer5 = _res_pair(128, 128, norm_fn, 2)
-        self.outputs08 = nn.ModuleList(
-            nn.Sequential(ResidualBlock(128, 128, norm_fn, 1), nn.Conv2d(128, dim[2], 3, padding=1))
-            for dim in output_dim
-        )
-        self.outputs16 = nn.ModuleList(
-            nn.Sequential(ResidualBlock(128, 128, norm_fn, 1), nn.Conv2d(128, dim[1], 3, padding=1))
-            for dim in output_dim
-        )
-        self.outputs32 = nn.ModuleList(nn.Conv2d(128, dim[0], 3, padding=1) for dim in output_dim)
+        self.head_names = head_names
+        for name, i in zip(head_names[:2], (2, 1)):
+            self.add_module(name, nn.ModuleList(
+                nn.Sequential(ResidualBlock(128, 128, norm_fn, 1),
+                              nn.Conv2d(128, dim[i], 3, padding=1))
+                for dim in output_dim
+            ))
+        self.add_module(head_names[2], nn.ModuleList(
+            nn.Conv2d(128, dim[0], 3, padding=1) for dim in output_dim))
 
     def forward(self, x):
         if _fused_gate(self.fused_fullres, self.downsample, self.norm_fn, x):
@@ -196,13 +200,9 @@ class MultiBasicEncoder(nn.Module):
             x = self.layer1(x)
         x = self.layer2(x)
         x = self.layer3(x)
-        outputs08 = [f(x) for f in self.outputs08]
-        if self.num_layers == 1:
-            return (outputs08,)
-        y = self.layer4(x)
-        outputs16 = [f(y) for f in self.outputs16]
-        if self.num_layers == 2:
-            return (outputs08, outputs16)
-        z = self.layer5(y)
-        outputs32 = [f(z) for f in self.outputs32]
-        return (outputs08, outputs16, outputs32)
+        heads = [getattr(self, n) for n in self.head_names]
+        out = [[f(x) for f in heads[0]]]
+        for i, layer in enumerate((self.layer4, self.layer5)[: self.num_layers - 1]):
+            x = layer(x)
+            out.append([f(x) for f in heads[i + 1]])
+        return tuple(out)

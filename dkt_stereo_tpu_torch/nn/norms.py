@@ -5,6 +5,7 @@ The reference selects norms by string (core/extractor.py). On this slice:
   - ``"batch"``: :class:`FrozenBatchNorm2d`, BatchNorm with its running
     statistics in train and eval mode alike (the DKT recipe always freezes
     BN; raft_stereo.py:56-59). Its affine weight and bias stay trainable.
+    :class:`FrozenBatchNorm3d` is the same over IGEV's cost volumes.
 """
 
 from __future__ import annotations
@@ -51,6 +52,12 @@ class FrozenBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                             False, 0.0, self.eps)
+
+
+class FrozenBatchNorm3d(nn.BatchNorm3d):
+    """:class:`FrozenBatchNorm2d` over (B, C, D, H, W) volumes."""
+
+    forward = FrozenBatchNorm2d.forward
 
 
 def Norm(norm_fn: str, channels: int) -> nn.Module:

@@ -36,10 +36,13 @@ def fmap_pyramid(fmap2: torch.Tensor, num_levels: int, factor: int = 2) -> list[
 
 
 def corr_pyramid_fused(
-    fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4, out_dtype=None
+    fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4, out_dtype=None,
+    scaled: bool = True,
 ) -> list[torch.Tensor]:
     """Correlation pyramid built level by level as ``f1 @ pooled(f2)``:
-    (B, H, W1, D), (B, H, W2, D) -> [(B, H, W1, W2 / 2^i)].
+    (B, H, W1, D), (B, H, W2, D) -> [(B, H, W1, W2 / 2^i)]. ``scaled=False``
+    omits the 1/sqrt(D) factor (IGEV's init correlation,
+    meta_arch/igev_stereo/geometry.py:62-69).
 
     Equal to pooling the full volume, because the [1, 2] average pool is
     linear in fmap2. The products run in fp32 on the (possibly bf16-rounded)
@@ -49,7 +52,9 @@ def corr_pyramid_fused(
     f1 = fmap1.float()
     pyramid = []
     for f2l in fmap_pyramid(fmap2, num_levels):
-        corr = torch.matmul(f1, f2l.float().transpose(-1, -2)) * scale
+        corr = torch.matmul(f1, f2l.float().transpose(-1, -2))
+        if scaled:
+            corr = corr * scale
         pyramid.append(corr.to(out_dtype) if out_dtype is not None else corr)
     return pyramid
 

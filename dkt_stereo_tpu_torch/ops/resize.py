@@ -1,7 +1,8 @@
 """Resizing / pooling with torch semantics, over NCHW tensors
-(``dkt_stereo_tpu/ops/resize.py``: ``interp_bilinear_align``, ``avg_pool2d``,
-``pool2x``). The JAX package writes these as matmuls and a depthwise conv for
-the TPU; here they are the PyTorch operators they reproduce."""
+(``dkt_stereo_tpu/ops/resize.py``: ``interp_bilinear_align``,
+``interp_nearest``, ``avg_pool2d``, ``pool2x``). The JAX package writes
+these as matmuls and a depthwise conv for the TPU; here they are PyTorch
+operators and an index gather."""
 
 from __future__ import annotations
 
@@ -15,6 +16,17 @@ def interp_bilinear_align(x: torch.Tensor, out_hw) -> torch.Tensor:
     if tuple(out_hw) == tuple(x.shape[2:]):
         return x
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=True)
+
+
+def interp_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Nearest resize of NCHW ``x`` to (Ho, Wo): output row i reads input row
+    ``floor(i * H / Ho)`` in integer arithmetic, as the JAX form does (torch's
+    ``mode="nearest"`` computes the same index in floating point)."""
+    H, W = x.shape[2:]
+    Ho, Wo = out_hw
+    rows = torch.arange(Ho, device=x.device) * H // Ho
+    cols = torch.arange(Wo, device=x.device) * W // Wo
+    return x.index_select(2, rows).index_select(3, cols)
 
 
 def avg_pool2d(x: torch.Tensor, window, stride, padding=(0, 0)) -> torch.Tensor:
