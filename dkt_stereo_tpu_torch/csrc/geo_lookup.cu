@@ -22,14 +22,18 @@
 // whole rows (with a bf16x2 split for fp32 accuracy) because the TPU has no
 // cheap gather; here the taps are read directly. One thread owns one
 // (pixel, level, part), part = a geo channel c < C or the corr row (c = C),
-// so thread t writes out[t*(2r+1) .. t*(2r+1)+2r]: neighbouring threads write
-// neighbouring outputs and a warp's stores cover one contiguous span. The C
-// threads of a (pixel, level) read the same D slots at neighbouring channels
-// (16 B per slot in bf16). All taps of one (pixel, level, part) share one
-// fractional weight, so a thread reads its 2r+2 consecutive values once and
-// emits 2r+1 outputs. The levels are separate tensors of different sizes,
-// passed as pointers and sizes: nothing is concatenated per call. Volumes
-// are read as bf16 or fp32; interpolation is fp32.
+// so thread t's outputs are out[t*(2r+1) .. t*(2r+1)+2r] and a block's
+// outputs are one contiguous span. Each thread writes its 2r+1 values to
+// shared memory (an odd stride: no bank conflicts), and the block then
+// stores the span with consecutive threads on consecutive floats, so every
+// warp store fills whole 128-byte lines. The C threads of a (pixel, level)
+// read the same D slots at neighbouring channels (16 B per slot in bf16).
+// All taps of one (pixel, level, part) share one fractional weight, so a
+// thread reads its 2r+2 consecutive values once and emits 2r+1 outputs.
+// The levels are separate tensors of different sizes, passed as pointers
+// and sizes and picked with selects (an indexed kernel parameter would be
+// copied to local memory): nothing is concatenated per call. Volumes are
+// read as bf16 or fp32; interpolation is fp32.
 //
 // The position is clamped before the integer conversion, so a disparity of
 // +-1e9 gives zeros. A NaN position is clamped to the far left
@@ -55,58 +59,76 @@ struct Levels {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// a[i] for a level index only known at run time, without indexing the
+// kernel parameter (which would move it to local memory)
+template <typename A>
+__device__ __forceinline__ A pick(const A (&a)[kMaxLevels], int i) {
+  return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+}
+
 template <typename T>
 __global__ void geo_lookup_kernel(Levels lv, int levels, int channels,
                                   const float* __restrict__ disp,
                                   const float* __restrict__ coords, float* __restrict__ out,
                                   long long npix, int radius) {
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  extern __shared__ float stage[];  // blockDim.x * (2r+1) outputs
   const int parts = channels + 1;
-  if (t >= npix * levels * parts) return;
-  const long long pix = t / (levels * parts);
-  const int rem = (int)(t - pix * levels * parts);
-  const int lvl = rem / parts;
-  const int c = rem - lvl * parts;
   const int taps = 2 * radius + 1;
-  // x / 2^lvl is exact in fp32
-  const float scale = 1.0f / (float)(1 << lvl);
-  const float d = disp[pix];
+  const long long total = npix * levels * parts;
+  const long long first = blockIdx.x * (long long)blockDim.x;
+  const long long t = first + threadIdx.x;
 
-  const T* src;
-  long long stride;
-  int n;
-  float x;
-  if (c < channels) {  // geo channel c, along disparity
-    n = lv.depth[lvl];
-    src = static_cast<const T*>(lv.geo[lvl]) + pix * (long long)n * channels + c;
-    stride = channels;
-    x = d * scale;
-  } else {  // init correlation, along the right image's width
-    n = lv.w2[lvl];
-    src = static_cast<const T*>(lv.corr[lvl]) + pix * (long long)n;
-    stride = 1;
-    x = (coords[pix] - d) * scale;
-  }
+  if (t < total) {
+    const long long pix = t / (levels * parts);
+    const int rem = (int)(t - pix * levels * parts);
+    const int lvl = rem / parts;
+    const int c = rem - lvl * parts;
+    // x / 2^lvl is exact in fp32
+    const float scale = 1.0f / (float)(1 << lvl);
+    const float d = disp[pix];
 
-  // the first tap sits r to the left; any position left of -(2r+2) or right
-  // of n reads only zeros: clamp there before converting to int
-  float p0 = x - (float)radius;
-  p0 = fminf(fmaxf(p0, -(float)(taps + 2)), (float)(n + 1));
-  const float f0 = floorf(p0);
-  const int x0 = (int)f0;
-  const float w = p0 - f0;
+    const T* src;
+    long long stride;
+    int n;
+    float x;
+    if (c < channels) {  // geo channel c, along disparity
+      n = pick(lv.depth, lvl);
+      src = static_cast<const T*>(pick(lv.geo, lvl)) + pix * (long long)n * channels + c;
+      stride = channels;
+      x = d * scale;
+    } else {  // init correlation, along the right image's width
+      n = pick(lv.w2, lvl);
+      src = static_cast<const T*>(pick(lv.corr, lvl)) + pix * (long long)n;
+      stride = 1;
+      x = (coords[pix] - d) * scale;
+    }
 
-  float v[kMaxVals];
+    // the first tap sits r to the left; any position left of -(2r+2) or
+    // right of n reads only zeros: clamp there before converting to int
+    float p0 = x - (float)radius;
+    p0 = fminf(fmaxf(p0, -(float)(taps + 2)), (float)(n + 1));
+    const float f0 = floorf(p0);
+    const int x0 = (int)f0;
+    const float w = p0 - f0;
+
+    float v[kMaxVals];
 #pragma unroll
-  for (int j = 0; j < kMaxVals; ++j) {
-    const int ix = x0 + j;
-    v[j] = (j <= taps && ix >= 0 && ix < n) ? to_f32(src[ix * stride]) : 0.0f;
-  }
-  float* o = out + t * taps;
+    for (int j = 0; j < kMaxVals; ++j) {
+      const int ix = x0 + j;
+      v[j] = (j <= taps && ix >= 0 && ix < n) ? to_f32(src[ix * stride]) : 0.0f;
+    }
+    float* o = stage + threadIdx.x * taps;
 #pragma unroll
-  for (int k = 0; k < kMaxVals - 1; ++k) {
-    if (k < taps) o[k] = v[k] * (1.0f - w) + v[k + 1] * w;
+    for (int k = 0; k < kMaxVals - 1; ++k) {
+      if (k < taps) o[k] = v[k] * (1.0f - w) + v[k + 1] * w;
+    }
   }
+  __syncthreads();
+  // the block's outputs: out[first*taps ..], contiguous, stored coalesced
+  const long long mine = total - first < blockDim.x ? total - first : blockDim.x;
+  const int count = (int)mine * taps;
+  float* dst = out + first * taps;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = stage[i];
 }
 
 }  // namespace
@@ -127,14 +149,15 @@ extern "C" int geo_lookup_launch(const void* geo0, const void* geo1, const void*
                {d0, d1, d2, d3},
                {w2_0, w2_1, w2_2, w2_3}};
   const int threads = 256;
+  const size_t smem = threads * (2 * radius + 1) * sizeof(float);  // <= 17 KB
   const long long total = npix * levels * (channels + 1);
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    geo_lookup_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(lv, levels, channels, disp,
-                                                                coords, out, npix, radius);
+    geo_lookup_kernel<__nv_bfloat16><<<blocks, threads, smem, s>>>(lv, levels, channels, disp,
+                                                                   coords, out, npix, radius);
   else
-    geo_lookup_kernel<float><<<blocks, threads, 0, s>>>(lv, levels, channels, disp, coords,
-                                                        out, npix, radius);
+    geo_lookup_kernel<float><<<blocks, threads, smem, s>>>(lv, levels, channels, disp, coords,
+                                                           out, npix, radius);
   return (int)cudaGetLastError();
 }
