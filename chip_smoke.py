@@ -741,8 +741,8 @@ def phase_igev_parity(torch, config):
     gpu = create_model(cfg, iters=iters, device="cuda", seed=0)
     # the disparity head's last conv scaled by 0.05, as in the CPU test
     # (tests/test_torch_igev.py): an iteration then moves the disparity by a
-    # few px, as a trained model's does, rather than by ~100 px, where fp32
-    # reordering alone grows about fivefold an iteration
+    # few px, as a trained model's does, rather than by tens to hundreds of
+    # px, where fp32 reordering alone grows with every iteration
     with torch.no_grad():
         gpu.update_block.disp_head.conv2.weight.mul_(0.05)
     cpu = copy.deepcopy(gpu).to("cpu")
