@@ -37,16 +37,31 @@ out-of-tolerance result raises and exits non-zero:
  10. K4 (IGEV geo lookup) vs its plain version at the IGEV main path's
      shapes (1x184x320, geo D 48/24 x 8 channels, corr W2 320/160), bf16 and
      fp32 pyramids, disparities far out of range, negative, above D and NaN
-     included; K4 refusing pyramids that require grad (it has no backward
-     yet);
- 11. IGEV parity, kernels (card) vs plain path (CPU): fp32, corr_dtype
+     included;
+ 11. K4's backward (the dgeo and the dcorr kernel) vs its plain version at
+     the IGEV training shapes (8x80x184, geo D 48/24 x 8, corr W2 184/92),
+     bf16 and fp32 pyramids, the same hostile disparities (NaN gives
+     zeros), the adjoint check <K4(v), g> = <v, K4^T(g)> against the
+     forward kernel, and the time autograd spends summing the
+     per-iteration d/dgeo in bf16;
+ 12. IGEV parity, kernels (card) vs plain path (CPU): fp32, corr_dtype
      float32, TF32 off, 1x256x512, 2 iterations;
- 12. the IGEV main path: configs/igev_stereo/pallas.json as shipped, bf16,
+ 13. the IGEV main path: configs/igev_stereo/pallas.json as shipped, bf16,
      1x736x1280, 32 iterations, seeded random weights, through
      make_forward_fn/_run_one, with exact launch counts (32 K4 a frame, no
      K1 or K2), and a profile of one frame
-     (chiprun_out/chip_smoke_igev_profile.txt); then the "kernels" JSON line
-     and the card's line.
+     (chiprun_out/chip_smoke_igev_profile.txt);
+ 14. IGEV DKT train-step parity, kernels (card) vs plain path (CPU): fp32,
+     TF32 off, 1x64x128, 2 student and 2 teacher iterations,
+     freeze_backbone off so that both backward kernels run (exact counts
+     8/2/2), same weights and draws; losses, and gradients by module;
+ 15. the IGEV training path: configs/igev_stereo/train.json as shipped
+     (bf16, reg_cuda, remat_iters, freeze_backbone), B=8, 320x736, 16
+     student and 32 teacher iterations: 1 warm-up and 5 timed steps with
+     the time of each part, exact launch counts (96 K4, 16 dgeo, 0 dcorr a
+     step, no K1 or K2), a profile of one step
+     (chiprun_out/chip_smoke_igev_train_profile.txt) and an estimate of the
+     untraced idle share; then the "kernels" JSON line and the card's line.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
@@ -90,6 +105,32 @@ def cuda_ms(torch, fn, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def _wrappers():
+    """Every kernel wrapper; each adds one to its ``launches`` where it
+    launches its kernel, and nowhere else."""
+    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup, corr_lookup_bwd
+    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage
+    from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import (
+        geo_lookup, geo_lookup_bwd_corr, geo_lookup_bwd_geo)
+
+    return (corr_lookup, corr_lookup_bwd, encoder_stage, geo_lookup, geo_lookup_bwd_geo,
+            geo_lookup_bwd_corr)
+
+
+def kernel_counts():
+    """Launch counts by the kernels line's names."""
+    return {f.__name__: f.launches for f in _wrappers()}
+
+
+def zero_counts():
+    for f in _wrappers():
+        f.launches = 0
+
+
+def _diff(after, before):
+    return {k: after[k] - before[k] for k in after}
 
 
 def gpu_line():
@@ -251,8 +292,6 @@ def phase_parity(torch, config):
 def phase_main(torch, config, card):
     from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
     from dkt_stereo_tpu_torch.models.registry import create_model
-    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup
-    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage
 
     iters = 32
     model = create_model(config, iters=iters, seed=0)
@@ -262,17 +301,17 @@ def phase_main(torch, config, card):
     _run_one(forward, img1, img2)  # warm-up
     torch.cuda.reset_peak_memory_stats()
 
-    corr_lookup.launches = 0
-    encoder_stage.launches = 0
+    zero_counts()
     times = []
     for _ in range(MAIN_FRAMES):
         disp, dt = _run_one(forward, img1, img2)
         times.append(dt)
-    launches = {"corr_lookup": corr_lookup.launches, "encoder_stage": encoder_stage.launches}
+    launches = kernel_counts()
 
     check(disp.shape == (736, 1280), f"disp shape {disp.shape}")
     check(bool(np.isfinite(disp).all()), "non-finite disparity")
-    want = {"corr_lookup": iters * MAIN_FRAMES, "encoder_stage": 4 * MAIN_FRAMES}
+    want = {**dict.fromkeys(launches, 0), "corr_lookup": iters * MAIN_FRAMES,
+            "encoder_stage": 4 * MAIN_FRAMES}
     check(launches == want, f"launch counts {launches} != {want}")
     ms = 1e3 * np.asarray(times)
     print(f"main path (pallas.json, bf16, 1x736x1280, {iters} iters, {MAIN_FRAMES} frames): "
@@ -285,6 +324,7 @@ def phase_main(torch, config, card):
 
 # device-time buckets of a profile, by kernel name; the first match wins
 BUCKETS = (
+    ("K4 bwd", r"geo_lookup_bwd"),
     ("K4", r"geo_lookup_kernel"),
     ("K1 bwd", r"corr_lookup_bwd_kernel"),
     ("K1", r"corr_lookup_kernel"),
@@ -553,8 +593,6 @@ TRAIN_PARTS = ("ema", "teachers", "fande", "student", "optimizer")
 def phase_train(torch, train_cfg, card):
     """train.json at full width: 1 warm-up and TRAIN_STEPS timed DKT steps
     at B=8, 320x720, 16 student / 32 teacher iterations."""
-    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup, corr_lookup_bwd
-    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage
     from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
     from dkt_stereo_tpu_torch.train.state import DKTHyperParams
 
@@ -577,7 +615,7 @@ def phase_train(torch, train_cfg, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    corr_lookup.launches = corr_lookup_bwd.launches = encoder_stage.launches = 0
+    zero_counts()
     times, parts, per_step, metrics = [], {p: [] for p in TRAIN_PARTS}, [], []
     for _ in range(TRAIN_STEPS):
         batch = _train_batch(torch, gen, B, H, W, "cuda")
@@ -587,7 +625,7 @@ def phase_train(torch, train_cfg, card):
             events[name] = torch.cuda.Event(enable_timing=True)
             events[name].record()
 
-        before = (corr_lookup.launches, corr_lookup_bwd.launches)
+        before = kernel_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mark("start")
@@ -598,17 +636,17 @@ def phase_train(torch, train_cfg, card):
         for p in TRAIN_PARTS:
             parts[p].append(events[prev].elapsed_time(events[p]))
             prev = p
-        per_step.append((corr_lookup.launches - before[0], corr_lookup_bwd.launches - before[1]))
+        per_step.append(_diff(kernel_counts(), before))
         metrics.append(m)
-    launches = {"corr_lookup": corr_lookup.launches, "corr_lookup_bwd": corr_lookup_bwd.launches,
-                "encoder_stage": encoder_stage.launches}
+    launches = kernel_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     check(all(x["ok"] == 1.0 for x in metrics), f"a step was not ok: {[x['ok'] for x in metrics]}")
     check(all(np.isfinite(x["loss"]) for x in metrics), "non-finite loss")
-    # 2 x 32 teacher iterations + 16 student + 16 recomputed by remat; 16 backward
-    check(all(c == (96, 16) for c in per_step), f"K1 launches per step {per_step} != (96, 16)")
-    check(launches["encoder_stage"] == 0, "K2 launched on the training path")
+    # 2 x 32 teacher iterations + 16 student + 16 recomputed by remat; 16
+    # backward; no K2 (pallas_encoder off) and no K4
+    want = {**dict.fromkeys(launches, 0), "corr_lookup": 96, "corr_lookup_bwd": 16}
+    check(all(c == want for c in per_step), f"launches per step {per_step} != {want}")
     moved = [k for k, v in state.student.named_parameters() if not torch.equal(v, student0[k])]
     n_params = len(list(state.student.parameters()))
     check(len(moved) == n_params, f"only {len(moved)} of {n_params} student tensors moved")
@@ -654,8 +692,7 @@ IGEV_D = 48  # max_disp 192 / 4
 
 
 def phase_k4(torch):
-    """K4 vs its plain version at the IGEV main path's shapes, and its
-    refusal of pyramids that require grad."""
+    """K4 vs its plain version at the IGEV main path's shapes."""
     from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import geo_lookup, geo_lookup_plain
 
     B, H, W1 = IGEV_SHAPE
@@ -704,25 +741,134 @@ def phase_k4(torch):
     nbytes = taps_read + 2 * disp.numel() * 4 + out_bytes
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
 
-    # no backward yet: refuse rather than cut the graph
-    n = geo_lookup.launches
-    try:
-        geo_lookup([geo[0].float().requires_grad_(), geo[1].float()], [c.float() for c in cor],
-                   disp, coords, r)
-    except RuntimeError as e:
-        check("K4 bwd" in str(e), f"K4 refusal names no ROADMAP entry: {e}")
-    else:
-        raise SmokeFailure("geo_lookup accepted a pyramid that requires grad")
-    check(geo_lookup.launches == n, "geo_lookup launched on a refused call")
 
     print(f"K4 geo_lookup: max_abs fp32 {res['float32'][2]:.3e} bf16 {res['bfloat16'][2]:.3e} "
           f"(tol 1e-4 x the volumes' scale; NaN disparity -> zeros) | bf16 pyramids geo "
           f"{[tuple(v.shape) for v in geo]} corr {[tuple(v.shape) for v in cor]}: kernel_ms "
           f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms none (no single PyTorch call computes "
           f"the two-volume, two-level lookup) bound_ms {bound_ms:.4f} ({nbytes / 1e6:.2f} MB: "
-          f"{out_bytes / 1e6:.2f} written) | refuses a pyramid that requires grad (K4 bwd)")
+          f"{out_bytes / 1e6:.2f} written)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
                 library_ms=None, max_abs_err=max(e for _, _, e in res.values()))
+
+
+# IGEV trains at 320x736, not the trainer's default 320x720: its hourglass
+# halves the 1/4 grid three times and concatenates each upsampled level with
+# the one before, so the image must be a multiple of 32 (at 720 the 1/32
+# level is 22.5 wide, and the JAX model fails the same way). 736 is
+# upstream IGEV-Stereo's own training width.
+IGEV_TRAIN_IMAGE = (8, 320, 736)
+IGEV_TRAIN_SHAPE = (8, 80, 184)  # its 1/4 grid
+IGEV_TRAIN_D = (IGEV_D, IGEV_D // 2)  # geo pyramid depths
+IGEV_TRAIN_W2 = (IGEV_TRAIN_SHAPE[2], IGEV_TRAIN_SHAPE[2] // 2)  # init-corr pyramid widths
+
+
+def phase_k4_bwd(torch):
+    """K4's backward (dgeo and dcorr kernels) vs its plain version at the
+    IGEV training shapes, the adjoint check against the forward kernel, and
+    autograd's bf16 sum of one iteration's d/dgeo into the running one."""
+    from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import (
+        geo_lookup, geo_lookup_bwd_corr, geo_lookup_bwd_geo, geo_lookup_bwd_plain)
+
+    B, H, W1 = IGEV_TRAIN_SHAPE
+    C, r, L = 8, 4, 2
+    taps = 2 * r + 1
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    disp = torch.rand((B, H, W1, 1), generator=gen, device="cuda") * (IGEV_D + 20) - 10
+    disp.view(-1)[:9] = torch.tensor([-1e9, 1e9, -3.0, -0.5, 0.0, 17.0, IGEV_D - 1.0,
+                                      IGEV_D + 0.25, float("nan")])
+    coords = torch.arange(W1, dtype=torch.float32, device="cuda").view(1, 1, W1, 1)
+    coords = coords.expand(B, H, W1, 1).contiguous()
+    finite = torch.isfinite(disp[..., 0])
+    g = torch.randn((B, H, W1, L * (C + 1) * taps), generator=gen, device="cuda")
+    parts = {"geo": geo_lookup_bwd_geo, "corr": geo_lookup_bwd_corr}
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        geo_meta = [((B, H, W1, d, C), dt) for d in IGEV_TRAIN_D]
+        corr_meta = [((B, H, W1, w2), dt) for w2 in IGEV_TRAIN_W2]
+        plain = geo_lookup_bwd_plain(geo_meta, corr_meta, disp, coords, g, r)
+        for (part, fn), want in zip(parts.items(), plain):
+            got = fn(geo_meta, corr_meta, disp, coords, g, r)
+            check([d.dtype for d in got] == [dt] * L,
+                  f"K4 bwd {part} dtypes {[d.dtype for d in got]}")
+            check(all(tuple(a.shape) == tuple(b.shape) for a, b in zip(got, want)),
+                  f"K4 bwd {part} shapes")
+            # a NaN disparity gives zeros in the kernels (as in the forward
+            # kernel), NaN in the plain version
+            check(all(bool((d[~finite] == 0).all()) for d in got),
+                  f"K4 bwd {part}: a NaN disparity did not give zeros")
+            err = max(float((a[finite].float() - b[finite].float()).abs().max())
+                      for a, b in zip(got, want))
+            scale = max(float(b[finite].float().abs().max()) for b in want)
+            # fp32: the kernels share one fractional weight per (pixel,
+            # level); the plain version rounds each tap position on its own.
+            # bf16: one rounding of fp32 sums that may differ in their last
+            # bits: one bf16 step (2^-8) can flip
+            tol = (1e-4 if dt == torch.float32 else 2**-7) * scale
+            check(err <= tol, f"K4 bwd {part} {dt} max-abs {err} > {tol}")
+            res[(part, dt)] = err
+        del plain
+
+    # adjoint: <K4(v), g> == <v, K4^T(g)>, the forward and both backward
+    # kernels, fp32 pyramids, fp64 sums (NaN pixels: zeros on both sides)
+    geo = [torch.randn((B, H, W1, d, C), generator=gen, device="cuda") for d in IGEV_TRAIN_D]
+    cor = [4 * torch.randn((B, H, W1, w2), generator=gen, device="cuda") for w2 in IGEV_TRAIN_W2]
+    with torch.no_grad():
+        out = geo_lookup(geo, cor, disp, coords, r)
+    meta_g, meta_c = [(v.shape, v.dtype) for v in geo], [(v.shape, v.dtype) for v in cor]
+    grads = (geo_lookup_bwd_geo(meta_g, meta_c, disp, coords, g, r)
+             + geo_lookup_bwd_corr(meta_g, meta_c, disp, coords, g, r))
+    lhs = float((out.double() * g.double()).sum())
+    rhs = float(sum((v.double() * d.double()).sum() for v, d in zip(geo + cor, grads)))
+    adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+    check(adj <= 1e-5, f"K4 adjoint check: relative {adj} > 1e-5")
+    del geo, cor, out, grads
+
+    bf = torch.bfloat16
+    geo_meta = [((B, H, W1, d, C), bf) for d in IGEV_TRAIN_D]
+    corr_meta = [((B, H, W1, w2), bf) for w2 in IGEV_TRAIN_W2]
+    # what autograd adds per student iteration: summing one iteration's
+    # bf16 d/dgeo into the running d/dpyramid (15 such sums a step)
+    acc = geo_lookup_bwd_geo(geo_meta, corr_meta, disp, coords, g, r)
+    new = geo_lookup_bwd_geo(geo_meta, corr_meta, disp, coords, g, r)
+    accum_ms = cuda_ms(torch, lambda: [a.add_(b) for a, b in zip(acc, new)], 20)
+    del acc, new
+    # bytes each kernel must move: every output element written once (zeros
+    # included), the g taps that land on at least one in-range element, disp
+    # (and coords for dcorr) read once
+    k = torch.arange(taps, device="cuda")
+    d = disp.clamp(-1e6, 1e6)
+    results = {}
+    for part, fn in parts.items():
+        sizes = IGEV_TRAIN_D if part == "geo" else IGEV_TRAIN_W2
+        per = C if part == "geo" else 1
+        out_bytes = sum(B * H * W1 * n * per * 2 for n in sizes)
+        g_read = 0
+        for i, n in enumerate(sizes):
+            x = d / 2**i if part == "geo" else (coords - d) / 2**i
+            x0 = torch.floor((x - r).clamp(-(taps + 2), n + 1)) + k
+            hit = ((x0 >= 0) & (x0 < n)) | ((x0 + 1 >= 0) & (x0 + 1 < n))
+            g_read += int((hit & finite[..., None]).sum()) * per * 4
+        nbytes = out_bytes + g_read + disp.numel() * 4 * (1 if part == "geo" else 2)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = cuda_ms(torch, lambda: fn(geo_meta, corr_meta, disp, coords, g, r), 100)
+        plain_ms = cuda_ms(torch, lambda: geo_lookup_bwd_plain(
+            geo_meta, corr_meta, disp, coords, g, r, need_geo=part == "geo",
+            need_corr=part == "corr"), 3)
+        results[part] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                             library_ms=None,
+                             max_abs_err=max(res[(part, t)] for t in (torch.float32, bf)))
+        print(f"K4 geo_lookup_bwd_{part}: max_abs fp32 {res[(part, torch.float32)]:.3e} (tol "
+              f"1e-4*max|dplain|) bf16 {res[(part, bf)]:.3e} (tol 2^-7*max|dplain|; NaN "
+              f"disparity -> zeros) | adjoint rel {adj:.2e} (tol 1e-5, both kernels) | bf16 "
+              f"{IGEV_TRAIN_SHAPE} {'D' if part == 'geo' else 'W2'} {sizes}: kernel_ms {ms:.4f} "
+              f"plain_ms {plain_ms:.3f} library_ms none (no single PyTorch call computes the "
+              f"transposed two-volume, two-level lookup) bound_ms {bound_ms:.4f} "
+              f"({nbytes / 1e6:.2f} MB: {out_bytes / 1e6:.2f} written, {g_read / 1e6:.2f} of g "
+              f"read)")
+    print(f"autograd's bf16 sum of one iteration's d/dgeo into the running one: {accum_ms:.4f} "
+          f"ms (x15 per step: {15 * accum_ms:.3f} ms)")
+    return results
 
 
 def phase_igev_parity(torch, config):
@@ -775,9 +921,6 @@ def phase_igev_parity(torch, config):
 def phase_igev_main(torch, config, card):
     from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
     from dkt_stereo_tpu_torch.models.registry import create_model
-    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup, corr_lookup_bwd
-    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage
-    from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import geo_lookup
 
     iters = 32
     model = create_model(config, iters=iters, seed=0)
@@ -787,20 +930,16 @@ def phase_igev_main(torch, config, card):
     _run_one(forward, img1, img2)  # warm-up
     torch.cuda.reset_peak_memory_stats()
 
-    geo_lookup.launches = corr_lookup.launches = corr_lookup_bwd.launches = 0
-    encoder_stage.launches = 0
+    zero_counts()
     times = []
     for _ in range(MAIN_FRAMES):
         disp, dt = _run_one(forward, img1, img2)
         times.append(dt)
-    launches = {"geo_lookup": geo_lookup.launches, "corr_lookup": corr_lookup.launches,
-                "corr_lookup_bwd": corr_lookup_bwd.launches,
-                "encoder_stage": encoder_stage.launches}
+    launches = kernel_counts()
 
     check(disp.shape == (736, 1280), f"IGEV disp shape {disp.shape}")
     check(bool(np.isfinite(disp).all()), "IGEV: non-finite disparity")
-    want = {"geo_lookup": iters * MAIN_FRAMES, "corr_lookup": 0, "corr_lookup_bwd": 0,
-            "encoder_stage": 0}
+    want = {**dict.fromkeys(launches, 0), "geo_lookup": iters * MAIN_FRAMES}
     check(launches == want, f"IGEV launch counts {launches} != {want}")
     ms = 1e3 * np.asarray(times)
     print(f"IGEV main path (igev_stereo/pallas.json, bf16, 1x736x1280, {iters} iters, "
@@ -815,6 +954,222 @@ def phase_igev_main(torch, config, card):
           f"device idle share {1 - busy / wall:.3f}; by bucket: {buckets}; top kernels:")
     for line in lines[:12]:
         print("  " + line[:160])
+    return launches
+
+
+IGEV_TRUNK = ("feature.", "stem_2.", "stem_4.", "conv.", "desc.")
+# the batch norm the reference creates and never runs (weights.py:_UNUSED_BN)
+IGEV_UNUSED = ("cost_agg.conv1_up.bn.",)
+
+
+def phase_igev_train_parity(torch, train_cfg):
+    """One IGEV DKT step with the kernels on the card vs the plain path on
+    the CPU, from the same weights, batch and draws, fp32 with TF32 off,
+    with freeze_backbone off so that both backward kernels run."""
+    from dkt_stereo_tpu_torch.train.dkt_step import (
+        create_dkt_state, fande_draws, make_dkt_train_step)
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = {**train_cfg, "mixed_precision": False, "corr_dtype": "float32",
+           "freeze_backbone": False}
+    hyper = DKTHyperParams(train_iters=2, teacher_iters=2)
+    seed_state = create_dkt_state(cfg, hyper, seed=0, device="cuda")
+    params = seed_state.student.state_dict()
+    # the disparity head's last conv scaled by 0.05, as in phase 12 and the
+    # CPU tests: random IGEV weights are chaotic under fp32 reordering
+    params["update_block.disp_head.conv2.weight"].mul_(0.05)
+    to_cpu = {k: v.to("cpu", copy=True) for k, v in params.items()}
+    gpu = create_dkt_state(cfg, hyper, params=params, device="cuda")
+    cpu = create_dkt_state(cfg, hyper, params=to_cpu, device="cpu")
+    del seed_state
+    gen = torch.Generator().manual_seed(12)
+    batch = _train_batch(torch, gen, 1, 64, 128, "cpu")
+    draws = fande_draws(1, "cpu", gen)
+    step = make_dkt_train_step(cfg, hyper)
+    before = kernel_counts()
+    gpu, m_gpu = step(gpu, {k: v.cuda() for k, v in batch.items()},
+                      draws={k: v.cuda() for k, v in draws.items()})
+    torch.cuda.synchronize()
+    launches = _diff(kernel_counts(), before)
+    cpu, m_cpu = step(cpu, batch, draws=draws)
+    # the chaos floor: the same CPU step from weights scaled by
+    # 1 + 1e-5 N(0, 1)
+    noise = torch.Generator().manual_seed(7)
+    nudged = {k: v * (1 + 1e-5 * torch.randn(v.shape, generator=noise))
+              if v.is_floating_point() else v for k, v in to_cpu.items()}
+    cpu2, _ = step(create_dkt_state(cfg, hyper, params=nudged, device="cpu"), batch, draws=draws)
+    torch.backends.cudnn.allow_tf32 = True
+
+    check(m_gpu["ok"] == m_cpu["ok"] == 1.0, f"IGEV ok gpu {m_gpu['ok']} cpu {m_cpu['ok']}")
+    # teachers 2 + 2, student 2, remat recompute 2; one dgeo and one dcorr
+    # launch per student iteration
+    want = {"geo_lookup": 8, "geo_lookup_bwd_geo": 2, "geo_lookup_bwd_corr": 2,
+            "corr_lookup": 0, "corr_lookup_bwd": 0, "encoder_stage": 0}
+    check(launches == want, f"IGEV train parity launches {launches} != {want}")
+    loss_err = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+                for k in ("loss", "loss_GT", "loss_PL")}
+    for k, e in loss_err.items():
+        check(e <= 1e-3, f"IGEV train parity {k}: relative {e} > 1e-3")
+    want_grads = dict(cpu.student.named_parameters())
+
+    def rel_by_module(named):
+        err2, norm2 = {}, {}
+        for k, p in named:
+            if p.grad is None:
+                continue
+            group = k.split(".")[0]
+            err2[group] = err2.get(group, 0.0) + float(
+                (p.grad.cpu() - want_grads[k].grad).square().sum())
+            norm2[group] = norm2.get(group, 0.0) + float(want_grads[k].grad.square().sum())
+        rel = {g: (err2[g] / norm2[g]) ** 0.5 for g in err2}
+        rel["all"] = (sum(err2.values()) / sum(norm2.values())) ** 0.5
+        return rel
+
+    rel = rel_by_module(gpu.student.named_parameters())
+    floor = rel_by_module(cpu2.student.named_parameters())
+    for g, e in rel.items():
+        check(e <= (0.05 if g == "all" else 0.1),
+              f"IGEV train parity gradient of {g}: relative {e}")
+
+    def norm(state, prefix):
+        return float(torch.stack([p.grad.norm().cpu() for k, p in state.student.named_parameters()
+                                  if k.startswith(prefix) and p.grad is not None]).norm())
+
+    reached = {m: norm(gpu, m + ".") for m in ("cost_agg", "conv", "desc")}
+    # cost_agg is reached only through dgeo and the init term; conv and
+    # desc through the GWC volume and dcorr
+    check(all(v > 0 for v in reached.values()), f"no gradient on the card: {reached}")
+    print(f"IGEV train-step parity (fp32, TF32 off, freeze_backbone off, 1x64x128, 2+2 iters), "
+          f"kernels vs plain: loss {m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f}, relative errors "
+          + " ".join(f"{k} {e:.2e}" for k, e in loss_err.items()) + " (tol 1e-3) | gradient "
+          "relative L2 error by module " + " ".join(f"{g} {e:.2e}" for g, e in rel.items())
+          + " (tol 0.1 per module, 0.05 all; chaos floor on the CPU from a 1e-5 weight nudge: "
+          + " ".join(f"{g} {e:.2e}" for g, e in floor.items())
+          + ") | card gradient norms " + " ".join(f"{m} {v:.3e}" for m, v in reached.items())
+          + f" | launches {launches}")
+    del gpu, cpu, cpu2
+
+
+def phase_igev_train(torch, train_cfg, card):
+    """igev_stereo/train.json at full width: 1 warm-up and TRAIN_STEPS timed
+    DKT steps at B=8, 320x736, 16 student / 32 teacher iterations."""
+    from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    B, H, W = IGEV_TRAIN_IMAGE
+    hyper = DKTHyperParams(train_iters=16, teacher_iters=32)
+    state = create_dkt_state(train_cfg, hyper, seed=0)
+    step = make_dkt_train_step(train_cfg, hyper)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def snap(m, keep=lambda k: True):
+        return {k: v.detach().clone() for k, v in m.state_dict().items() if keep(k)}
+
+    teacher0 = snap(state.teacher)
+    student0 = snap(state.student)
+    bn0 = snap(state.student, lambda k: "running" in k)
+    check(len(bn0) > 0, "IGEV has no batch norm statistics")
+
+    state, m = step(state, _train_batch(torch, gen, B, H, W, "cuda"), generator=gen)  # warm-up
+    check(m["ok"] == 1.0, f"IGEV warm-up step not ok: {m}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_counts()
+    times, parts, per_step, metrics = [], {p: [] for p in TRAIN_PARTS}, [], []
+    for _ in range(TRAIN_STEPS):
+        batch = _train_batch(torch, gen, B, H, W, "cuda")
+        events = {}
+
+        def mark(name):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+
+        before = kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        state, m = step(state, batch, generator=gen, mark=mark)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        prev = "start"
+        for p in TRAIN_PARTS:
+            parts[p].append(events[prev].elapsed_time(events[p]))
+            prev = p
+        per_step.append(_diff(kernel_counts(), before))
+        metrics.append(m)
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    check(all(x["ok"] == 1.0 for x in metrics),
+          f"an IGEV step was not ok: {[x['ok'] for x in metrics]}")
+    check(all(np.isfinite(x["loss"]) for x in metrics), "non-finite IGEV loss")
+    # 2 x 32 teacher iterations + 16 student + 16 recomputed by remat; one
+    # dgeo launch per student iteration; no dcorr (the frozen backbone
+    # detaches the descriptors, so the corr pyramid needs no gradient)
+    want = {"geo_lookup": 96, "geo_lookup_bwd_geo": 16, "geo_lookup_bwd_corr": 0,
+            "corr_lookup": 0, "corr_lookup_bwd": 0, "encoder_stage": 0}
+    check(all(c == want for c in per_step), f"IGEV launches per step {per_step} != {want}")
+    # every tensor outside the detached trunk and the unused slots gets a
+    # gradient (a non-zero Adam first moment) and moves, unless its gradient
+    # is below Adam's eps (1e-8) everywhere: AdamW's step, about lr*g/eps,
+    # is then below fp32's resolution of the weight. With random weights
+    # that is the 1/32-scale attention of the hourglass, whose input, the
+    # random MobileNetV2's x32 map, is ~1e-7 in size
+    params = dict(state.student.named_parameters())
+    graded = [k for k in params if not k.startswith(IGEV_TRUNK + IGEV_UNUSED)]
+    moment = {k: float(state.optimizer.state[params[k]]["exp_avg"].abs().max()) for k in graded}
+    check(all(m > 0 for m in moment.values()),
+          f"student tensors without gradient: {[k for k, m in moment.items() if m == 0][:5]}")
+    still = [k for k in graded if torch.equal(params[k], student0[k])]
+    check(all(moment[k] < 1e-8 for k in still),
+          f"student tensors with a gradient that did not move: "
+          f"{[(k, moment[k]) for k in still if moment[k] >= 1e-8][:5]}")
+    # a tensor without a gradient moves by AdamW's weight decay alone: a
+    # zero tensor stays zero
+    zeros = [k for k in params if k not in graded and not bool(student0[k].any())]
+    check(all(not bool(params[k].any()) for k in zeros), "a zero tensor without gradient moved")
+    check(all(torch.equal(v, teacher0[k]) for k, v in state.teacher.state_dict().items()),
+          "the frozen IGEV teacher changed")
+    check(all(torch.equal(state.student.state_dict()[k], v) for k, v in bn0.items()),
+          "IGEV student BN running statistics changed")
+
+    ms = 1e3 * np.asarray(times)
+    part_ms = {p: float(np.mean(v)) for p, v in parts.items()}
+    print(f"IGEV training path (igev_stereo/train.json, bf16, remat, freeze_backbone, B={B} "
+          f"{H}x{W}, {hyper.train_iters}/{hyper.teacher_iters} iters, {TRAIN_STEPS} steps after "
+          f"1 warm-up): ms/step median {np.median(ms):.2f} mean {ms.mean():.2f} min "
+          f"{ms.min():.2f} max {ms.max():.2f} | device ms per part (mean) "
+          + " ".join(f"{p} {t:.2f}" for p, t in part_ms.items())
+          + f" | peak mem {peak:.2f} GiB | launches {launches} | loss "
+          + ", ".join(f"{x['loss']:.3f}" for x in metrics) + " | init_epe "
+          + ", ".join(f"{x['init_epe']:.3f}" for x in metrics) + f" | epe {metrics[-1]['epe']:.3f} "
+          f"| {len(graded)} student tensors with a gradient, {len(graded) - len(still)} moved; "
+          f"not moved, gradient below Adam's eps: "
+          + (", ".join(f"{k} (|m| {moment[k]:.1e})" for k in still) or "none")
+          + f" | lr {metrics[-1]['learning_rate']:.3e} | {card}")
+
+    def one_step():
+        batch = _train_batch(torch, gen, B, H, W, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall, busy, lines, buckets = device_profile(torch, one_step,
+                                                "chip_smoke_igev_train_profile.txt")
+    print(f"profile of one IGEV training step (profiler on): wall {wall:.2f} ms, kernels "
+          f"{busy:.2f} ms, device idle share {1 - busy / wall:.3f}; by bucket: {buckets}; "
+          "top kernels:")
+    for line in lines[:15]:
+        print("  " + line[:160])
+    # not a measurement: the profiled step's kernel time against the timed
+    # steps' host time, which the profiler cannot see
+    print(f"untraced device idle share, estimated as 1 - profiled kernel ms / timed mean "
+          f"ms/step: {1 - busy / ms.mean():.3f}")
     return launches
 
 
@@ -852,13 +1207,18 @@ def main():
     train = phase_train(torch, train_cfg, card)
 
     k4 = phase_k4(torch)
+    k4b = phase_k4_bwd(torch)
     igev_cfg = json.loads((ROOT / "configs/igev_stereo/pallas.json").read_text())
     phase_igev_parity(torch, igev_cfg)
     igev = phase_igev_main(torch, igev_cfg, card)
+    igev_train_cfg = json.loads((ROOT / "configs/igev_stereo/train.json").read_text())
+    phase_igev_train_parity(torch, igev_train_cfg)
+    igev_train = phase_igev_train(torch, igev_train_cfg, card)
 
     def launches(name):
         by_path = {"inference": infer.get(name, 0), "training": train.get(name, 0),
-                   "igev_inference": igev.get(name, 0)}
+                   "igev_inference": igev.get(name, 0),
+                   "igev_training": igev_train.get(name, 0)}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     k2p = k2["plain"]
@@ -879,6 +1239,14 @@ def main():
         dict(name="geo_lookup", route="cuda", source="dkt_stereo_tpu_torch/csrc/geo_lookup.cu",
              replaces="dkt_stereo_tpu/ops/pallas/geo_lookup.py:302",
              **launches("geo_lookup"), **k4),
+        dict(name="geo_lookup_bwd_geo", route="cuda",
+             source="dkt_stereo_tpu_torch/csrc/geo_lookup_bwd.cu",
+             replaces="dkt_stereo_tpu/ops/pallas/geo_lookup.py:261",
+             **launches("geo_lookup_bwd_geo"), **k4b["geo"]),
+        dict(name="geo_lookup_bwd_corr", route="cuda",
+             source="dkt_stereo_tpu_torch/csrc/geo_lookup_bwd.cu",
+             replaces="dkt_stereo_tpu/ops/pallas/geo_lookup.py:285",
+             **launches("geo_lookup_bwd_corr"), **k4b["corr"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

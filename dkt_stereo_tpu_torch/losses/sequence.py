@@ -1,5 +1,6 @@
-"""RAFT sequence loss (``dkt_stereo_tpu/losses/sequence.py:22-57``; the
-reference's meta_arch/raft_stereo/loss.py:3-41).
+"""Sequence losses (``dkt_stereo_tpu/losses/sequence.py``): RAFT's
+(:22-57; the reference's meta_arch/raft_stereo/loss.py:3-41) and IGEV's
+(:60-112).
 
 The reference returns ``(None, None, None)`` on non-finite GT or
 predictions, and the training loop then skips the step. Here, as in the JAX
@@ -44,6 +45,49 @@ def sequence_loss_raft(disp_preds: torch.Tensor, flow_gt: torch.Tensor, valid: t
     epe = (preds[-1] - flow_gt).abs()
     metrics = {
         "epe": _masked_mean(epe, m),
+        "1px": _masked_mean((epe < 1).float(), m),
+        "3px": _masked_mean((epe < 3).float(), m),
+        "5px": _masked_mean((epe < 5).float(), m),
+    }
+    return loss, metrics, m, ok
+
+
+def sequence_loss_igev(disp_preds: torch.Tensor, init_disp: torch.Tensor, flow_gt: torch.Tensor,
+                       valid: torch.Tensor, loss_gamma: float = 0.9, max_disp: float = 192.0):
+    """IGEV's loss (the JAX package's ``sequence_loss_igev``; the
+    reference ships an empty loss file for IGEV, and this is upstream
+    IGEV-Stereo's): a unit-weight smooth-L1 term on the upsampled initial
+    disparity plus :func:`sequence_loss_raft`'s gamma-weighted L1 over
+    ``disp_preds`` (N, B, H, W), over the pixels with ``valid >= 0.5`` and
+    ``|gt| < max_disp``. The init term is what trains the cost aggregation
+    and the init upsampling besides the lookup's backward, since every
+    iteration detaches the incoming disparity. ``ok`` covers GT,
+    predictions and init; metrics add ``init_epe``. Returns ``(loss,
+    metrics, mask, ok)``."""
+    n = disp_preds.shape[0]
+    if n < 1:
+        raise ValueError("sequence_loss_igev: no predictions")
+    flow_gt = flow_gt.float()
+    preds = disp_preds.float()
+    init = init_disp.float()
+
+    m = (valid >= 0.5) & (flow_gt.abs() < max_disp)
+    ok = (torch.isfinite(torch.where(m, flow_gt, 0.0)).all() & torch.isfinite(preds).all()
+          & torch.isfinite(init).all())
+
+    err0 = (init - flow_gt).abs()
+    smooth_l1 = torch.where(err0 < 1.0, 0.5 * err0 * err0, err0 - 0.5)
+    gamma_adj = loss_gamma ** (15.0 / (n - 1)) if n > 1 else 1.0
+    weights = torch.tensor([gamma_adj ** (n - 1 - i) for i in range(n)], dtype=torch.float32,
+                           device=preds.device)
+    abs_err = (preds - flow_gt[None]).abs()
+    per_iter = torch.stack([_masked_mean(abs_err[i], m) for i in range(n)])
+    loss = torch.where(ok, _masked_mean(smooth_l1, m) + (weights * per_iter).sum(), 0.0)
+
+    epe = (preds[-1] - flow_gt).abs()
+    metrics = {
+        "epe": _masked_mean(epe, m),
+        "init_epe": _masked_mean(err0, m),
         "1px": _masked_mean((epe < 1).float(), m),
         "3px": _masked_mean((epe < 3).float(), m),
         "5px": _masked_mean((epe < 5).float(), m),

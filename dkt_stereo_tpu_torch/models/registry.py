@@ -2,16 +2,17 @@
 (``dkt_stereo_tpu/models/registry.py``), the model factory and the loss
 adapter of the DKT step.
 
-RAFTStereo (test and train mode, with its ``sequence_loss_raft``) and
-IGEVStereo (test mode) are ported; the other names of the JAX registries
-raise a KeyError naming their ROADMAP.md queue entry."""
+RAFTStereo and IGEVStereo (test and train mode, with their
+``sequence_loss_raft`` and ``sequence_loss_igev``) are ported; the other
+names of the JAX registries raise a KeyError naming their ROADMAP.md queue
+entry."""
 
 from __future__ import annotations
 
 import torch
 
 from dkt_stereo_tpu_torch.device import resolve_device
-from dkt_stereo_tpu_torch.losses.sequence import sequence_loss_raft
+from dkt_stereo_tpu_torch.losses.sequence import sequence_loss_igev, sequence_loss_raft
 from dkt_stereo_tpu_torch.models.igev_stereo import IGEVStereo, IGEVStereoConfig
 from dkt_stereo_tpu_torch.models.raft_stereo import RAFTStereo, RAFTStereoConfig
 
@@ -30,7 +31,6 @@ _QUEUED = {
 # model defaults of the JAX registry
 DEFAULT_LOSS = {"RAFTStereo": "sequence_loss_raft", "IGEVStereo": "sequence_loss_igev"}
 _QUEUED_LOSSES = {
-    "sequence_loss_igev": "Queue 1 item 7",
     "sequence_loss_pcvnet": "Queue 1 item 8",
     "loss_gwcnet": "Queue 1 item 9",
     "loss_cgi": "Queue 1 item 9",
@@ -80,17 +80,24 @@ def create_model(config: dict, iters: int = 32, device=None, seed: int | None = 
     return model.to(dev).train(not test_mode)
 
 
-def make_loss_adapter(name: str, cfg=None, loss_func: str | None = None):
+def make_loss_adapter(name: str, cfg: dict | None = None, loss_func: str | None = None):
     """The DKT step's loss interface, ``fn(outputs, flow_gt, valid) -> (loss,
-    metrics, mask, ok)`` (``dkt_stereo_tpu/models/registry.py:43-70``).
-    ``loss_func`` picks the loss by its reference name; None takes the
-    model's default. Names not ported yet raise a KeyError naming their
-    ROADMAP.md entry."""
+    metrics, mask, ok)`` (``dkt_stereo_tpu/models/registry.py:43-79``).
+    ``cfg`` is the model's config dict (IGEV's loss reads ``max_disp``,
+    192 without one); ``loss_func`` picks the loss by its reference name;
+    None takes the model's default. Names not ported yet raise a KeyError
+    naming their ROADMAP.md entry."""
     get_model(name)
     loss_func = loss_func or DEFAULT_LOSS[name]
     if loss_func == "sequence_loss_raft":
         return lambda out, gt, v: sequence_loss_raft(out["disp_preds"], gt, v)
+    if loss_func == "sequence_loss_igev":
+        cfg = cfg or {}
+        max_disp = cfg.get("max_disp", cfg.get("maxdisp", 192))
+        return lambda out, gt, v: sequence_loss_igev(out["disp_preds"], out["init_disp"], gt, v,
+                                                     max_disp=max_disp)
     where = _QUEUED_LOSSES.get(loss_func)
     if where is not None:
         raise KeyError(f"loss_func {loss_func!r} is not ported yet: ROADMAP.md {where}")
-    raise KeyError(f"unknown loss_func {loss_func!r}; ported: ['sequence_loss_raft']")
+    raise KeyError(f"unknown loss_func {loss_func!r}; ported: "
+                   "['sequence_loss_igev', 'sequence_loss_raft']")

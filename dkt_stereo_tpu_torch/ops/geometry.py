@@ -13,7 +13,8 @@ Per level the output channels are [geo C-major, taps fast (C*(2r+1)) |
 corr (2r+1)], concatenated over levels -> (B, H, W, L*(C+1)*(2r+1)) fp32.
 
 :func:`geo_lookup` is the plain twin of the CUDA kernel
-``ops/cuda/geo_lookup.py`` (the port of the Pallas ``geo_lookup_pallas``).
+``ops/cuda/geo_lookup.py`` (the port of the Pallas ``geo_lookup_pallas``),
+:func:`geo_lookup_bwd_plain` that of its backward kernels.
 """
 
 from __future__ import annotations
@@ -39,6 +40,35 @@ def geo_lookup(geo_pyramid, corr_pyramid, disp: torch.Tensor, coords: torch.Tens
         out.append(sample_row_1d(geo.transpose(3, 4), x_geo).reshape(B, H, W, -1))
         out.append(sample_row_1d(corr, (coords.float() - d) / 2**i + dx))
     return torch.cat(out, dim=-1)
+
+
+def geo_lookup_bwd_plain(geo_shapes_dtypes, corr_shapes_dtypes, disp: torch.Tensor,
+                         coords: torch.Tensor, g: torch.Tensor, radius: int = 4,
+                         need_geo: bool = True, need_corr: bool = True):
+    """Plain version of the backward (the counterpart of the Pallas
+    ``_geo_bwd_impl``, geo_lookup.py:223-298): the gradient of the plain
+    forward, which is linear in the levels, taken by autograd at fp32 zero
+    levels, so that each level's sum runs in fp32 and is rounded once to the
+    level's dtype. Returns ``(dgeo, dcorr)``: per level (B, H, W, D_i, C)
+    and (B, H, W, W2_i), or None per level where ``need_geo`` /
+    ``need_corr`` is false. Nothing flows to disp or coords.
+
+    ``*_shapes_dtypes``: one ``(shape, dtype)`` per level; ``disp``,
+    ``coords``: (B, H, W, 1); ``g``: (B, H, W, L*(C+1)*(2r+1))."""
+    def zeros(meta, need):
+        return [torch.zeros(s, dtype=torch.float32, device=g.device, requires_grad=need)
+                for s, _ in meta]
+
+    geo, corr = zeros(geo_shapes_dtypes, need_geo), zeros(corr_shapes_dtypes, need_corr)
+    wrt = (geo if need_geo else []) + (corr if need_corr else [])
+    grads = iter(())
+    if wrt:
+        with torch.enable_grad():
+            out = geo_lookup(geo, corr, disp.detach(), coords.detach(), radius)
+            grads = iter(torch.autograd.grad(out, wrt, g.float()))
+    dgeo = [next(grads).to(dt) if need_geo else None for _, dt in geo_shapes_dtypes]
+    dcorr = [next(grads).to(dt) if need_corr else None for _, dt in corr_shapes_dtypes]
+    return dgeo, dcorr
 
 
 class CombinedGeoEncodingVolume:

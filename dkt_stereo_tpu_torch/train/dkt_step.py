@@ -66,12 +66,15 @@ def create_dkt_state(config: dict, hyper: DKTHyperParams, seed: int | None = 0, 
 
 def cascade_upsample2x(out: dict) -> dict:
     """Nearest x2 upsample, values doubled, of a train output's
-    ``disp_preds``: the cascade transform the reference applies to
-    ``results_dw2['disp_preds']`` (ft_dkt.py:217-219). The JAX package's
-    ``_cascade_upsample2x`` also covers the output contracts of the models
-    not ported yet."""
-    t = out["disp_preds"]
-    return {**out, "disp_preds": 2.0 * t.repeat_interleave(2, -2).repeat_interleave(2, -1)}
+    disparity-valued fields, ``disp_preds`` and (IGEV) ``init_disp``: the
+    cascade transform the reference applies to ``results_dw2['disp_preds']``
+    (ft_dkt.py:217-219). The JAX package's ``_cascade_upsample2x`` also
+    covers PCVNet's ``output_list``, not ported yet."""
+    out = dict(out)
+    for k in ("disp_preds", "init_disp"):
+        if k in out:
+            out[k] = 2.0 * out[k].repeat_interleave(2, -2).repeat_interleave(2, -1)
+    return out
 
 
 def fande_draws(batch_size: int, device, generator: torch.Generator | None = None) -> dict:
@@ -100,9 +103,10 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
     draws; otherwise they come from ``generator``. ``mark(name)``, when
     given, is called as each part of the step has been issued ("ema",
     "teachers", "fande", "student", "optimizer"), e.g. to record CUDA
-    events. ``metrics`` are Python floats: loss, loss_GT, loss_PL, epe, 1px,
-    3px, 5px, ema_divergence, teacher_divergence, ok, learning_rate."""
-    loss_adapter = make_loss_adapter(config["model"], None, config.get("loss_func"))
+    events. ``metrics`` are Python floats: loss, loss_GT, loss_PL, the loss's own
+    metrics (epe, 1px, 3px, 5px; IGEV's also init_epe), ema_divergence,
+    teacher_divergence, ok, learning_rate."""
+    loss_adapter = make_loss_adapter(config["model"], config, config.get("loss_func"))
     schedule = make_schedule(hyper)
 
     def step_fn(state: DKTTrainState, batch: dict, generator=None, draws=None, mark=None):

@@ -265,12 +265,25 @@ def test_pyramid_storage_follows_the_jax_rule():
 
 
 def test_registry_and_unported_modes():
+    """The registry entry; train mode (pallas.json) and train.json (with
+    remat_iters) build and return the train contract, and train.json's
+    test-mode model (the teachers) keeps the test contract; without a card
+    the default device raises."""
     assert get_model("IGEVStereo") == (IGEVStereo, IGEVStereoConfig)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        create_model(PALLAS, iters=2, device="cpu", test_mode=False)
     train = json.loads((ROOT / "configs/igev_stereo/train.json").read_text())
-    with pytest.raises(NotImplementedError, match="remat_iters.*ROADMAP.md Queue 1 item 7"):
-        create_model(train, iters=2, device="cpu")
+    x = torch.tensor(np.random.default_rng(7).uniform(0, 255, (2, 1, 32, 64, 3)),
+                     dtype=torch.float32)
+    for config in (PALLAS, train):
+        model = create_model({**config, "max_disp": 32}, iters=2, device="cpu", seed=0,
+                             test_mode=False)
+        assert model.training and model.cfg.remat_iters == (config is train)
+        out = model(x[0], x[1])
+        assert set(out) == {"init_disp", "disp_preds"}
+        assert out["init_disp"].shape == (1, 32, 64) and out["disp_preds"].shape == (2, 1, 32, 64)
+        assert all(bool(torch.isfinite(v).all()) and v.requires_grad for v in out.values())
+    with torch.inference_mode():
+        none, disp = create_model({**train, "max_disp": 32}, iters=2, device="cpu", seed=0)(*x)
+    assert none is None and disp.shape == (1, 32, 64)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_model(PALLAS)

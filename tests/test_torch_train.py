@@ -372,27 +372,33 @@ def test_student_gradients_match_jax(jax_setup):
     assert all(float(named[k].grad.norm()) > 1e-3 * total / len(named) for k in fnet)
 
 
-def _jax_state_and_step(variables, hyper_kw, batch, key):
-    cfg = _jax_cfg()
+def _jax_state_and_step(variables, hyper_kw, batch, key, jcfg=None, jstep=None, **model):
+    """The JAX DKT state from ``variables`` (student, teacher) and one step
+    of ``jstep`` (default: the RAFT step of ``jcfg``); ``model``:
+    ``model_cls`` and ``loss_adapter`` for another model."""
+    cfg = jcfg or _jax_cfg()
     jhyper = JHyper(**hyper_kw)
-    state = jcreate_dkt_state(cfg, jhyper, None, (B, H, W), params=variables[0],
-                              teacher_params=variables[1])
-    state1, metrics = jmake_dkt_train_step(cfg, jhyper)(
-        state, {k: jnp.asarray(v) for k, v in batch.items()}, key)
-    return state, jax.tree_util.tree_map(np.asarray, state1), {k: float(v) for k, v in metrics.items()}
+    shape = batch["flow"].shape
+    state = jcreate_dkt_state(cfg, jhyper, None, shape, params=variables[0],
+                              teacher_params=variables[1],
+                              **{k: v for k, v in model.items() if k == "model_cls"})
+    jstep = jstep or jmake_dkt_train_step(cfg, jhyper, **model)
+    state1, metrics = jstep(state, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    return state, jax.tree_util.tree_map(np.asarray, state1), metrics
 
 
-def _draws(key):
+def _draws(key, batch_size=B):
     k_fgt, k_egt, _, k_epl, _, _ = jax.random.split(key, 6)
-    return {"filter_gt": _t(np.asarray(jax.random.uniform(k_fgt, (B,)))),
+    return {"filter_gt": _t(np.asarray(jax.random.uniform(k_fgt, (batch_size,)))),
             "ensemble_gt": _t(np.asarray(jax.random.uniform(k_egt, ()))),
             "ensemble_pl": _t(np.asarray(jax.random.uniform(k_epl, ())))}
 
 
-def _port_state(jstate, hyper_kw):
+def _port_state(jstate, hyper_kw, config=None):
     sds = dkt_state_from_flax(jax.tree_util.tree_map(np.asarray, jstate))
     hyper = DKTHyperParams(**hyper_kw)
-    state = create_dkt_state({**TRAIN, **FP32}, hyper, params=sds["student"],
+    state = create_dkt_state(config or {**TRAIN, **FP32}, hyper, params=sds["student"],
                              teacher_params=sds["teacher"], device="cpu")
     return state, hyper
 
@@ -400,15 +406,18 @@ def _port_state(jstate, hyper_kw):
 HYPER = dict(train_iters=ITERS, teacher_iters=ITERS, num_steps=100)
 
 
-def _check_step_against_jax(variables, batch, hyper_kw, key):
-    """One port step and one JAX step from the same weights, batch and F&E
-    draws, held to the bounds :func:`test_dkt_step_matches_jax` states."""
-    jstate, jstate1, jmetrics = _jax_state_and_step(variables, hyper_kw, batch, key)
-    state, hyper = _port_state(jstate, hyper_kw)
+def _check_step_against_jax(variables, batch, hyper_kw, key, config=None, **jax_side):
+    """One port step (of ``config``, default RAFT's train.json in fp32) and
+    one JAX step (``jax_side``: see :func:`_jax_state_and_step`) from the
+    same weights, batch and F&E draws, held to the bounds
+    :func:`test_dkt_step_matches_jax` states."""
+    config = config or {**TRAIN, **FP32}
+    jstate, jstate1, jmetrics = _jax_state_and_step(variables, hyper_kw, batch, key, **jax_side)
+    state, hyper = _port_state(jstate, hyper_kw, config)
     bn_before = {name: {k: v.clone() for k, v in m.state_dict().items() if "running" in k}
                  for name, m in (("student", state.student), ("teacher", state.teacher))}
-    state, metrics = make_dkt_train_step({**TRAIN, **FP32}, hyper)(
-        state, {k: _t(v) for k, v in batch.items()}, draws=_draws(key))
+    state, metrics = make_dkt_train_step(config, hyper)(
+        state, {k: _t(v) for k, v in batch.items()}, draws=_draws(key, batch["flow"].shape[0]))
 
     assert set(metrics) == set(jmetrics)
     assert metrics["ok"] == jmetrics["ok"] == 1.0 and state.step == 1 and state.applied_steps == 1
@@ -503,15 +512,23 @@ def test_dkt_step_cascade_train(jax_setup):
 
 
 def test_loss_adapter_and_unported_training_options():
-    """The registry's loss adapter for RAFT; losses of models not ported
-    yet, and batched_teachers, raise naming their ROADMAP entry."""
+    """The registry's loss adapters for RAFT and (by name) IGEV's loss;
+    losses of models not ported yet, and batched_teachers, raise naming
+    their ROADMAP entry."""
     loss_fn = make_loss_adapter("RAFTStereo", None)
     preds = torch.zeros(1, 1, 4, 4)
     loss, metrics, mask, ok = loss_fn({"disp_preds": preds}, -torch.ones(1, 4, 4), torch.ones(1, 4, 4))
     assert float(loss) == pytest.approx(1.0) and bool(ok) and bool(mask.all())
     assert make_loss_adapter("RAFTStereo", None, "sequence_loss_raft") is not None
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 7"):
-        make_loss_adapter("RAFTStereo", None, "sequence_loss_igev")
+    # sequence_loss_igev by name, max_disp from the config: |gt| 3 is masked
+    # out at max_disp 2; with the default 192 the init term adds 2.5
+    igev = {"disp_preds": preds, "init_disp": torch.zeros(1, 4, 4)}
+    for cfg, want in (({"max_disp": 2}, 0.0), (None, 3.0 + 2.5)):
+        loss, metrics, _, ok = make_loss_adapter("RAFTStereo", cfg, "sequence_loss_igev")(
+            igev, -3 * torch.ones(1, 4, 4), torch.ones(1, 4, 4))
+        assert float(loss) == pytest.approx(want) and bool(ok) and "init_epe" in metrics
+    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 8"):
+        make_loss_adapter("RAFTStereo", None, "sequence_loss_pcvnet")
     with pytest.raises(KeyError, match="unknown loss_func"):
         make_loss_adapter("RAFTStereo", None, "no_such_loss")
     with pytest.raises(NotImplementedError, match="ROADMAP.md .*batched_teachers"):
