@@ -61,7 +61,26 @@ out-of-tolerance result raises and exits non-zero:
      the time of each part, exact launch counts (96 K4, 16 dgeo, 0 dcorr a
      step, no K1 or K2), a profile of one step
      (chiprun_out/chip_smoke_igev_train_profile.txt) and an estimate of the
-     untraced idle share; then the "kernels" JSON line and the card's line.
+     untraced idle share;
+ 16. K3 (the correlation lookup without a volume) vs its plain version at
+     the full-resolution path's 1x496x720 (D 256, widths 720/360/180/90)
+     and at a ragged 2x7x37 (widths 37/18/9/4), bf16 and fp32 features,
+     coordinates far out of range, negative and NaN included (NaN gives
+     zeros), with the materialized route (fused pyramid + K1) at the same
+     shapes as yardstick;
+ 17. K3's VJP (the recompute backward of CorrLookupAlt) vs autograd of the
+     plain version on the card, at 2x40x90, fp32 and bf16;
+ 18. parity of RAFT with alt_cuda (K3, card) and with alt (plain, card) vs
+     the plain path on the CPU: fp32, TF32 off, 1x256x512, 2 iterations;
+ 19. the full-resolution path: configs/raft_stereo/alt_pallas.json as
+     shipped (bf16, alt_cuda, pallas_encoder), B=1, 1984x2880, 32
+     iterations, through make_forward_fn/_run_one: K2 vs its plain version
+     once at this shape, 1 warm-up and 5 timed frames with exact launch
+     counts (32 K3 and 4 K2 a frame), peak memory, the corr section's
+     persistent bytes against the volume pyramid, a profile of one frame
+     (chiprun_out/chip_smoke_alt_profile.txt), and one pallas.json
+     (reg_cuda) frame at the same size; then the "kernels" JSON line and
+     the card's line.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
@@ -110,13 +129,14 @@ def cuda_ms(torch, fn, n):
 def _wrappers():
     """Every kernel wrapper; each adds one to its ``launches`` where it
     launches its kernel, and nowhere else."""
+    from dkt_stereo_tpu_torch.ops.cuda.corr_alt import corr_lookup_alt
     from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup, corr_lookup_bwd
     from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage
     from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import (
         geo_lookup, geo_lookup_bwd_corr, geo_lookup_bwd_geo)
 
     return (corr_lookup, corr_lookup_bwd, encoder_stage, geo_lookup, geo_lookup_bwd_geo,
-            geo_lookup_bwd_corr)
+            geo_lookup_bwd_corr, corr_lookup_alt)
 
 
 def kernel_counts():
@@ -324,6 +344,7 @@ def phase_main(torch, config, card):
 
 # device-time buckets of a profile, by kernel name; the first match wins
 BUCKETS = (
+    ("K3", r"corr_alt_kernel"),
     ("K4 bwd", r"geo_lookup_bwd"),
     ("K4", r"geo_lookup_kernel"),
     ("K1 bwd", r"corr_lookup_bwd_kernel"),
@@ -1006,7 +1027,7 @@ def phase_igev_train_parity(torch, train_cfg):
     # teachers 2 + 2, student 2, remat recompute 2; one dgeo and one dcorr
     # launch per student iteration
     want = {"geo_lookup": 8, "geo_lookup_bwd_geo": 2, "geo_lookup_bwd_corr": 2,
-            "corr_lookup": 0, "corr_lookup_bwd": 0, "encoder_stage": 0}
+            "corr_lookup": 0, "corr_lookup_bwd": 0, "encoder_stage": 0, "corr_lookup_alt": 0}
     check(launches == want, f"IGEV train parity launches {launches} != {want}")
     loss_err = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
                 for k in ("loss", "loss_GT", "loss_PL")}
@@ -1110,7 +1131,7 @@ def phase_igev_train(torch, train_cfg, card):
     # dgeo launch per student iteration; no dcorr (the frozen backbone
     # detaches the descriptors, so the corr pyramid needs no gradient)
     want = {"geo_lookup": 96, "geo_lookup_bwd_geo": 16, "geo_lookup_bwd_corr": 0,
-            "corr_lookup": 0, "corr_lookup_bwd": 0, "encoder_stage": 0}
+            "corr_lookup": 0, "corr_lookup_bwd": 0, "encoder_stage": 0, "corr_lookup_alt": 0}
     check(all(c == want for c in per_step), f"IGEV launches per step {per_step} != {want}")
     # every tensor outside the detached trunk and the unused slots gets a
     # gradient (a non-zero Adam first moment) and moves, unless its gradient
@@ -1173,6 +1194,272 @@ def phase_igev_train(torch, train_cfg, card):
     return launches
 
 
+ALT_IMAGE = (1984, 2880)  # Middlebury-F geometry, the JAX package's MEMORY_r02.json
+ALT_SHAPE = (1, 496, 720)  # its 1/4 grid
+ALT_D = 256  # fnet width
+ALT_FRAMES = 5
+
+
+def _alt_inputs(torch, gen, B, H, W, dt, L=4):
+    """fmap1, fmap2 and its pooled pyramid (B, H, W, 256) in ``dt``, and
+    coordinates in [-10, W+10] with far out-of-range, negative and NaN
+    entries; returns a mask of the finite pixels too."""
+    from dkt_stereo_tpu_torch.ops.corr import fmap_pyramid
+
+    f1, f2 = (torch.randn((B, H, W, ALT_D), generator=gen, device="cuda").to(dt)
+              for _ in range(2))
+    coords = torch.rand((B, H, W, 1), generator=gen, device="cuda") * (W + 20) - 10
+    coords.view(-1)[:9] = torch.tensor([-1e9, 1e9, 3e7, -0.5, -1.0, 0.0, 17.0, W - 1.0,
+                                        float("nan")])
+    return f1, f2, fmap_pyramid(f2, L), coords, torch.isfinite(coords[..., 0])
+
+
+def alt_bound(torch, f1, pyr, coords, r):
+    """(bound ms, bound_by, MB, fp32-core ms) of one K3 launch on these
+    inputs: fmap1, coords and the output once, and each in-range column of
+    a row's pooled features that some pixel of the row reads, once; the
+    products that touch an in-range column, at the features' peak rate."""
+    B, H, W1, D = f1.shape
+    taps = 2 * r + 1
+    size = f1.element_size()
+    j = torch.arange(taps + 1, device=coords.device)
+    c = coords.clamp(-1e6, 1e6)  # NaN stays NaN and reads nothing
+    cols = products = 0
+    for i, v in enumerate(pyr):
+        w2 = v.shape[2]
+        idx = torch.floor(c / 2**i - r) + j
+        hit = (idx >= 0) & (idx < w2)
+        products += int(hit.sum()) * D
+        seen = torch.zeros((B * H, w2 + 1), dtype=torch.bool, device=coords.device)
+        seen.scatter_(1, torch.where(hit, idx, float(w2)).long().view(B * H, -1), True)
+        cols += int(seen[:, :w2].sum())
+    nbytes = (f1.numel() + cols * D) * size + coords.numel() * 4 + B * H * W1 * len(pyr) * taps * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * products / PEAK_FLOPS[str(f1.dtype).split(".")[-1]] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes / 1e6,
+            2 * products / PEAK_FLOPS["float32"] * 1e3)
+
+
+def phase_k3(torch):
+    """K3 vs its plain version at the full-resolution path's shapes and at
+    ragged ones, and the materialized route at the same shapes."""
+    from dkt_stereo_tpu_torch.ops.corr import corr_pyramid_fused
+    from dkt_stereo_tpu_torch.ops.cuda.corr_alt import corr_lookup_alt, corr_lookup_alt_plain
+    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's fp32 products
+    r, L = 4, 4
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    res = {}
+    for shape in ((2, 7, 37), ALT_SHAPE):
+        for dt in (torch.float32, torch.bfloat16):
+            f1, f2, pyr, coords, finite = _alt_inputs(torch, gen, *shape, dt, L)
+            got = corr_lookup_alt(f1, pyr, coords, r)
+            want = corr_lookup_alt_plain(f1, pyr, coords, r)
+            check(got.shape == (*shape, L * (2 * r + 1)), f"K3 output shape {tuple(got.shape)}")
+            check(bool((got[~finite] == 0).all()), "K3: a NaN coordinate did not give zeros")
+            err = float((got[finite] - want[finite]).abs().max())
+            # fp32 sums of the same products in another order; the kernel
+            # shares one fractional weight per (pixel, level), which equals
+            # the plain version's per-tap weights at positions < 1024
+            tol = 1e-4 * float(want[finite].abs().max())
+            check(err <= tol, f"K3 {shape} {dt} max-abs {err} > {tol}")
+            res[(shape, dt)] = (err, tol)
+            del got, want
+    ms = cuda_ms(torch, lambda: corr_lookup_alt(f1, pyr, coords, r), 50)
+    plain_ms = cuda_ms(torch, lambda: corr_lookup_alt_plain(f1, pyr, coords, r), 2)
+    # the materialized route for the same lookup: the fused volume pyramid
+    # (cuBLAS, fp32 products, stored bf16) and one K1 launch
+    reg_ms = cuda_ms(torch, lambda: corr_lookup(
+        corr_pyramid_fused(f1, f2, L, out_dtype=f1.dtype), coords, r), 5)
+    bound_ms, bound_by, mb, f32_ms = alt_bound(torch, f1, pyr, coords, r)
+    errs = " ".join(f"{s[0]}x{s[1]}x{s[2]} {str(d).split('.')[-1]} {e:.3e} (tol {t:.2e})"
+                    for (s, d), (e, t) in res.items())
+    print(f"K3 corr_lookup_alt: max_abs {errs} (tol 1e-4 x max|plain|; NaN coordinate -> "
+          f"zeros) | bf16 {ALT_SHAPE} D {ALT_D} widths {[v.shape[2] for v in pyr]}: kernel_ms "
+          f"{ms:.4f} plain_ms {plain_ms:.3f} library_ms none (no single PyTorch call computes "
+          f"the four-level lookup without a volume) reg_route_ms {reg_ms:.3f} (fused pyramid + "
+          f"K1) bound_ms {bound_ms:.4f} ({bound_by}, {mb:.2f} MB; products on the fp32 cores "
+          f"{f32_ms:.4f} ms)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, reg_route_ms=reg_ms, max_abs_err=max(e for e, _ in res.values()))
+
+
+def phase_k3_vjp(torch):
+    """Gradients through CorrLookupAlt (kernel forward, recompute backward)
+    vs autograd of the plain version, on the card."""
+    from dkt_stereo_tpu_torch.ops.cuda.corr_alt import corr_lookup_alt, corr_lookup_alt_plain
+
+    B, H, W = 2, 40, 90
+    r, L = 4, 4
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    g = torch.randn((B, H, W, L * (2 * r + 1)), generator=gen, device="cuda")
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        f1, _, pyr, coords, _ = _alt_inputs(torch, gen, B, H, W, dt, L)
+        coords = coords.nan_to_num(0.0)
+        leaves = [t.detach().requires_grad_(True) for t in (f1, *pyr)]
+        n = corr_lookup_alt.launches
+        got = torch.autograd.grad(corr_lookup_alt(leaves[0], leaves[1:], coords, r), leaves, g)
+        check(corr_lookup_alt.launches == n + 1, "K3 VJP: the forward did not launch K3")
+        want = torch.autograd.grad(corr_lookup_alt_plain(leaves[0], leaves[1:], coords, r),
+                                   leaves, g)
+        check([d.dtype for d in got] == [dt] * (L + 1), f"K3 VJP dtypes {[d.dtype for d in got]}")
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        scale = max(float(b.float().abs().max()) for b in want)
+        # fp32: sums in another order (scatter-add atomics); bf16: one
+        # rounding of fp32 sums that may differ in their last bits
+        tol = (1e-4 if dt == torch.float32 else 2**-7) * scale
+        check(err <= tol, f"K3 VJP {dt} max-abs {err} > {tol}")
+        res[dt] = (err, scale)
+    print(f"K3 VJP (recompute backward) vs autograd of plain, {B}x{H}x{W} D {ALT_D}: max_abs "
+          + " ".join(f"{str(d).split('.')[-1]} {e:.3e} (max|grad| {s:.3e})"
+                     for d, (e, s) in res.items()) + " (tol fp32 1e-4, bf16 2^-7 x max|grad|)")
+
+
+def phase_alt_parity(torch, config):
+    """RAFT with alt_cuda (K3 on the card) and with alt (plain on the card)
+    vs the plain path on the CPU, fp32 with TF32 off, 2 iterations."""
+    from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
+    from dkt_stereo_tpu_torch.models.registry import create_model
+    from dkt_stereo_tpu_torch.ops.cuda.corr_alt import corr_lookup_alt
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    iters = 2
+    rng = np.random.default_rng(16)
+    img1, img2 = (rng.uniform(0, 255, (256, 512, 3)).astype(np.float32) for _ in range(2))
+    out = {}
+    for mode in ("alt_cuda", "alt"):
+        cfg = {**config, "mixed_precision": False, "corr_dtype": "float32",
+               "corr_implementation": mode}
+        gpu = create_model(cfg, iters=iters, device="cuda", seed=0)
+        cpu = copy.deepcopy(gpu).to("cpu")
+        n = corr_lookup_alt.launches
+        d_gpu, _ = _run_one(make_forward_fn(gpu, device="cuda"), img1, img2)
+        k3 = corr_lookup_alt.launches - n
+        check(k3 == (iters if mode == "alt_cuda" else 0), f"{mode} parity: {k3} K3 launches")
+        d_cpu, _ = _run_one(make_forward_fn(cpu, device="cpu"), img1, img2)
+        err = float(np.abs(d_gpu - d_cpu).max())
+        # RAFT's kernels-vs-plain bound (phase 4; PERF.md section 2)
+        check(np.isfinite(d_gpu).all() and err <= 5e-3, f"{mode} parity {err} > 5e-3")
+        out[mode] = (err, float(np.abs(d_cpu).max()), k3)
+        del gpu, cpu
+    torch.backends.cudnn.allow_tf32 = True
+    print("alt parity (fp32, TF32 off, 1x256x512, 2 iters), card vs plain on the CPU: "
+          + " | ".join(f"{m} disp_up max_abs {e:.3e} px (max |disp| {s:.1f} px, K3 launches "
+                       f"{k})" for m, (e, s, k) in out.items()) + " (tol 5e-3)")
+
+
+def phase_k2_fullres(torch):
+    """K2 vs its plain version once at the full-resolution fnet's shape,
+    one stage without the residual input."""
+    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage, encoder_stage_plain
+
+    B, (H, W), C = 2, ALT_IMAGE, 64
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    u = torch.randn((B, H, W, C), generator=gen, device="cuda").to(torch.bfloat16)
+    a1 = 0.5 + torch.rand((B, C), generator=gen, device="cuda")
+    b1 = 0.1 * torch.randn((B, C), generator=gen, device="cuda")
+    w = torch.randn((C, C, 3, 3), generator=gen, device="cuda") * (2.0 / (9 * C)) ** 0.5
+    got = encoder_stage(u, a1, b1, w)
+    torch.backends.cudnn.allow_tf32 = False  # the plain conv in full fp32
+    want = encoder_stage_plain(u, a1, b1, w)
+    torch.backends.cudnn.allow_tf32 = True
+    rel = {}
+    for k, gt, wt in zip(("y", "sum", "sumsq"), got, want):
+        rel[k] = float((gt.float() - wt.float()).abs().max()) / float(wt.float().abs().max())
+    # as phase 3: one bf16 flip in y, fp32 statistics over 5.7M pixels a sample
+    tol = {"y": 2**-7, "sum": 1e-4, "sumsq": 1e-4}
+    for k, e in rel.items():
+        check(e <= tol[k], f"K2 at {(B, H, W, C)}: {k} relative error {e} > {tol[k]}")
+    print(f"K2 encoder_stage at the full-resolution fnet's {(B, H, W, C)} bf16 "
+          f"({u.numel() / 1e6:.0f} M elements), one stage: rel max_abs "
+          + " ".join(f"{k} {e:.2e}" for k, e in rel.items()) + " (tol y 2^-7, statistics 1e-4)")
+
+
+def phase_alt_main(torch, config, reg_config, card):
+    """alt_pallas.json at full resolution: 1 warm-up and ALT_FRAMES timed
+    frames with exact launch counts, a profile, and one reg_cuda frame."""
+    from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
+    from dkt_stereo_tpu_torch.models.registry import create_model
+
+    phase_k2_fullres(torch)
+    torch.cuda.empty_cache()
+    iters = 32
+    H, W = ALT_IMAGE
+    model = create_model(config, iters=iters, seed=0)
+    forward = make_forward_fn(model)
+    rng = np.random.default_rng(18)
+    img1, img2 = (rng.uniform(0, 255, (H, W, 3)).astype(np.float32) for _ in range(2))
+    _run_one(forward, img1, img2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_counts()
+    times, per_frame = [], []
+    for _ in range(ALT_FRAMES):
+        before = kernel_counts()
+        disp, dt = _run_one(forward, img1, img2)
+        times.append(dt)
+        per_frame.append(_diff(kernel_counts(), before))
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    check(disp.shape == (H, W), f"alt disp shape {disp.shape}")
+    check(bool(np.isfinite(disp).all()), "alt: non-finite disparity")
+    want = {**dict.fromkeys(launches, 0), "corr_lookup_alt": iters, "encoder_stage": 4}
+    check(all(c == want for c in per_frame), f"alt launches per frame {per_frame} != {want}")
+    # what the corr section keeps for the whole frame: fmap1 and the pooled
+    # right features (bf16), against the volume pyramid of reg_cuda
+    Hc, Wc = H // 4, W // 4
+    feats = Hc * Wc * ALT_D * 2 + sum(Hc * (Wc >> i) * ALT_D * 2 for i in range(4))
+    volume = sum(Hc * Wc * (Wc >> i) * 2 for i in range(4))
+    ms = 1e3 * np.asarray(times)
+    print(f"alt path (alt_pallas.json, bf16, alt_cuda, 1x{H}x{W}, {iters} iters, {ALT_FRAMES} "
+          f"frames after 1 warm-up): ms/frame median {np.median(ms):.2f} mean {ms.mean():.2f} "
+          f"min {ms.min():.2f} max {ms.max():.2f} | frames/s {1e3 / ms.mean():.3f} | launches "
+          f"{launches} | peak mem {peak:.2f} GiB | corr section persistent {feats / 1e9:.3f} GB "
+          f"(fmap1 + pooled pyramid) vs volume pyramid {volume / 1e9:.3f} GB | disp range "
+          f"[{disp.min():.2f}, {disp.max():.2f}] | {card}")
+
+    def whole_frame():
+        # the wall clock also covers _run_one's copy of the images to the
+        # card (30 ms of pageable copies at this size), which the profile
+        # counts as device time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _run_one(forward, img1, img2)
+        return time.perf_counter() - t0
+
+    wall, busy, lines, buckets = device_profile(torch, whole_frame, "chip_smoke_alt_profile.txt")
+    print(f"profile of one alt frame, image copies included (profiler on): wall {wall:.2f} ms, "
+          f"kernels and copies {busy:.2f} ms, device idle share {1 - busy / wall:.3f}; by "
+          f"bucket: {buckets}; top kernels:")
+    for line in lines[:12]:
+        print("  " + line[:160])
+    del model, forward
+    torch.cuda.empty_cache()
+
+    # the same frame through pallas.json (reg_cuda: the volume pyramid)
+    forward = make_forward_fn(create_model(reg_config, iters=iters, seed=0))
+    _run_one(forward, img1, img2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    reg_disp, reg_dt = _run_one(forward, img1, img2)
+    reg_launches = kernel_counts()
+    want = {**dict.fromkeys(reg_launches, 0), "corr_lookup": iters, "encoder_stage": 4}
+    check(reg_launches == want, f"reg_cuda launches {reg_launches} != {want}")
+    check(bool(np.isfinite(reg_disp).all()), "reg_cuda: non-finite disparity")
+    print(f"the same frame through pallas.json (reg_cuda): {1e3 * reg_dt:.2f} ms | peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches {reg_launches} | "
+          f"{card}")
+    del forward
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -1215,10 +1502,17 @@ def main():
     phase_igev_train_parity(torch, igev_train_cfg)
     igev_train = phase_igev_train(torch, igev_train_cfg, card)
 
+    k3 = phase_k3(torch)
+    phase_k3_vjp(torch)
+    alt_cfg = json.loads((ROOT / "configs/raft_stereo/alt_pallas.json").read_text())
+    phase_alt_parity(torch, alt_cfg)
+    alt = phase_alt_main(torch, alt_cfg, config, card)
+
     def launches(name):
         by_path = {"inference": infer.get(name, 0), "training": train.get(name, 0),
                    "igev_inference": igev.get(name, 0),
-                   "igev_training": igev_train.get(name, 0)}
+                   "igev_training": igev_train.get(name, 0),
+                   "alt_inference": alt.get(name, 0)}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     k2p = k2["plain"]
@@ -1247,6 +1541,9 @@ def main():
              source="dkt_stereo_tpu_torch/csrc/geo_lookup_bwd.cu",
              replaces="dkt_stereo_tpu/ops/pallas/geo_lookup.py:285",
              **launches("geo_lookup_bwd_corr"), **k4b["corr"]),
+        dict(name="corr_lookup_alt", route="cuda", source="dkt_stereo_tpu_torch/csrc/corr_alt.cu",
+             replaces="dkt_stereo_tpu/ops/pallas/corr_alt.py:162",
+             **launches("corr_lookup_alt"), **k3),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

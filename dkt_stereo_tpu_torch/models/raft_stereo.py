@@ -14,12 +14,23 @@ lookup, the coordinates and the convex upsampling stay fp32. Only the x
 component of the GRU's delta is kept, and the flow fed back to the motion
 encoder has a zero y channel.
 
-On CUDA tensors both ``reg`` and ``reg_cuda`` look the pyramid up through
-the K1 kernel and differentiate it through K1's backward
-(``ops/cuda/corr_lookup.py``); the fnet's full-resolution section runs
-through the K2 kernel when ``pallas_encoder`` is set (test mode only: K2 has
-no backward yet). Batch norm is frozen in both modes
-(``nn/norms.py::FrozenBatchNorm2d``).
+Correlation modes, in both modes of the model:
+
+  - ``reg`` and ``reg_cuda`` build the volume pyramid once; on CUDA tensors
+    both look it up through the K1 kernel and differentiate it through K1's
+    backward (``ops/cuda/corr_lookup.py``).
+  - ``alt_cuda`` keeps no volume: the pyramid is the right features pooled
+    in the corr dtype (bf16 under mixed precision), and every iteration
+    recomputes its taps from them and fmap1, through the K3 kernel on CUDA
+    tensors (``ops/cuda/corr_alt.py``; its backward differentiates the
+    plain recompute, as the JAX VJP does).
+  - ``alt`` is the same lookup in plain PyTorch on every device, from right
+    features pooled in fp32 (the JAX model's rule: its levels >= 1 differ
+    from ``alt_cuda``'s by one bf16 rounding under mixed precision).
+
+The fnet's full-resolution section runs through the K2 kernel when
+``pallas_encoder`` is set (test mode only: K2 has no backward yet). Batch
+norm is frozen in both modes (``nn/norms.py::FrozenBatchNorm2d``).
 """
 
 from __future__ import annotations
@@ -34,7 +45,9 @@ from torch.utils.checkpoint import checkpoint
 
 from dkt_stereo_tpu_torch.nn.blocks import BasicEncoder, MultiBasicEncoder
 from dkt_stereo_tpu_torch.nn.gru import BasicMultiUpdateBlock
-from dkt_stereo_tpu_torch.ops.corr import corr_pyramid_fused
+from dkt_stereo_tpu_torch.ops.corr import corr_lookup_alt as corr_lookup_alt_plain
+from dkt_stereo_tpu_torch.ops.corr import corr_pyramid_fused, fmap_pyramid
+from dkt_stereo_tpu_torch.ops.cuda.corr_alt import corr_lookup_alt
 from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup
 from dkt_stereo_tpu_torch.ops.sampler import coords_grid_x
 from dkt_stereo_tpu_torch.ops.upsample import convex_upsample
@@ -42,8 +55,6 @@ from dkt_stereo_tpu_torch.ops.upsample import convex_upsample
 # options of the JAX config that this slice does not run, with the ROADMAP.md
 # entry that will port them
 _UNPORTED = {
-    "alt": "Queue 1 item 2 (corr_lookup_alt) / Queue 2 K3",
-    "alt_cuda": "Queue 2 K3 (corr_lookup_alt_pallas)",
     "cosine": "Queue 1 item 4 (cosine corr mode)",
     "mix_fmap_image": "Queue 1 item 4 (mix_fmap_image, train-time image/feature volume mix)",
     "interpolate": "Queue 1 item 4 (backbone_type='interpolate')",
@@ -98,7 +109,7 @@ class RAFTStereoConfig:
 
     def check_ported(self) -> None:
         """Raise NotImplementedError for the options this slice lacks."""
-        if self.corr_implementation not in ("reg", "reg_cuda"):
+        if self.corr_implementation not in ("reg", "reg_cuda", "alt", "alt_cuda"):
             raise _unported(self.corr_implementation)
         if self.backbone_type != "default":
             raise _unported(self.backbone_type)
@@ -139,17 +150,27 @@ class RAFTStereo(nn.Module):
             return contextlib.nullcontext()
         return torch.autocast(device.type, dtype=torch.bfloat16)
 
-    def _iteration(self, net, inp, pyramid, coords0, coords1, with_mask: bool, upsample: bool):
+    def _lookup(self, fmap1, pyramid, coords1):
+        r = self.cfg.corr_radius
+        if self.cfg.corr_implementation == "alt_cuda":
+            return corr_lookup_alt(fmap1, pyramid, coords1, r)
+        if self.cfg.corr_implementation == "alt":
+            return corr_lookup_alt_plain(fmap1, pyramid, coords1, r)
+        return corr_lookup(pyramid, coords1, r)
+
+    def _iteration(self, net, inp, fmap1, pyramid, coords0, coords1, with_mask: bool,
+                   upsample: bool):
         """One refinement iteration (the JAX ``_IterStep._one_iter``). The
         incoming coordinates are detached (the reference's
-        ``coords1.detach()``); the GRU state is not. Returns ``(net, coords1,
-        mask)``, or ``(net, coords1, disp_up)`` with ``upsample`` (train
-        mode: each iteration's convex-upsampled disparity)."""
+        ``coords1.detach()``); the GRU state is not. ``fmap1`` is None for
+        the volume modes. Returns ``(net, coords1, mask)``, or ``(net,
+        coords1, disp_up)`` with ``upsample`` (train mode: each iteration's
+        convex-upsampled disparity)."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         n = cfg.n_gru_layers
         coords1 = coords1.detach().contiguous()
-        corr = corr_lookup(pyramid, coords1, cfg.corr_radius)
+        corr = self._lookup(fmap1, pyramid, coords1)
         flow_x = coords1 - coords0
         flow2 = torch.cat([flow_x, torch.zeros_like(flow_x)], dim=-1).permute(0, 3, 1, 2)
         with self._autocast(coords1.device):
@@ -179,7 +200,7 @@ class RAFTStereo(nn.Module):
 
         With ``remat_iters`` in train mode each iteration runs under
         ``torch.utils.checkpoint``: its activations are recomputed in the
-        backward pass (K1's forward included) instead of kept."""
+        backward pass (the lookup's forward included) instead of kept."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         factor = 2**cfg.n_downsample
@@ -197,16 +218,26 @@ class RAFTStereo(nn.Module):
 
         corr_dt = cfg.corr_storage_dtype
         fmap1, fmap2 = (f.to(corr_dt).permute(0, 2, 3, 1) for f in fmap.chunk(2, dim=0))
-        pyramid = corr_pyramid_fused(fmap1, fmap2, cfg.corr_levels, out_dtype=corr_dt)
-
         B, Hc, Wc, _ = fmap1.shape
         coords0 = coords_grid_x(B, Hc, Wc, device=fmap1.device)
         coords1 = coords0 if flow_init is None else coords0 + flow_init
 
+        if cfg.corr_implementation == "alt_cuda":
+            # no volume: the right features pooled and stored in the corr
+            # dtype, contiguous (B, H, W2, D) as K3 reads them
+            fmap1 = fmap1.contiguous()
+            pyramid = fmap_pyramid(fmap2.contiguous(), cfg.corr_levels)
+        elif cfg.corr_implementation == "alt":
+            # no volume: the right features pooled in fp32
+            pyramid = fmap_pyramid(fmap2.float(), cfg.corr_levels)
+        else:
+            pyramid = corr_pyramid_fused(fmap1, fmap2, cfg.corr_levels, out_dtype=corr_dt)
+            fmap1 = None
+
         if not self.test_mode:
             preds = []
             for _ in range(self.iters):
-                args = (net, inp, pyramid, coords0, coords1, True, True)
+                args = (net, inp, fmap1, pyramid, coords0, coords1, True, True)
                 if cfg.remat_iters:
                     net, coords1, disp_up = checkpoint(self._iteration, *args, use_reentrant=False)
                 else:
@@ -217,7 +248,7 @@ class RAFTStereo(nn.Module):
         for itr in range(self.iters):
             # test mode consumes only the final iteration's mask
             net, coords1, mask = self._iteration(
-                net, inp, pyramid, coords0, coords1, itr == self.iters - 1, False
+                net, inp, fmap1, pyramid, coords0, coords1, itr == self.iters - 1, False
             )
         disp = coords1 - coords0
         disp_up = convex_upsample(disp.permute(0, 3, 1, 2), mask.float(), factor)[:, 0]

@@ -9,8 +9,15 @@ core/corr.py:110-156).
   - lookup: at level i, 2r+1 linear taps around ``x / 2^i`` with zero
     padding, concatenated over levels -> (B, H, W, L*(2r+1)) fp32.
 
+The memory-efficient "alt" lookup (core/corr.py:64-107) builds no volume:
+:func:`corr_lookup_alt` samples the pooled right features at the taps and
+dots them with the left features, equal to the materialized lookup because
+the pool is linear in fmap2.
+
 :func:`corr_lookup` is the plain twin of the CUDA kernel
-``ops/cuda/corr_lookup.py`` (the port of the Pallas ``corr_lookup_pallas``).
+``ops/cuda/corr_lookup.py`` (the port of the Pallas ``corr_lookup_pallas``);
+:func:`corr_lookup_alt` that of ``ops/cuda/corr_alt.py`` (the port of
+``corr_lookup_alt_pallas``).
 """
 
 from __future__ import annotations
@@ -68,4 +75,38 @@ def corr_lookup(pyramid, coords_x: torch.Tensor, radius: int = 4) -> torch.Tenso
     for i, vol in enumerate(pyramid):
         x = coords_x.float() / (2**i) + dx
         out.append(sample_row_1d(vol, x))
+    return torch.cat(out, dim=-1)
+
+
+def corr_lookup_alt(fmap1: torch.Tensor, f2_pyramid, coords_x: torch.Tensor,
+                    radius: int = 4) -> torch.Tensor:
+    """No-volume lookup (``dkt_stereo_tpu/ops/corr.py::corr_lookup_alt``):
+    at level i the pooled right features (B, H, W2_i, D) are sampled at the
+    2r+1 taps ``x / 2^i + k - r`` (linear, zero padding) and dotted with
+    fmap1 (B, H, W1, D), in fp32, then divided by sqrt(D). Returns
+    (B, H, W1, L*(2r+1)) fp32, channel order as :func:`corr_lookup`.
+
+    Level by level, as the JAX function: each gathers (B, H, W1, 2r+1, D)
+    fp32 taps twice. A NaN position reads a clamped index with weight 0, so
+    its output is NaN, as in :func:`sample_row_1d`."""
+    B, H, W, D = fmap1.shape
+    dx = torch.arange(-radius, radius + 1, dtype=torch.float32, device=coords_x.device)
+    K = dx.numel()
+    f1 = fmap1.float()
+    out = []
+    for i, f2 in enumerate(f2_pyramid):
+        S = f2.shape[2]
+        f2 = f2.float()
+        x = coords_x.float() / (2**i) + dx  # (B, H, W, K)
+        x0 = torch.floor(x)
+        w = (x - x0)[..., None]
+
+        def tap(ix):
+            inb = ((ix >= 0) & (ix <= S - 1))[..., None]
+            idx = ix.nan_to_num(0.0).clamp(0, S - 1).long().reshape(B, H, W * K, 1)
+            return torch.take_along_dim(f2, idx, dim=2).reshape(B, H, W, K, D) * inb
+
+        sampled = tap(x0) * (1 - w) + tap(x0 + 1) * w
+        out.append(torch.einsum("bhwkd,bhwd->bhwk", sampled, f1) / math.sqrt(D))
+        del sampled
     return torch.cat(out, dim=-1)

@@ -149,11 +149,17 @@ def test_registry_and_unported_options():
         get_model("PCVNet")
     with pytest.raises(KeyError, match="unknown model"):
         get_model("NoSuchNet")
-    for override in ({"corr_implementation": "alt"}, {"corr_implementation": "alt_cuda"},
-                     {"corr_implementation": "cosine"}, {"backbone_type": "interpolate"},
+    for override in ({"corr_implementation": "cosine"}, {"backbone_type": "interpolate"},
                      {"fast_in_stats": True}, {"shared_backbone": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             RAFTStereo(RAFTStereoConfig.from_dict({**PALLAS, **override}))
+    # alt_pallas.json (alt_cuda, K2 encoder) builds in test mode; in train
+    # mode its pallas_encoder still waits for the K2 VJP
+    alt = load_model_config(str(ROOT / "configs/raft_stereo/alt_pallas.json"))
+    model = create_model(alt, iters=1, device="cpu", seed=0)
+    assert model.test_mode and model.cfg.corr_implementation == "alt_cuda"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md .*K2 VJP"):
+        RAFTStereo(RAFTStereoConfig.from_dict(alt), test_mode=False)
     # the shipped training config builds in train mode (remat_iters on)
     train = json.loads((ROOT / "configs/raft_stereo/train.json").read_text())
     model = create_model(train, iters=2, device="cpu", seed=0, test_mode=False)
