@@ -30,7 +30,9 @@ from dkt_stereo_tpu.ops.pallas.corr_alt import corr_lookup_alt_pallas
 from dkt_stereo_tpu_torch.cli.config import load_model_config
 from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
 from dkt_stereo_tpu_torch.losses.sequence import sequence_loss_raft
+from dkt_stereo_tpu_torch.models import raft_stereo
 from dkt_stereo_tpu_torch.models.raft_stereo import RAFTStereo, RAFTStereoConfig
+from dkt_stereo_tpu_torch.models.registry import create_model
 from dkt_stereo_tpu_torch.ops.corr import corr_lookup_alt, fmap_pyramid
 from dkt_stereo_tpu_torch.ops.cuda import corr_alt
 from dkt_stereo_tpu_torch.ops.cuda.corr_alt import CorrLookupAlt
@@ -152,6 +154,34 @@ def test_corr_lookup_alt_wrapper_devices():
 
 
 # --- the whole model ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["alt_cuda", "alt"])
+def test_alt_pyramids_under_mixed_precision(rng, monkeypatch, mode):
+    """alt_pallas.json as shipped (bf16 autocast) on the CPU: alt_cuda pools
+    and stores the right features in bf16, alt pools them in fp32 from the
+    bf16-rounded fmap2, as the JAX model does (models/raft_stereo.py:276-289;
+    their levels >= 1 differ by one bf16 rounding). Each level the lookup
+    receives equals JAX's fmap_pyramid under that mode's rule, bit for bit;
+    fmap1 reaches the lookup in bf16 either way."""
+    name = "corr_lookup_alt" if mode == "alt_cuda" else "corr_lookup_alt_plain"
+    lookup, seen = getattr(raft_stereo, name), []
+
+    def spy(fmap1, pyramid, coords, r):
+        seen.append((fmap1, list(pyramid)))
+        return lookup(fmap1, pyramid, coords, r)
+
+    monkeypatch.setattr(raft_stereo, name, spy)
+    model = create_model({**ALT, "corr_implementation": mode}, iters=1, device="cpu", seed=0)
+    x = _t(rng.uniform(0, 255, (2, 1, 32, 64, 3)).astype(np.float32))
+    with torch.inference_mode():
+        model(x[0], x[1])
+    fmap1, levels = seen[0]
+    jdt, tdt = DTYPES["bfloat16" if mode == "alt_cuda" else "float32"]
+    assert fmap1.dtype == torch.bfloat16 and [v.dtype for v in levels] == [tdt] * 4
+    want = jfmap_pyramid(jnp.asarray(levels[0].float().numpy()).astype(jdt), 4)
+    for got, w in zip(levels, want):
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(w.astype(jnp.float32)))
 
 ITERS = 3
 B, H, W = 1, 32, 64
