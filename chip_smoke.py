@@ -79,8 +79,25 @@ out-of-tolerance result raises and exits non-zero:
      counts (32 K3 and 4 K2 a frame), peak memory, the corr section's
      persistent bytes against the volume pyramid, a profile of one frame
      (chiprun_out/chip_smoke_alt_profile.txt), and one pallas.json
-     (reg_cuda) frame at the same size; then the "kernels" JSON line and
-     the card's line.
+     (reg_cuda) frame at the same size;
+ 20. K5 (PCVNet's Gaussian row sampling, every level in one launch) vs its
+     plain version at base.json's 1/4 grid of 736x1280 (1x184x320, widths
+     320/80/20), at fast.json's 1/8 grid (1x92x160, widths 160/80/40) and
+     at a ragged 2x7x37 (widths 37/9/2), bf16 and fp32 volumes, positions
+     of a random mixture plus negative, past-the-row, far out of range,
+     exact-integer and NaN ones (NaN gives zeros), with grid_sample over
+     the three levels as yardstick; K5 refusing inputs that require grad;
+ 21. PCVNet parity: base.json and fast.json in fp32, TF32 off, 1x256x512,
+     2 iterations, exactly 2 K5 launches each; K5 vs the plain lookup with
+     the rest of the model on the card, and kernels (card) vs plain path
+     (CPU) with the plain-on-card vs CPU floor;
+ 22. the PCV main path: configs/pcvnet/base.json as shipped (bf16, K5),
+     B=1, 736x1280, 32 iterations, through make_forward_fn/_run_one: 1
+     warm-up and 20 timed frames with exact launch counts (32 K5 a frame,
+     no other kernel), peak memory and a profile of one frame
+     (chiprun_out/chip_smoke_pcv_profile.txt); then fast.json at the same
+     size, 1 warm-up and 5 timed frames, 32 K5 a frame; then the "kernels"
+     JSON line and the card's line.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
@@ -134,9 +151,10 @@ def _wrappers():
     from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage
     from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import (
         geo_lookup, geo_lookup_bwd_corr, geo_lookup_bwd_geo)
+    from dkt_stereo_tpu_torch.ops.cuda.row_sample import gaussian_row_sample
 
     return (corr_lookup, corr_lookup_bwd, encoder_stage, geo_lookup, geo_lookup_bwd_geo,
-            geo_lookup_bwd_corr, corr_lookup_alt)
+            geo_lookup_bwd_corr, corr_lookup_alt, gaussian_row_sample)
 
 
 def kernel_counts():
@@ -349,6 +367,7 @@ BUCKETS = (
     ("K4", r"geo_lookup_kernel"),
     ("K1 bwd", r"corr_lookup_bwd_kernel"),
     ("K1", r"corr_lookup_kernel"),
+    ("K5", r"row_sample_kernel"),
     ("K2", r"encoder_stage"),
     ("convolutions/GEMMs", r"xmma|cutlass|gemm|nvjet|conv|wgrad|dgrad|fprop"),
     ("cuDNN layout transforms", r"nchwToNhwc|nhwcToNchw|AddPadding"),
@@ -1027,7 +1046,8 @@ def phase_igev_train_parity(torch, train_cfg):
     # teachers 2 + 2, student 2, remat recompute 2; one dgeo and one dcorr
     # launch per student iteration
     want = {"geo_lookup": 8, "geo_lookup_bwd_geo": 2, "geo_lookup_bwd_corr": 2,
-            "corr_lookup": 0, "corr_lookup_bwd": 0, "encoder_stage": 0, "corr_lookup_alt": 0}
+            "corr_lookup": 0, "corr_lookup_bwd": 0, "encoder_stage": 0, "corr_lookup_alt": 0,
+            "gaussian_row_sample": 0}
     check(launches == want, f"IGEV train parity launches {launches} != {want}")
     loss_err = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
                 for k in ("loss", "loss_GT", "loss_PL")}
@@ -1131,7 +1151,8 @@ def phase_igev_train(torch, train_cfg, card):
     # dgeo launch per student iteration; no dcorr (the frozen backbone
     # detaches the descriptors, so the corr pyramid needs no gradient)
     want = {"geo_lookup": 96, "geo_lookup_bwd_geo": 16, "geo_lookup_bwd_corr": 0,
-            "corr_lookup": 0, "corr_lookup_bwd": 0, "encoder_stage": 0, "corr_lookup_alt": 0}
+            "corr_lookup": 0, "corr_lookup_bwd": 0, "encoder_stage": 0, "corr_lookup_alt": 0,
+            "gaussian_row_sample": 0}
     check(all(c == want for c in per_step), f"IGEV launches per step {per_step} != {want}")
     # every tensor outside the detached trunk and the unused slots gets a
     # gradient (a non-zero Adam first moment) and moves, unless its gradient
@@ -1460,6 +1481,243 @@ def phase_alt_main(torch, config, reg_config, card):
     return launches
 
 
+PCV_IMAGE = (736, 1280)
+PCV_SHAPE = (1, 184, 320)  # base.json's 1/4 grid of the main path
+PCV_FAST_SHAPE = (1, 92, 160)  # fast.json's 1/8 grid
+PCV_G, PCV_S, PCV_L = 4, 9, 3  # gauss_num, sample_num, corr_levels of both configs
+PCV_FAST_FRAMES = 5
+
+
+def _k5_inputs(torch, gen, shape, cf, dt):
+    """Levels of widths W, W/cf, W/cf^2 in ``dt`` and the level-0 positions
+    mu + sigma*dx of a random mixture (sigma in [0.1, 16], mu over and
+    beyond the row), with far out-of-range, negative, past-the-row,
+    exact-integer (0 and W2-1 among them) and NaN positions; and the mask of
+    the output entries whose position is finite."""
+    from dkt_stereo_tpu_torch.nn.pcv import gaussian_positions
+
+    B, H, W = shape
+    levels = [(4 * torch.randn((B, H, W, W // cf**i), generator=gen, device="cuda")).to(dt)
+              for i in range(PCV_L)]
+    mu = torch.rand((B, PCV_G, H, W), generator=gen, device="cuda") * (W + 40) - 20
+    sigma = 0.1 + 15.9 * torch.rand((B, PCV_G, H, W), generator=gen, device="cuda")
+    pos = gaussian_positions(mu, sigma, PCV_S)
+    pos.view(-1)[:12] = torch.tensor([-1e9, 1e9, 3e7, -0.5, -1.0, -3.0, 0.0, 17.0, W - 1.0,
+                                      W + 0.25, float(2 * cf**2), float("nan")])
+    return levels, pos, torch.isfinite(pos).repeat(1, 1, 1, PCV_L)
+
+
+def k5_bound(torch, levels, pos, cf):
+    """(bound ms, MB) of one K5 launch on these inputs: the positions and
+    the output once, and each in-range volume entry that some tap of its
+    row reads, once (NaN positions read nothing)."""
+    B, H, W1, K = pos.shape
+    n = B * H * W1
+    p = pos.clamp(-1e6, 1e6)
+    read = 0
+    for i, v in enumerate(levels):
+        w2 = v.shape[-1]
+        x0 = torch.floor(p / cf**i)
+        idx = torch.stack([x0, x0 + 1], dim=-1)
+        hit = (idx >= 0) & (idx < w2)
+        seen = torch.zeros((n, w2 + 1), dtype=torch.bool, device=pos.device)
+        seen.scatter_(1, torch.where(hit, idx, float(w2)).long().view(n, -1), True)
+        read += int(seen[:, :w2].sum()) * v.element_size()
+    nbytes = read + pos.numel() * 4 + n * len(levels) * K * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes / 1e6
+
+
+def phase_k5(torch):
+    """K5 vs its plain version at both PCV grids and a ragged shape, the
+    grid_sample yardstick, and K5 refusing inputs that require grad."""
+    import torch.nn.functional as F
+
+    from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
+        gaussian_row_sample, gaussian_row_sample_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    res = {}
+    for shape, cf in (((2, 7, 37), 4), (PCV_FAST_SHAPE, 2), (PCV_SHAPE, 4)):
+        for dt in (torch.float32, torch.bfloat16):
+            levels, pos, finite = _k5_inputs(torch, gen, shape, cf, dt)
+            got = gaussian_row_sample(levels, pos, cf)
+            want = gaussian_row_sample_plain(levels, pos, cf)
+            check(got.shape == want.shape == (*shape, PCV_L * PCV_G * PCV_S),
+                  f"K5 output shape {tuple(got.shape)}")
+            # a NaN position gives zeros in the kernel (clamped left of the
+            # row), NaN in the plain version
+            check(bool((got[~finite] == 0).all()), "K5: a NaN position did not give zeros")
+            err = float((got[finite] - want[finite]).abs().max())
+            # the same two taps, weights and fp32 roundings as the plain
+            # version: equal on finite positions, bounded as K1 is
+            tol = 1e-4 * float(want[finite].abs().max())
+            check(err <= tol, f"K5 {shape} {dt} max-abs {err} > {tol}")
+            res[(shape, dt)] = (err, tol)
+    # the main path's launch: bf16 levels at 1x184x320, cf 4 (the last case)
+    ms = cuda_ms(torch, lambda: gaussian_row_sample(levels, pos, cf), 200)
+    plain_ms = cuda_ms(torch, lambda: gaussian_row_sample_plain(levels, pos, cf), 20)
+    # one grid_sample per level on an (N, 1, 1, W2) view with an (N, 1, K, 2)
+    # grid, the reference's own form of the lookup; fp32, because a bf16 grid
+    # cannot hold the positions (8 bits of mantissa at positions up to 340)
+    B, H, W1, K = pos.shape
+    n = B * H * W1
+    lib_in = [v.float().reshape(n, 1, 1, v.shape[-1]) for v in levels]
+    grids = []
+    for i, v in enumerate(lib_in):
+        x = (pos / cf**i).reshape(n, 1, K, 1)
+        x = 2 * x / (v.shape[-1] - 1) - 1
+        grids.append(torch.cat([x, torch.zeros_like(x)], dim=-1))
+
+    def library():
+        return [F.grid_sample(v, g, mode="bilinear", padding_mode="zeros", align_corners=True)
+                for v, g in zip(lib_in, grids)]
+
+    lib_ms = cuda_ms(torch, library, 50)
+    lib = torch.cat([o.view(B, H, W1, K) for o in library()], dim=-1)
+    lib_err = float((lib[finite] - want[finite]).abs().max())
+    bound_ms, mb = k5_bound(torch, levels, pos, cf)
+
+    # no backward yet: on the card it raises rather than cut the graph
+    small = [torch.randn((1, 2, 3, 8), device="cuda")]
+    p = torch.zeros((1, 2, 3, 4), device="cuda", requires_grad=True)
+    launches = gaussian_row_sample.launches
+    try:
+        gaussian_row_sample(small, p, cf)
+    except RuntimeError as e:
+        check("Queue 2 K5 backward" in str(e), f"K5 refusal names no ROADMAP entry: {e}")
+    else:
+        raise SmokeFailure("gaussian_row_sample accepted an input that requires grad")
+    check(gaussian_row_sample.launches == launches, "gaussian_row_sample launched on a refusal")
+    with torch.no_grad():
+        gaussian_row_sample(small, p, cf)
+
+    errs = " ".join(f"{s[0]}x{s[1]}x{s[2]} {str(d).split('.')[-1]} {e:.3e} (tol {t:.2e})"
+                    for (s, d), (e, t) in res.items())
+    print(f"K5 gaussian_row_sample: max_abs {errs} (tol 1e-4 x max|plain|; NaN position -> "
+          f"zeros) | bf16 {PCV_SHAPE} K {K} widths {[v.shape[-1] for v in levels]}: kernel_ms "
+          f"{ms:.4f} plain_ms {plain_ms:.3f} library_ms {lib_ms:.4f} (F.grid_sample over the "
+          f"three levels, fp32; max_abs vs plain {lib_err:.3e}) bound_ms {bound_ms:.4f} (bytes, "
+          f"{mb:.2f} MB) | with an input that requires grad: RuntimeError naming the Queue 2 "
+          "K5 backward entry; under no_grad it runs")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=lib_ms, max_abs_err=max(e for e, _ in res.values()))
+
+
+def phase_pcv_parity(torch, configs):
+    """PCVNet with K5 on the card vs the plain path on the CPU, fp32 with
+    TF32 off, 2 iterations, both configs; and the plain lookup on the card
+    vs the CPU, which measures what fp32 reordering alone moves."""
+    import dkt_stereo_tpu_torch.models.pcvnet as pcv
+    from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
+    from dkt_stereo_tpu_torch.models.registry import create_model
+    from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
+        gaussian_row_sample, gaussian_row_sample_plain)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    iters = 2
+    rng = np.random.default_rng(20)
+    img1, img2 = (rng.uniform(0, 255, (256, 512, 3)).astype(np.float32) for _ in range(2))
+    out = {}
+    for name, config in configs.items():
+        gpu = create_model({**config, "mixed_precision": False}, iters=iters, device="cuda",
+                           seed=0)
+        cpu = copy.deepcopy(gpu).to("cpu")
+        n = gaussian_row_sample.launches
+        d_gpu, _ = _run_one(make_forward_fn(gpu, device="cuda"), img1, img2)
+        k5 = gaussian_row_sample.launches - n
+        check(k5 == iters, f"PCV {name} parity: {k5} K5 launches != {iters}")
+        d_cpu, _ = _run_one(make_forward_fn(cpu, device="cpu"), img1, img2)
+        pcv.gaussian_row_sample = gaussian_row_sample_plain  # for the floor only
+        try:
+            d_plain, _ = _run_one(make_forward_fn(gpu, device="cuda"), img1, img2)
+        finally:
+            pcv.gaussian_row_sample = gaussian_row_sample
+        err = float(np.abs(d_gpu - d_cpu).max())
+        floor = float(np.abs(d_plain - d_cpu).max())
+        same = float(np.abs(d_gpu - d_plain).max())
+        # the JAX package's bound between its XLA and Pallas PCV lookups at 2
+        # iterations on one device (tests/test_pallas_row_sample.py:61-80):
+        # the closed-form mixture updates amplify fp32 rounding. It holds K5
+        # against the plain lookup with everything else on the card; against
+        # the CPU, where the convolutions' fp32 reordering alone moves the
+        # disparity by as much, it is twice the plain-vs-plain difference
+        check(np.isfinite(d_gpu).all() and same <= 2e-2,
+              f"PCV {name}: K5 vs the plain lookup on the card {same} > 2e-2")
+        tol = max(2e-2, 2 * floor)
+        check(err <= tol, f"PCV {name} parity {err} > {tol}")
+        out[name] = (same, err, floor, tol, float(np.abs(d_cpu).max()), k5)
+        del gpu, cpu
+    torch.backends.cudnn.allow_tf32 = True
+    print("PCV parity (fp32, TF32 off, 1x256x512, 2 iters): "
+          + " | ".join(f"{n}.json disp_up max_abs K5 vs the plain lookup, both on the card, "
+                       f"{m:.3e} px (tol 2e-2); kernels (card) vs plain (CPU) {e:.3e} px (tol "
+                       f"{t:.1e}); plain on the card vs plain on the CPU {f:.3e} px; max |disp| "
+                       f"{s:.1f} px; K5 launches {k}" for n, (m, e, f, t, s, k) in out.items()))
+
+
+def _pcv_frames(torch, forward, images, frames, iters, label):
+    """1 warm-up, then ``frames`` timed frames with exactly ``iters`` K5
+    launches each and no other kernel; returns (ms array, launches, peak
+    GiB, last disparity)."""
+    from dkt_stereo_tpu_torch.eval.validate import _run_one
+
+    _run_one(forward, *images)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times, per_frame = [], []
+    for _ in range(frames):
+        before = kernel_counts()
+        disp, dt = _run_one(forward, *images)
+        times.append(dt)
+        per_frame.append(_diff(kernel_counts(), before))
+    launches = kernel_counts()
+    check(disp.shape == PCV_IMAGE, f"{label} disp shape {disp.shape}")
+    check(bool(np.isfinite(disp).all()), f"{label}: non-finite disparity")
+    want = {**dict.fromkeys(launches, 0), "gaussian_row_sample": iters}
+    check(all(c == want for c in per_frame), f"{label} launches per frame {per_frame} != {want}")
+    return 1e3 * np.asarray(times), launches, torch.cuda.max_memory_allocated() / 2**30, disp
+
+
+def phase_pcv_main(torch, config, fast_config, card):
+    """base.json as shipped at 736x1280, 32 iterations: 20 timed frames and
+    a profile; then fast.json at the same size, 5 timed frames."""
+    from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
+    from dkt_stereo_tpu_torch.models.registry import create_model
+
+    iters = 32
+    rng = np.random.default_rng(21)
+    images = tuple(rng.uniform(0, 255, (*PCV_IMAGE, 3)).astype(np.float32) for _ in range(2))
+    forward = make_forward_fn(create_model(config, iters=iters, seed=0))
+    ms, launches, peak, disp = _pcv_frames(torch, forward, images, MAIN_FRAMES, iters, "PCV")
+    print(f"PCV main path (pcvnet/base.json, bf16, K5, 1x{PCV_IMAGE[0]}x{PCV_IMAGE[1]}, {iters} "
+          f"iters, {MAIN_FRAMES} frames after 1 warm-up): ms/frame median {np.median(ms):.2f} "
+          f"mean {ms.mean():.2f} min {ms.min():.2f} max {ms.max():.2f} | frames/s "
+          f"{1e3 / ms.mean():.3f} | launches {launches} | peak mem {peak:.2f} GiB | disp range "
+          f"[{disp.min():.2f}, {disp.max():.2f}] | {card}")
+    wall, busy, lines, buckets = device_profile(
+        torch, lambda: _run_one(forward, *images)[1], "chip_smoke_pcv_profile.txt")
+    print(f"profile of one PCV frame (profiler on): wall {wall:.2f} ms, kernels {busy:.2f} ms, "
+          f"device idle share {1 - busy / wall:.3f}; by bucket: {buckets}; top kernels:")
+    for line in lines[:12]:
+        print("  " + line[:160])
+    del forward
+    torch.cuda.empty_cache()
+
+    forward = make_forward_fn(create_model(fast_config, iters=iters, seed=0))
+    ms, fast, peak, disp = _pcv_frames(torch, forward, images, PCV_FAST_FRAMES, iters,
+                                       "PCV fast")
+    print(f"PCV fast path (pcvnet/fast.json, bf16, K5, 1x{PCV_IMAGE[0]}x{PCV_IMAGE[1]}, "
+          f"{iters} iters, {PCV_FAST_FRAMES} frames after 1 warm-up): ms/frame median "
+          f"{np.median(ms):.2f} mean {ms.mean():.2f} min {ms.min():.2f} max {ms.max():.2f} | "
+          f"launches {fast} | peak mem {peak:.2f} GiB | disp range [{disp.min():.2f}, "
+          f"{disp.max():.2f}] | {card}")
+    del forward
+    torch.cuda.empty_cache()
+    return launches, fast
+
+
 def main():
     import torch
 
@@ -1508,11 +1766,18 @@ def main():
     phase_alt_parity(torch, alt_cfg)
     alt = phase_alt_main(torch, alt_cfg, config, card)
 
+    k5 = phase_k5(torch)
+    pcv_cfgs = {n: json.loads((ROOT / f"configs/pcvnet/{n}.json").read_text())
+                for n in ("base", "fast")}
+    phase_pcv_parity(torch, pcv_cfgs)
+    pcv, pcv_fast = phase_pcv_main(torch, pcv_cfgs["base"], pcv_cfgs["fast"], card)
+
     def launches(name):
         by_path = {"inference": infer.get(name, 0), "training": train.get(name, 0),
                    "igev_inference": igev.get(name, 0),
                    "igev_training": igev_train.get(name, 0),
-                   "alt_inference": alt.get(name, 0)}
+                   "alt_inference": alt.get(name, 0), "pcv_inference": pcv.get(name, 0),
+                   "pcv_fast_inference": pcv_fast.get(name, 0)}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     k2p = k2["plain"]
@@ -1544,6 +1809,9 @@ def main():
         dict(name="corr_lookup_alt", route="cuda", source="dkt_stereo_tpu_torch/csrc/corr_alt.cu",
              replaces="dkt_stereo_tpu/ops/pallas/corr_alt.py:162",
              **launches("corr_lookup_alt"), **k3),
+        dict(name="row_sample", route="cuda", source="dkt_stereo_tpu_torch/csrc/row_sample.cu",
+             replaces="dkt_stereo_tpu/ops/pallas/row_sample.py:145",
+             **launches("gaussian_row_sample"), **k5),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

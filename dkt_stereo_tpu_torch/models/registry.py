@@ -3,9 +3,9 @@
 adapter of the DKT step.
 
 RAFTStereo and IGEVStereo (test and train mode, with their
-``sequence_loss_raft`` and ``sequence_loss_igev``) are ported; the other
-names of the JAX registries raise a KeyError naming their ROADMAP.md queue
-entry."""
+``sequence_loss_raft`` and ``sequence_loss_igev``) and PCVNet (test mode)
+are ported; the other names of the JAX registries, PCVNet's train mode and
+its ``sequence_loss_pcvnet`` raise naming their ROADMAP.md queue entry."""
 
 from __future__ import annotations
 
@@ -14,24 +14,26 @@ import torch
 from dkt_stereo_tpu_torch.device import resolve_device
 from dkt_stereo_tpu_torch.losses.sequence import sequence_loss_igev, sequence_loss_raft
 from dkt_stereo_tpu_torch.models.igev_stereo import IGEVStereo, IGEVStereoConfig
+from dkt_stereo_tpu_torch.models.pcvnet import PCVNet, PCVNetConfig
 from dkt_stereo_tpu_torch.models.raft_stereo import RAFTStereo, RAFTStereoConfig
 
 MODELS: dict[str, tuple] = {
     "RAFTStereo": (RAFTStereo, RAFTStereoConfig),
     "IGEVStereo": (IGEVStereo, IGEVStereoConfig),
+    "PCVNet": (PCVNet, PCVNetConfig),
 }
 
 _QUEUED = {
-    "PCVNet": "Queue 1 item 8",
     "GWCNet": "Queue 1 item 9",
     "CGI_Stereo": "Queue 1 item 9",
 }
 
 # the reference's ``__losses__`` names (meta_arch/__init__.py:15-21) and the
 # model defaults of the JAX registry
-DEFAULT_LOSS = {"RAFTStereo": "sequence_loss_raft", "IGEVStereo": "sequence_loss_igev"}
+DEFAULT_LOSS = {"RAFTStereo": "sequence_loss_raft", "IGEVStereo": "sequence_loss_igev",
+                "PCVNet": "sequence_loss_pcvnet"}
 _QUEUED_LOSSES = {
-    "sequence_loss_pcvnet": "Queue 1 item 8",
+    "sequence_loss_pcvnet": "Queue 1 item 8b",
     "loss_gwcnet": "Queue 1 item 9",
     "loss_cgi": "Queue 1 item 9",
     "ns_loss": "Queue 1 item 10",

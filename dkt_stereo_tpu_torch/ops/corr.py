@@ -44,21 +44,22 @@ def fmap_pyramid(fmap2: torch.Tensor, num_levels: int, factor: int = 2) -> list[
 
 def corr_pyramid_fused(
     fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4, out_dtype=None,
-    scaled: bool = True,
+    scaled: bool = True, pool_factor: int = 2,
 ) -> list[torch.Tensor]:
     """Correlation pyramid built level by level as ``f1 @ pooled(f2)``:
-    (B, H, W1, D), (B, H, W2, D) -> [(B, H, W1, W2 / 2^i)]. ``scaled=False``
-    omits the 1/sqrt(D) factor (IGEV's init correlation,
-    meta_arch/igev_stereo/geometry.py:62-69).
+    (B, H, W1, D), (B, H, W2, D) -> [(B, H, W1, W2 / f^i)] with f =
+    ``pool_factor`` (PCVNet pools by its compress factor,
+    meta_arch/pcvnet/corr.py:24-31). ``scaled=False`` omits the 1/sqrt(D)
+    factor (IGEV's init correlation, meta_arch/igev_stereo/geometry.py:62-69).
 
-    Equal to pooling the full volume, because the [1, 2] average pool is
+    Equal to pooling the full volume, because the [1, f] average pool is
     linear in fmap2. The products run in fp32 on the (possibly bf16-rounded)
     features — the JAX einsum's fp32 accumulation — and each level is then
     stored in ``out_dtype``."""
     scale = 1.0 / math.sqrt(fmap1.shape[-1])
     f1 = fmap1.float()
     pyramid = []
-    for f2l in fmap_pyramid(fmap2, num_levels):
+    for f2l in fmap_pyramid(fmap2, num_levels, pool_factor):
         corr = torch.matmul(f1, f2l.float().transpose(-1, -2))
         if scaled:
             corr = corr * scale

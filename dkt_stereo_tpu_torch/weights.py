@@ -2,10 +2,10 @@
 checkpoints and the port's modules.
 
 The port's attribute names are the reference's torch names, so a reference
-state dict loads as it is. From the flax side, the RAFT and IGEV subsets of
-the name rules of ``dkt_stereo_tpu/train/checkpoint.py`` (:29-45, :63-92
-and :114-116, which map torch names to flax scopes) are kept here inverted,
-flax to torch.
+state dict loads as it is. From the flax side, the RAFT, IGEV and PCVNet
+subsets of the name rules of ``dkt_stereo_tpu/train/checkpoint.py`` (:29-45,
+:63-92, :99-111 and :114-116, which map torch names to flax scopes) are kept
+here inverted, flax to torch.
 """
 
 from __future__ import annotations
@@ -54,6 +54,16 @@ _IGEV = [
     (r"(^|\.)(conv[123]|agg_[01])_(\d)\.", r"\1\2.\3."),
     (r"mask_feat_4_0\.", "mask_feat_4.0."),
 ]
+# PCVNet: its update block FDM, the shared-backbone head conv2 (a
+# ResidualBlock and a conv) and the reference's Sequential(conv, relu, ...)
+# stacks, whose flax scopes carry the Sequential index after an underscore
+_PCV = _RAFT + [
+    (r"^step\.FDM\.", "FDM."),
+    (r"^conv2_res\.", "conv2.0."),
+    (r"^conv2_out\.", "conv2.1."),
+    (r"(low_level_conv|conv\d_out|conv_softmask|conv_disp)_(\d)\.", r"\1.\2."),
+    (r"(^|\.)(conv\d)_(\d)\.", r"\1\2.\3."),
+]
 # the reference registers a ResidualBlock's norm3 twice (also as downsample.1)
 _ALIASES = [(re.compile(r"(^|\.)norm3\.$"), r"\1downsample.1.")]
 # batch norms the reference creates and never runs (its BasicConv with
@@ -91,6 +101,13 @@ def _bn_init(prefix: str, channels: int) -> dict:
             prefix + "num_batches_tracked": torch.tensor(0, dtype=torch.long)}
 
 
+def _is_pcv(params: dict) -> bool:
+    """A PCVNet tree, or one of its modules nested at its place: the
+    refinement net, the update block or the encoder's low-level head."""
+    return ("refineNet" in params or "FDM" in params.get("step", {})
+            or "low_level_conv_0" in params.get("cnet", {}))
+
+
 def state_dict_from_flax(variables: dict, igev: bool | None = None
                          ) -> "OrderedDict[str, torch.Tensor]":
     """The port's ``state_dict`` from the JAX package's ``{"params",
@@ -98,10 +115,13 @@ def state_dict_from_flax(variables: dict, igev: bool | None = None
     ``scale`` -> ``weight``, ``mean``/``var`` -> ``running_mean``/
     ``running_var``, and a zero ``num_batches_tracked`` per BatchNorm.
     ``igev`` picks IGEV-Stereo's name rules over RAFT-Stereo's; None tells
-    a whole model's tree apart by IGEV's ``cost_agg``."""
+    a whole model's tree apart by IGEV's ``cost_agg``. A PCVNet tree is told
+    apart by its own scopes (``refineNet``, ``step.FDM``, the encoder's
+    ``low_level_conv_0``)."""
+    params = variables.get("params", {})
     if igev is None:
-        igev = "cost_agg" in variables.get("params", {})
-    rules = _COMMON + (_IGEV if igev else _RAFT)
+        igev = "cost_agg" in params
+    rules = _COMMON + (_IGEV if igev else _PCV if _is_pcv(params) else _RAFT)
     out: OrderedDict[str, torch.Tensor] = OrderedDict()
     for coll in ("params", "batch_stats"):
         for path, leaf in _walk(variables.get(coll, {})):

@@ -145,8 +145,8 @@ def test_entry_points_default_to_the_gpu():
 
 def test_registry_and_unported_options():
     assert get_model("RAFTStereo")[0] is RAFTStereo
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 8"):
-        get_model("PCVNet")
+    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 9"):
+        get_model("GWCNet")
     with pytest.raises(KeyError, match="unknown model"):
         get_model("NoSuchNet")
     for override in ({"corr_implementation": "cosine"}, {"backbone_type": "interpolate"},
