@@ -86,7 +86,8 @@ out-of-tolerance result raises and exits non-zero:
      at a ragged 2x7x37 (widths 37/9/2), bf16 and fp32 volumes, positions
      of a random mixture plus negative, past-the-row, far out of range,
      exact-integer and NaN ones (NaN gives zeros), with grid_sample over
-     the three levels as yardstick; K5 refusing inputs that require grad;
+     the three levels as yardstick; K5's autograd Function launching the
+     backward;
  21. PCVNet parity: base.json and fast.json in fp32, TF32 off, 1x256x512,
      2 iterations, exactly 2 K5 launches each; K5 vs the plain lookup with
      the rest of the model on the card, and kernels (card) vs plain path
@@ -96,8 +97,29 @@ out-of-tolerance result raises and exits non-zero:
      warm-up and 20 timed frames with exact launch counts (32 K5 a frame,
      no other kernel), peak memory and a profile of one frame
      (chiprun_out/chip_smoke_pcv_profile.txt); then fast.json at the same
-     size, 1 warm-up and 5 timed frames, 32 K5 a frame; then the "kernels"
-     JSON line and the card's line.
+     size, 1 warm-up and 5 timed frames, 32 K5 a frame;
+ 23. K5's backward (csrc/row_sample_bwd.cu: dvol of every level and dpos in
+     one launch) vs its plain version at the PCV training grid (8x80x180,
+     widths 180/45/11), the inference grid (1x184x320) and a ragged 2x7x37,
+     bf16 and fp32 levels, the hostile positions of phase 20 (NaN gives no
+     contribution), two launches bit for bit, the adjoint check <K5(v), g>
+     = <v, K5^T(g)> against the forward kernel, the backward of grid_sample
+     over the three levels as yardstick, and the time autograd spends
+     summing the per-iteration dvol in bf16;
+ 24. PCV DKT train-step parity: base.json in fp32, TF32 off, 1x64x128, 2
+     student and 2 teacher iterations (exact counts: 6 K5, 2 K5 backward),
+     kernels vs the plain lookup both on the card and card vs the CPU with
+     the plain-on-card floor; losses and gradients by module; then the
+     student's gradient at 4 iterations through the kernels, the plain
+     lookup and with the positions cut, which must move the update
+     block's gradient;
+ 25. the PCV training path: configs/pcvnet/base.json as shipped in train
+     mode (bf16), B=8, 320x720, 16 student and 32 teacher iterations,
+     through create_dkt_state/make_dkt_train_step on seeded synthetic
+     batches: 1 warm-up and 5 timed steps with the time of each part, exact
+     launch counts (80 K5 and 16 K5 backward a step), peak memory and a
+     profile of one step (chiprun_out/chip_smoke_pcv_train_profile.txt);
+     then the "kernels" JSON line and the card's line.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
@@ -151,10 +173,11 @@ def _wrappers():
     from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage
     from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import (
         geo_lookup, geo_lookup_bwd_corr, geo_lookup_bwd_geo)
-    from dkt_stereo_tpu_torch.ops.cuda.row_sample import gaussian_row_sample
+    from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
+        gaussian_row_sample, gaussian_row_sample_bwd)
 
     return (corr_lookup, corr_lookup_bwd, encoder_stage, geo_lookup, geo_lookup_bwd_geo,
-            geo_lookup_bwd_corr, corr_lookup_alt, gaussian_row_sample)
+            geo_lookup_bwd_corr, corr_lookup_alt, gaussian_row_sample, gaussian_row_sample_bwd)
 
 
 def kernel_counts():
@@ -367,6 +390,7 @@ BUCKETS = (
     ("K4", r"geo_lookup_kernel"),
     ("K1 bwd", r"corr_lookup_bwd_kernel"),
     ("K1", r"corr_lookup_kernel"),
+    ("K5 bwd", r"row_sample_bwd_kernel"),
     ("K5", r"row_sample_kernel"),
     ("K2", r"encoder_stage"),
     ("convolutions/GEMMs", r"xmma|cutlass|gemm|nvjet|conv|wgrad|dgrad|fprop"),
@@ -431,6 +455,7 @@ def phase_profile(torch, forward, images):
         print("  " + line[:160])
 
 
+TRAIN_IMAGE = (8, 320, 720)  # cli/train.py:49,53 defaults
 TRAIN_SHAPE = (8, 80, 180)  # 1/4 resolution of the 8x320x720 training crops
 TRAIN_W2 = (180, 90, 45, 22)
 
@@ -547,6 +572,21 @@ def _train_batch(torch, gen, B, H, W, device):
     return b
 
 
+def _grad_rel(named, want):
+    """Relative L2 error of ``named``'s gradients against ``want``'s, by
+    top-level module and over all."""
+    err2, norm2 = {}, {}
+    for k, p in named:
+        if p.grad is None:
+            continue
+        group = k.split(".")[0]
+        err2[group] = err2.get(group, 0.0) + float((p.grad.cpu() - want[k].grad.cpu()).square().sum())
+        norm2[group] = norm2.get(group, 0.0) + float(want[k].grad.cpu().square().sum())
+    rel = {gr: (err2[gr] / norm2[gr]) ** 0.5 for gr in err2}
+    rel["all"] = (sum(err2.values()) / sum(norm2.values())) ** 0.5
+    return rel
+
+
 def phase_train_parity(torch, train_cfg):
     """One DKT step with the kernels on the card vs the plain path on the
     CPU, from the same weights, batch and draws, fp32 with TF32 off."""
@@ -630,28 +670,43 @@ TRAIN_STEPS = 5
 TRAIN_PARTS = ("ema", "teachers", "fande", "student", "optimizer")
 
 
-def phase_train(torch, train_cfg, card):
-    """train.json at full width: 1 warm-up and TRAIN_STEPS timed DKT steps
-    at B=8, 320x720, 16 student / 32 teacher iterations."""
-    from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
-    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
-
-    B, H, W = 8, 320, 720  # cli/train.py:49,53 defaults
-    hyper = DKTHyperParams(train_iters=16, teacher_iters=32)
-    state = create_dkt_state(train_cfg, hyper, seed=0)
-    step = make_dkt_train_step(train_cfg, hyper)
-    gen = torch.Generator(device="cuda").manual_seed(6)
-
+def snapshot(state, label):
+    """Copies of a DKT state's teacher and student and of the student's
+    batch-norm statistics, which must exist."""
     def snap(m, keep=lambda k: True):
         return {k: v.detach().clone() for k, v in m.state_dict().items() if keep(k)}
 
-    teacher0 = snap(state.teacher)
-    student0 = snap(state.student)
-    bn0 = snap(state.student, lambda k: "running" in k)
-    check(len(bn0) > 0, "train.json's cnet has no batch norm statistics")
+    out = dict(teacher=snap(state.teacher), student=snap(state.student),
+               bn=snap(state.student, lambda k: "running" in k))
+    check(len(out["bn"]) > 0, f"{label} has no batch norm statistics")
+    return out
 
-    state, m = step(state, _train_batch(torch, gen, B, H, W, "cuda"), generator=gen)  # warm-up
-    check(m["ok"] == 1.0, f"warm-up step not ok: {m}")
+
+def check_moved_and_frozen(torch, state, before, label, moved=True):
+    """Against a :func:`snapshot`: every student tensor moved (unless
+    ``moved`` is False), while the frozen teacher and the student's
+    batch-norm statistics are bit-identical."""
+    if moved:
+        still = [k for k, v in state.student.named_parameters()
+                 if torch.equal(v, before["student"][k])]
+        check(not still, f"{label} student tensors that did not move: {still[:5]}")
+    check(all(torch.equal(v, before["teacher"][k]) for k, v in state.teacher.state_dict().items()),
+          f"the frozen {label} teacher changed")
+    student = state.student.state_dict()
+    check(all(torch.equal(student[k], v) for k, v in before["bn"].items()),
+          f"{label} student BN running statistics changed")
+
+
+def timed_steps(torch, state, step, gen, image, label):
+    """1 warm-up step, which must be ok, then TRAIN_STEPS timed DKT steps on
+    seeded synthetic batches of ``image`` (B, H, W), all launch counters
+    zeroed first. Returns the state and a dict: host ms per step, the mean
+    device ms of each part (CUDA events from the step's ``mark`` hook),
+    the launches of each step and of all of them, the metrics and the
+    peak memory in GiB of the timed steps."""
+    B, H, W = image
+    state, m = step(state, _train_batch(torch, gen, B, H, W, "cuda"), generator=gen)
+    check(m["ok"] == 1.0, f"{label} warm-up step not ok: {m}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -678,33 +733,31 @@ def phase_train(torch, train_cfg, card):
             prev = p
         per_step.append(_diff(kernel_counts(), before))
         metrics.append(m)
-    launches = kernel_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(x["ok"] == 1.0 for x in metrics),
+          f"a {label} step was not ok: {[x['ok'] for x in metrics]}")
+    check(all(np.isfinite(x["loss"]) for x in metrics), f"non-finite {label} loss")
+    return state, dict(ms=1e3 * np.asarray(times),
+                       part_ms={p: float(np.mean(v)) for p, v in parts.items()},
+                       per_step=per_step, launches=kernel_counts(), metrics=metrics,
+                       peak=torch.cuda.max_memory_allocated() / 2**30)
 
-    check(all(x["ok"] == 1.0 for x in metrics), f"a step was not ok: {[x['ok'] for x in metrics]}")
-    check(all(np.isfinite(x["loss"]) for x in metrics), "non-finite loss")
-    # 2 x 32 teacher iterations + 16 student + 16 recomputed by remat; 16
-    # backward; no K2 (pallas_encoder off) and no K4
-    want = {**dict.fromkeys(launches, 0), "corr_lookup": 96, "corr_lookup_bwd": 16}
-    check(all(c == want for c in per_step), f"launches per step {per_step} != {want}")
-    moved = [k for k, v in state.student.named_parameters() if not torch.equal(v, student0[k])]
-    n_params = len(list(state.student.parameters()))
-    check(len(moved) == n_params, f"only {len(moved)} of {n_params} student tensors moved")
-    check(all(torch.equal(v, teacher0[k]) for k, v in state.teacher.state_dict().items()),
-          "the frozen teacher changed")
-    check(all(torch.equal(state.student.state_dict()[k], v) for k, v in bn0.items()),
-          "student BN running statistics changed")
 
-    ms = 1e3 * np.asarray(times)
-    part_ms = {p: float(np.mean(v)) for p, v in parts.items()}
-    print(f"training path (train.json, bf16, remat, B={B} {H}x{W}, {hyper.train_iters}/"
-          f"{hyper.teacher_iters} iters, {TRAIN_STEPS} "
-          f"steps after 1 warm-up): ms/step median {np.median(ms):.2f} mean {ms.mean():.2f} "
-          f"min {ms.min():.2f} max {ms.max():.2f} | device ms per part (mean) "
-          + " ".join(f"{p} {t:.2f}" for p, t in part_ms.items())
-          + f" | peak mem {peak:.2f} GiB | launches {launches} | loss "
-          + ", ".join(f"{x['loss']:.3f}" for x in metrics)
-          + f" | lr {metrics[-1]['learning_rate']:.3e} | {card}")
+def step_line(run):
+    """The timed steps' ms/step, device ms per part, peak memory, launches
+    and losses, for a phase's result line."""
+    ms = run["ms"]
+    return (f"ms/step median {np.median(ms):.2f} mean {ms.mean():.2f} min {ms.min():.2f} max "
+            f"{ms.max():.2f} | device ms per part (mean) "
+            + " ".join(f"{p} {t:.2f}" for p, t in run["part_ms"].items())
+            + f" | peak mem {run['peak']:.2f} GiB | launches {run['launches']} | loss "
+            + ", ".join(f"{x['loss']:.3f}" for x in run["metrics"]))
+
+
+def profile_step(torch, state, step, gen, image, mean_ms, name, label):
+    """A profile of one more DKT step into the output directory's ``name``,
+    and an estimate of the untraced idle share against the timed steps'
+    ``mean_ms``."""
+    B, H, W = image
 
     def one_step():
         batch = _train_batch(torch, gen, B, H, W, "cuda")
@@ -714,8 +767,8 @@ def phase_train(torch, train_cfg, card):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    wall, busy, lines, buckets = device_profile(torch, one_step, "chip_smoke_train_profile.txt")
-    print(f"profile of one training step (profiler on): wall {wall:.2f} ms, kernels "
+    wall, busy, lines, buckets = device_profile(torch, one_step, name)
+    print(f"profile of one {label} step (profiler on): wall {wall:.2f} ms, kernels "
           f"{busy:.2f} ms, device idle share {1 - busy / wall:.3f}; by bucket: {buckets}; "
           "top kernels:")
     for line in lines[:15]:
@@ -723,7 +776,36 @@ def phase_train(torch, train_cfg, card):
     # not a measurement: the profiled step's kernel time against the timed
     # steps' host time, which the profiler cannot see
     print(f"untraced device idle share, estimated as 1 - profiled kernel ms / timed mean "
-          f"ms/step: {1 - busy / ms.mean():.3f}")
+          f"ms/step: {1 - busy / mean_ms:.3f}")
+
+
+def phase_train(torch, train_cfg, card):
+    """train.json at full width: 1 warm-up and TRAIN_STEPS timed DKT steps
+    at B=8, 320x720, 16 student / 32 teacher iterations."""
+    from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    B, H, W = TRAIN_IMAGE
+    hyper = DKTHyperParams(train_iters=16, teacher_iters=32)
+    state = create_dkt_state(train_cfg, hyper, seed=0)
+    step = make_dkt_train_step(train_cfg, hyper)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    before = snapshot(state, "train.json's cnet")
+
+    state, run = timed_steps(torch, state, step, gen, (B, H, W), "RAFT")
+    per_step, launches, metrics = run["per_step"], run["launches"], run["metrics"]
+    # 2 x 32 teacher iterations + 16 student + 16 recomputed by remat; 16
+    # backward; no K2 (pallas_encoder off) and no K4
+    want = {**dict.fromkeys(launches, 0), "corr_lookup": 96, "corr_lookup_bwd": 16}
+    check(all(c == want for c in per_step), f"launches per step {per_step} != {want}")
+    check_moved_and_frozen(torch, state, before, "RAFT")
+
+    print(f"training path (train.json, bf16, remat, B={B} {H}x{W}, {hyper.train_iters}/"
+          f"{hyper.teacher_iters} iters, {TRAIN_STEPS} steps after 1 warm-up): "
+          f"{step_line(run)} | lr {metrics[-1]['learning_rate']:.3e} | {card}")
+    profile_step(torch, state, step, gen, (B, H, W), run["ms"].mean(),
+                 "chip_smoke_train_profile.txt", "training")
     return launches
 
 
@@ -1047,29 +1129,15 @@ def phase_igev_train_parity(torch, train_cfg):
     # launch per student iteration
     want = {"geo_lookup": 8, "geo_lookup_bwd_geo": 2, "geo_lookup_bwd_corr": 2,
             "corr_lookup": 0, "corr_lookup_bwd": 0, "encoder_stage": 0, "corr_lookup_alt": 0,
-            "gaussian_row_sample": 0}
+            "gaussian_row_sample": 0, "gaussian_row_sample_bwd": 0}
     check(launches == want, f"IGEV train parity launches {launches} != {want}")
     loss_err = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
                 for k in ("loss", "loss_GT", "loss_PL")}
     for k, e in loss_err.items():
         check(e <= 1e-3, f"IGEV train parity {k}: relative {e} > 1e-3")
     want_grads = dict(cpu.student.named_parameters())
-
-    def rel_by_module(named):
-        err2, norm2 = {}, {}
-        for k, p in named:
-            if p.grad is None:
-                continue
-            group = k.split(".")[0]
-            err2[group] = err2.get(group, 0.0) + float(
-                (p.grad.cpu() - want_grads[k].grad).square().sum())
-            norm2[group] = norm2.get(group, 0.0) + float(want_grads[k].grad.square().sum())
-        rel = {g: (err2[g] / norm2[g]) ** 0.5 for g in err2}
-        rel["all"] = (sum(err2.values()) / sum(norm2.values())) ** 0.5
-        return rel
-
-    rel = rel_by_module(gpu.student.named_parameters())
-    floor = rel_by_module(cpu2.student.named_parameters())
+    rel = _grad_rel(gpu.student.named_parameters(), want_grads)
+    floor = _grad_rel(cpu2.student.named_parameters(), want_grads)
     for g, e in rel.items():
         check(e <= (0.05 if g == "all" else 0.1),
               f"IGEV train parity gradient of {g}: relative {e}")
@@ -1105,54 +1173,16 @@ def phase_igev_train(torch, train_cfg, card):
     step = make_dkt_train_step(train_cfg, hyper)
     gen = torch.Generator(device="cuda").manual_seed(13)
 
-    def snap(m, keep=lambda k: True):
-        return {k: v.detach().clone() for k, v in m.state_dict().items() if keep(k)}
+    before = snapshot(state, "IGEV")
 
-    teacher0 = snap(state.teacher)
-    student0 = snap(state.student)
-    bn0 = snap(state.student, lambda k: "running" in k)
-    check(len(bn0) > 0, "IGEV has no batch norm statistics")
-
-    state, m = step(state, _train_batch(torch, gen, B, H, W, "cuda"), generator=gen)  # warm-up
-    check(m["ok"] == 1.0, f"IGEV warm-up step not ok: {m}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    zero_counts()
-    times, parts, per_step, metrics = [], {p: [] for p in TRAIN_PARTS}, [], []
-    for _ in range(TRAIN_STEPS):
-        batch = _train_batch(torch, gen, B, H, W, "cuda")
-        events = {}
-
-        def mark(name):
-            events[name] = torch.cuda.Event(enable_timing=True)
-            events[name].record()
-
-        before = kernel_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mark("start")
-        state, m = step(state, batch, generator=gen, mark=mark)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        prev = "start"
-        for p in TRAIN_PARTS:
-            parts[p].append(events[prev].elapsed_time(events[p]))
-            prev = p
-        per_step.append(_diff(kernel_counts(), before))
-        metrics.append(m)
-    launches = kernel_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-
-    check(all(x["ok"] == 1.0 for x in metrics),
-          f"an IGEV step was not ok: {[x['ok'] for x in metrics]}")
-    check(all(np.isfinite(x["loss"]) for x in metrics), "non-finite IGEV loss")
+    state, run = timed_steps(torch, state, step, gen, (B, H, W), "IGEV")
+    per_step, launches, metrics = run["per_step"], run["launches"], run["metrics"]
     # 2 x 32 teacher iterations + 16 student + 16 recomputed by remat; one
     # dgeo launch per student iteration; no dcorr (the frozen backbone
     # detaches the descriptors, so the corr pyramid needs no gradient)
     want = {"geo_lookup": 96, "geo_lookup_bwd_geo": 16, "geo_lookup_bwd_corr": 0,
             "corr_lookup": 0, "corr_lookup_bwd": 0, "encoder_stage": 0, "corr_lookup_alt": 0,
-            "gaussian_row_sample": 0}
+            "gaussian_row_sample": 0, "gaussian_row_sample_bwd": 0}
     check(all(c == want for c in per_step), f"IGEV launches per step {per_step} != {want}")
     # every tensor outside the detached trunk and the unused slots gets a
     # gradient (a non-zero Adam first moment) and moves, unless its gradient
@@ -1165,6 +1195,7 @@ def phase_igev_train(torch, train_cfg, card):
     moment = {k: float(state.optimizer.state[params[k]]["exp_avg"].abs().max()) for k in graded}
     check(all(m > 0 for m in moment.values()),
           f"student tensors without gradient: {[k for k, m in moment.items() if m == 0][:5]}")
+    student0 = before["student"]
     still = [k for k in graded if torch.equal(params[k], student0[k])]
     check(all(moment[k] < 1e-8 for k in still),
           f"student tensors with a gradient that did not move: "
@@ -1173,45 +1204,18 @@ def phase_igev_train(torch, train_cfg, card):
     # zero tensor stays zero
     zeros = [k for k in params if k not in graded and not bool(student0[k].any())]
     check(all(not bool(params[k].any()) for k in zeros), "a zero tensor without gradient moved")
-    check(all(torch.equal(v, teacher0[k]) for k, v in state.teacher.state_dict().items()),
-          "the frozen IGEV teacher changed")
-    check(all(torch.equal(state.student.state_dict()[k], v) for k, v in bn0.items()),
-          "IGEV student BN running statistics changed")
+    check_moved_and_frozen(torch, state, before, "IGEV", moved=False)
 
-    ms = 1e3 * np.asarray(times)
-    part_ms = {p: float(np.mean(v)) for p, v in parts.items()}
     print(f"IGEV training path (igev_stereo/train.json, bf16, remat, freeze_backbone, B={B} "
           f"{H}x{W}, {hyper.train_iters}/{hyper.teacher_iters} iters, {TRAIN_STEPS} steps after "
-          f"1 warm-up): ms/step median {np.median(ms):.2f} mean {ms.mean():.2f} min "
-          f"{ms.min():.2f} max {ms.max():.2f} | device ms per part (mean) "
-          + " ".join(f"{p} {t:.2f}" for p, t in part_ms.items())
-          + f" | peak mem {peak:.2f} GiB | launches {launches} | loss "
-          + ", ".join(f"{x['loss']:.3f}" for x in metrics) + " | init_epe "
+          f"1 warm-up): {step_line(run)} | init_epe "
           + ", ".join(f"{x['init_epe']:.3f}" for x in metrics) + f" | epe {metrics[-1]['epe']:.3f} "
           f"| {len(graded)} student tensors with a gradient, {len(graded) - len(still)} moved; "
           f"not moved, gradient below Adam's eps: "
           + (", ".join(f"{k} (|m| {moment[k]:.1e})" for k in still) or "none")
           + f" | lr {metrics[-1]['learning_rate']:.3e} | {card}")
-
-    def one_step():
-        batch = _train_batch(torch, gen, B, H, W, "cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(state, batch, generator=gen)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    wall, busy, lines, buckets = device_profile(torch, one_step,
-                                                "chip_smoke_igev_train_profile.txt")
-    print(f"profile of one IGEV training step (profiler on): wall {wall:.2f} ms, kernels "
-          f"{busy:.2f} ms, device idle share {1 - busy / wall:.3f}; by bucket: {buckets}; "
-          "top kernels:")
-    for line in lines[:15]:
-        print("  " + line[:160])
-    # not a measurement: the profiled step's kernel time against the timed
-    # steps' host time, which the profiler cannot see
-    print(f"untraced device idle share, estimated as 1 - profiled kernel ms / timed mean "
-          f"ms/step: {1 - busy / ms.mean():.3f}")
+    profile_step(torch, state, step, gen, (B, H, W), run["ms"].mean(),
+                 "chip_smoke_igev_train_profile.txt", "IGEV training")
     return launches
 
 
@@ -1529,11 +1533,12 @@ def k5_bound(torch, levels, pos, cf):
 
 def phase_k5(torch):
     """K5 vs its plain version at both PCV grids and a ragged shape, the
-    grid_sample yardstick, and K5 refusing inputs that require grad."""
+    grid_sample yardstick, and K5's autograd Function launching the
+    backward."""
     import torch.nn.functional as F
 
     from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
-        gaussian_row_sample, gaussian_row_sample_plain)
+        gaussian_row_sample, gaussian_row_sample_bwd_plain, gaussian_row_sample_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(19)
     res = {}
@@ -1577,19 +1582,22 @@ def phase_k5(torch):
     lib_err = float((lib[finite] - want[finite]).abs().max())
     bound_ms, mb = k5_bound(torch, levels, pos, cf)
 
-    # no backward yet: on the card it raises rather than cut the graph
-    small = [torch.randn((1, 2, 3, 8), device="cuda")]
-    p = torch.zeros((1, 2, 3, 4), device="cuda", requires_grad=True)
-    launches = gaussian_row_sample.launches
-    try:
-        gaussian_row_sample(small, p, cf)
-    except RuntimeError as e:
-        check("Queue 2 K5 backward" in str(e), f"K5 refusal names no ROADMAP entry: {e}")
-    else:
-        raise SmokeFailure("gaussian_row_sample accepted an input that requires grad")
-    check(gaussian_row_sample.launches == launches, "gaussian_row_sample launched on a refusal")
-    with torch.no_grad():
-        gaussian_row_sample(small, p, cf)
+    # with inputs that require grad, the autograd Function launches the
+    # forward once and the backward once, and its gradients are the plain
+    # backward's
+    small = [torch.randn((1, 2, 3, 8), device="cuda", requires_grad=True),
+             torch.randn((1, 2, 3, 2), device="cuda", requires_grad=True)]
+    p = (10 * torch.rand((1, 2, 3, 4), device="cuda") - 1).requires_grad_(True)
+    gs = torch.randn((1, 2, 3, 8), device="cuda")
+    counts = kernel_counts()
+    gaussian_row_sample(small, p, cf).backward(gs)
+    counts = _diff(kernel_counts(), counts)
+    check(counts["gaussian_row_sample"] == 1 and counts["gaussian_row_sample_bwd"] == 1,
+          f"K5 autograd launches {counts}")
+    dv, dp = gaussian_row_sample_bwd_plain([v.detach() for v in small], p.detach(), gs, cf)
+    for got_g, want_g in zip([*(v.grad for v in small), p.grad], [*dv, dp]):
+        check(float((got_g - want_g).abs().max()) <= 1e-5 * float(want_g.abs().max()) + 1e-7,
+              "K5 autograd gradients differ from the plain backward")
 
     errs = " ".join(f"{s[0]}x{s[1]}x{s[2]} {str(d).split('.')[-1]} {e:.3e} (tol {t:.2e})"
                     for (s, d), (e, t) in res.items())
@@ -1597,8 +1605,8 @@ def phase_k5(torch):
           f"zeros) | bf16 {PCV_SHAPE} K {K} widths {[v.shape[-1] for v in levels]}: kernel_ms "
           f"{ms:.4f} plain_ms {plain_ms:.3f} library_ms {lib_ms:.4f} (F.grid_sample over the "
           f"three levels, fp32; max_abs vs plain {lib_err:.3e}) bound_ms {bound_ms:.4f} (bytes, "
-          f"{mb:.2f} MB) | with an input that requires grad: RuntimeError naming the Queue 2 "
-          "K5 backward entry; under no_grad it runs")
+          f"{mb:.2f} MB) | with inputs that require grad: 1 forward and 1 backward launch, "
+          "gradients equal to the plain backward's")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
                 library_ms=lib_ms, max_abs_err=max(e for e, _ in res.values()))
 
@@ -1718,6 +1726,287 @@ def phase_pcv_main(torch, config, fast_config, card):
     return launches, fast
 
 
+def k5_bwd_bound(torch, levels, pos, cf):
+    """(bound ms, MB) of one K5 backward launch on these inputs: what the
+    forward's bound counts (the positions, the taps these positions read,
+    and g in place of the output), plus every dvol element and dpos written
+    once."""
+    _, fwd_mb = k5_bound(torch, levels, pos, cf)
+    nbytes = fwd_mb * 1e6 + sum(v.numel() * v.element_size() for v in levels) + pos.numel() * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes / 1e6
+
+
+def phase_k5_bwd(torch):
+    """K5's backward (dvol of every level and dpos in one launch) vs its
+    plain version at the training grid, the inference grid and a ragged
+    shape, bf16 and fp32 levels, with the hostile positions of phase 20;
+    the adjoint check against the forward kernel; two launches bit for
+    bit; the grid_sample backward as yardstick; and the time autograd
+    spends summing the per-iteration dvol into a bf16 pyramid's gradient."""
+    import torch.nn.functional as F
+
+    from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
+        gaussian_row_sample, gaussian_row_sample_bwd, gaussian_row_sample_bwd_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    cf = 4
+    res = {}
+    for shape in ((2, 7, 37), PCV_SHAPE, TRAIN_SHAPE):
+        for dt in (torch.float32, torch.bfloat16):
+            levels, pos, _ = _k5_inputs(torch, gen, shape, cf, dt)
+            g = torch.randn((*shape, PCV_L * PCV_G * PCV_S), generator=gen, device="cuda")
+            dv, dp = gaussian_row_sample_bwd(levels, pos, g, cf)
+            dv2, dp2 = gaussian_row_sample_bwd(levels, pos, g, cf)
+            check(all(torch.equal(a, b) for a, b in zip([*dv, dp], [*dv2, dp2])),
+                  f"K5 bwd {shape} {dt}: two launches differ")
+            want_v, want_p = gaussian_row_sample_bwd_plain(levels, pos, g, cf)
+            check([d.dtype for d in dv] == [dt] * PCV_L and dp.dtype == torch.float32,
+                  f"K5 bwd output dtypes {[d.dtype for d in dv]} {dp.dtype}")
+            errs = []
+            for a, b in zip(dv, want_v):
+                # a NaN position gives NaN at index 0 of its row in the plain
+                # version (where its clamped taps point) and no contribution
+                # in the kernel; every kernel element is finite
+                fin = torch.isfinite(b)
+                check(bool(torch.isfinite(a).all()), f"K5 bwd {shape} {dt}: non-finite dvol")
+                err = float((a.float()[fin] - b.float()[fin]).abs().max())
+                # fp32: the same taps, weights and roundings summed in another
+                # order; bf16: one rounding of fp32 sums that may differ in
+                # their last bits, one bf16 step (2^-8) with margin
+                tol = (1e-4 if dt == torch.float32 else 2**-7) * float(b.float()[fin].abs().max())
+                check(err <= tol, f"K5 bwd dvol {shape} {dt} max-abs {err} > {tol}")
+                errs.append((err, tol))
+            err = float((dp - want_p).abs().max())
+            tol = 1e-4 * float(want_p.abs().max())
+            check(err <= tol, f"K5 bwd dpos {shape} {dt} max-abs {err} > {tol}")
+            errs.append((err, tol))
+            res[(shape, dt)] = (max(e for e, _ in errs), errs)
+            del dv, dp, dv2, dp2, want_v, want_p
+
+    # adjoint: <K5(v), g> == <v, K5^T(g)>, both kernels, fp64 sums, at the
+    # training grid with fp32 levels (NaN positions: zeros on both sides)
+    levels, pos, _ = _k5_inputs(torch, gen, TRAIN_SHAPE, cf, torch.float32)
+    g = torch.randn((*TRAIN_SHAPE, PCV_L * PCV_G * PCV_S), generator=gen, device="cuda")
+    with torch.no_grad():
+        out = gaussian_row_sample(levels, pos, cf)
+    dv, _ = gaussian_row_sample_bwd(levels, pos, g, cf, need_pos=False)
+    lhs = float((out.double() * g.double()).sum())
+    rhs = float(sum((v.double() * d.double()).sum() for v, d in zip(levels, dv)))
+    adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+    check(adj <= 1e-5, f"K5 adjoint check: relative {adj} > 1e-5")
+    del out, dv
+
+    # the training path's launch: bf16 levels at the training grid
+    levels, pos, _ = _k5_inputs(torch, gen, TRAIN_SHAPE, cf, torch.bfloat16)
+    ms = cuda_ms(torch, lambda: gaussian_row_sample_bwd(levels, pos, g, cf), 100)
+    plain_ms = cuda_ms(torch, lambda: gaussian_row_sample_bwd_plain(levels, pos, g, cf), 5)
+    bound_ms, mb = k5_bwd_bound(torch, levels, pos, cf)
+    # what autograd adds per iteration: summing one iteration's three bf16
+    # dvol tensors into the running gradient of the pyramid (15 such sums a
+    # step at 16 iterations)
+    acc, _ = gaussian_row_sample_bwd(levels, pos, g, cf, need_pos=False)
+    new, _ = gaussian_row_sample_bwd(levels, pos, g, cf, need_pos=False)
+    accum_ms = cuda_ms(torch, lambda: [a.add_(b) for a, b in zip(acc, new)], 20)
+    del acc, new
+    # the yardstick: the backward of one grid_sample per level (fp32, as
+    # phase 20's forward yardstick), with respect to the volumes and grids
+    B, H, W1, K = pos.shape
+    n = B * H * W1
+    lib_in = [v.float().reshape(n, 1, 1, v.shape[-1]).requires_grad_(True) for v in levels]
+    grids = []
+    for i, v in enumerate(lib_in):
+        x = (pos.clamp(-1e6, 1e6) / cf**i).reshape(n, 1, K, 1)
+        x = 2 * x / (v.shape[-1] - 1) - 1
+        grids.append(torch.cat([x, torch.zeros_like(x)], dim=-1).requires_grad_(True))
+    outs = [F.grid_sample(v, gr, mode="bilinear", padding_mode="zeros", align_corners=True)
+            for v, gr in zip(lib_in, grids)]
+    gouts = [gi.reshape(n, 1, 1, K).contiguous() for gi in g.split(K, dim=-1)]
+    lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(outs, lib_in + grids, gouts,
+                                                        retain_graph=True), 20)
+    del outs, lib_in, grids
+
+    errs = " | ".join(
+        f"{s[0]}x{s[1]}x{s[2]} {str(d).split('.')[-1]}: dvol per level "
+        + " ".join(f"{e:.2e}" for e, _ in es[:-1]) + f", dpos {es[-1][0]:.2e} (tol "
+        + " ".join(f"{t:.1e}" for _, t in es) + ")"
+        for (s, d), (_, es) in res.items())
+    print(f"K5 gaussian_row_sample_bwd: max_abs {errs} (tol 1e-4 x max|dplain| fp32, 2^-7 x "
+          f"max|dplain| bf16; NaN position -> no contribution; two launches bit-identical) | "
+          f"adjoint rel {adj:.2e} (tol 1e-5) | bf16 levels {TRAIN_SHAPE} K {K} widths "
+          f"{[v.shape[-1] for v in levels]}, dvol and dpos: kernel_ms {ms:.4f} plain_ms "
+          f"{plain_ms:.3f} library_ms {lib_ms:.4f} (backward of F.grid_sample over the three "
+          f"levels, fp32) bound_ms {bound_ms:.4f} (bytes, {mb:.2f} MB) | autograd's sum of one "
+          f"iteration's bf16 dvol into the running one: {accum_ms:.4f} ms (x15 per step: "
+          f"{15 * accum_ms:.3f} ms)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=lib_ms, max_abs_err=max(e for e, _ in res.values()))
+
+
+PCV_MODULES = ("cnet", "conv2", "context_zqr_convs", "FDM", "refineNet")
+
+
+def phase_pcv_train_parity(torch, config):
+    """One PCV DKT step with the kernels on the card vs the plain lookup on
+    the card and vs the plain path on the CPU, from the same weights, batch
+    and draws, fp32 with TF32 off, 2 student and 2 teacher iterations; then
+    the student's gradient at 4 iterations, where the position gradient
+    reaches the updater, through the kernels, through the plain lookup and
+    with the positions cut."""
+    import dkt_stereo_tpu_torch.models.pcvnet as pcv
+    from dkt_stereo_tpu_torch.losses.pcv import sequence_loss_pcvnet
+    from dkt_stereo_tpu_torch.models.registry import create_model
+    from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
+        gaussian_row_sample, gaussian_row_sample_plain)
+    from dkt_stereo_tpu_torch.train.dkt_step import (
+        create_dkt_state, fande_draws, make_dkt_train_step)
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = {**config, "mixed_precision": False}
+    hyper = DKTHyperParams(train_iters=2, teacher_iters=2)
+    seed_state = create_dkt_state(cfg, hyper, seed=0, device="cuda")
+    params = {k: v.detach().clone() for k, v in seed_state.student.state_dict().items()}
+    del seed_state
+    to_cpu = {k: v.to("cpu", copy=True) for k, v in params.items()}
+    gen = torch.Generator().manual_seed(24)
+    batch = _train_batch(torch, gen, 1, 64, 128, "cpu")
+    draws = fande_draws(1, "cpu", gen)
+    step = make_dkt_train_step(cfg, hyper)
+    on_card = ({k: v.cuda() for k, v in batch.items()}, {k: v.cuda() for k, v in draws.items()})
+
+    gpu = create_dkt_state(cfg, hyper, params=params, device="cuda")
+    before = kernel_counts()
+    gpu, m_gpu = step(gpu, on_card[0], draws=on_card[1])
+    torch.cuda.synchronize()
+    launches = _diff(kernel_counts(), before)
+    pcv.gaussian_row_sample = gaussian_row_sample_plain  # the plain lookup on the card
+    try:
+        plain = create_dkt_state(cfg, hyper, params=params, device="cuda")
+        plain, m_plain = step(plain, on_card[0], draws=on_card[1])
+    finally:
+        pcv.gaussian_row_sample = gaussian_row_sample
+    cpu = create_dkt_state(cfg, hyper, params=to_cpu, device="cpu")
+    cpu, m_cpu = step(cpu, batch, draws=draws)
+    torch.backends.cudnn.allow_tf32 = True
+
+    check(m_gpu["ok"] == m_plain["ok"] == m_cpu["ok"] == 1.0,
+          f"PCV ok card {m_gpu['ok']} plain {m_plain['ok']} cpu {m_cpu['ok']}")
+    # teachers 2 + 2, student 2; one backward launch per student iteration
+    want = {**dict.fromkeys(launches, 0), "gaussian_row_sample": 6, "gaussian_row_sample_bwd": 2}
+    check(launches == want, f"PCV train parity launches {launches} != {want}")
+    losses = ("loss", "loss_GT", "loss_PL")
+
+    def loss_rel(a, b):
+        return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in losses}
+
+    k_vs_p = loss_rel(m_gpu, m_plain)
+    c_vs_c = loss_rel(m_gpu, m_cpu)
+    floor_l = loss_rel(m_plain, m_cpu)
+    rel = _grad_rel(gpu.student.named_parameters(), dict(plain.student.named_parameters()))
+    rel_cpu = _grad_rel(gpu.student.named_parameters(), dict(cpu.student.named_parameters()))
+    floor = _grad_rel(plain.student.named_parameters(), dict(cpu.student.named_parameters()))
+    check(set(rel) == {*PCV_MODULES, "all"}, f"PCV gradient modules {sorted(rel)}")
+    for k in losses:
+        check(k_vs_p[k] <= 1e-3, f"PCV train parity {k}, kernels vs plain on the card: "
+                                 f"relative {k_vs_p[k]} > 1e-3")
+        tol = max(1e-3, 2 * floor_l[k])
+        check(c_vs_c[k] <= tol, f"PCV train parity {k}, card vs CPU: relative {c_vs_c[k]} > {tol}")
+    for gr, e in rel.items():
+        bound = 0.05 if gr == "all" else 0.1
+        check(e <= bound, f"PCV train parity gradient of {gr}, kernels vs plain on the card: {e}")
+        tol = max(bound, 2 * floor[gr])
+        check(rel_cpu[gr] <= tol, f"PCV train parity gradient of {gr}, card vs CPU: "
+                                  f"{rel_cpu[gr]} > {tol}")
+    del gpu, plain, cpu
+
+    # the position gradient: 4 student iterations (the first update clips
+    # sigma's step at every pixel, so it reaches the updater from the third
+    # lookup on), one forward and backward of the PCV loss against the
+    # batch's GT, through the kernels, the plain lookup and the kernels
+    # with the positions cut
+    torch.backends.cudnn.allow_tf32 = False
+
+    def grads(lookup):
+        model = create_model(cfg, iters=4, device="cuda", test_mode=False)
+        model.load_state_dict(params, strict=True)
+        pcv.gaussian_row_sample = lookup
+        try:
+            out = model(on_card[0]["img1"], on_card[0]["img2"])
+            sequence_loss_pcvnet(out["output_list"], on_card[0]["flow"],
+                                 on_card[0]["valid"])[0].backward()
+        finally:
+            pcv.gaussian_row_sample = gaussian_row_sample
+        torch.cuda.synchronize()
+        return dict(model.named_parameters())
+
+    before = kernel_counts()
+    kern = grads(gaussian_row_sample)
+    launches4 = _diff(kernel_counts(), before)
+    plain4 = grads(gaussian_row_sample_plain)
+    cut = grads(lambda levels, pos, c: gaussian_row_sample(levels, pos.detach(), c))
+    torch.backends.cudnn.allow_tf32 = True
+    check(launches4["gaussian_row_sample"] == 4 and launches4["gaussian_row_sample_bwd"] == 4,
+          f"PCV 4-iteration launches {launches4}")
+    rel4 = _grad_rel(kern.items(), plain4)
+    moved = _grad_rel(cut.items(), kern)
+    for gr, e in rel4.items():
+        check(e <= (0.05 if gr == "all" else 0.1),
+              f"PCV 4-iteration gradient of {gr}, kernels vs plain on the card: {e}")
+    check(moved["FDM"] > 0.1, f"cutting the position gradient moved FDM's gradient by only "
+                              f"{moved['FDM']}")
+    print(f"PCV train-step parity (base.json fp32, TF32 off, 1x64x128, 2+2 iters): loss "
+          f"{m_gpu['loss']:.6f} card / {m_plain['loss']:.6f} plain on the card / "
+          f"{m_cpu['loss']:.6f} cpu; relative errors kernels vs plain (card) "
+          + " ".join(f"{k} {e:.2e}" for k, e in k_vs_p.items()) + " (tol 1e-3), card vs CPU "
+          + " ".join(f"{k} {e:.2e}" for k, e in c_vs_c.items()) + " (plain-on-card vs CPU "
+          + " ".join(f"{k} {e:.2e}" for k, e in floor_l.items()) + ") | gradient relative L2 "
+          "by module, kernels vs plain (card) " + " ".join(f"{g} {e:.2e}" for g, e in rel.items())
+          + " (tol 0.1 per module, 0.05 all); card vs CPU "
+          + " ".join(f"{g} {e:.2e}" for g, e in rel_cpu.items()) + " (floor, plain on the card "
+          "vs CPU: " + " ".join(f"{g} {e:.2e}" for g, e in floor.items()) + f") | launches "
+          f"{launches} | 4 student iterations, kernels vs plain (card): "
+          + " ".join(f"{g} {e:.2e}" for g, e in rel4.items()) + "; with the positions cut, the "
+          "gradient moves by " + " ".join(f"{g} {e:.2e}" for g, e in moved.items())
+          + f" (FDM must move > 0.1) | launches {launches4}")
+
+
+def phase_pcv_train(torch, config, card):
+    """pcvnet/base.json as shipped in train mode: 1 warm-up and TRAIN_STEPS
+    timed DKT steps at B=8, 320x720, 16 student / 32 teacher iterations,
+    exact K5 launch counts, peak memory and a profile of one step."""
+    from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    B, H, W = TRAIN_IMAGE
+    hyper = DKTHyperParams(train_iters=16, teacher_iters=32)
+    state = create_dkt_state(config, hyper, seed=0)
+    step = make_dkt_train_step(config, hyper)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+
+    before = snapshot(state, "PCVNet")
+
+    state, run = timed_steps(torch, state, step, gen, (B, H, W), "PCV")
+    per_step, launches, metrics = run["per_step"], run["launches"], run["metrics"]
+    # 2 x 32 teacher iterations + 16 student (+16 recomputed with remat);
+    # one backward launch per student iteration; no other kernel
+    remat = bool(config.get("remat_iters", False))
+    want = {**dict.fromkeys(launches, 0), "gaussian_row_sample": 96 if remat else 80,
+            "gaussian_row_sample_bwd": 16}
+    check(all(c == want for c in per_step), f"PCV launches per step {per_step} != {want}")
+    check_moved_and_frozen(torch, state, before, "PCV")
+
+    print(f"PCV training path (pcvnet/base.json in train mode, bf16, remat {remat}, B={B} "
+          f"{H}x{W}, {hyper.train_iters}/{hyper.teacher_iters} iters, {TRAIN_STEPS} steps "
+          f"after 1 warm-up): {step_line(run)} | epe {metrics[-1]['epe']:.3f} | lr "
+          f"{metrics[-1]['learning_rate']:.3e} | {card}")
+    profile_step(torch, state, step, gen, (B, H, W), run["ms"].mean(),
+                 "chip_smoke_pcv_train_profile.txt", "PCV training")
+    del state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -1772,12 +2061,17 @@ def main():
     phase_pcv_parity(torch, pcv_cfgs)
     pcv, pcv_fast = phase_pcv_main(torch, pcv_cfgs["base"], pcv_cfgs["fast"], card)
 
+    k5b = phase_k5_bwd(torch)
+    phase_pcv_train_parity(torch, pcv_cfgs["base"])
+    pcv_train = phase_pcv_train(torch, pcv_cfgs["base"], card)
+
     def launches(name):
         by_path = {"inference": infer.get(name, 0), "training": train.get(name, 0),
                    "igev_inference": igev.get(name, 0),
                    "igev_training": igev_train.get(name, 0),
                    "alt_inference": alt.get(name, 0), "pcv_inference": pcv.get(name, 0),
-                   "pcv_fast_inference": pcv_fast.get(name, 0)}
+                   "pcv_fast_inference": pcv_fast.get(name, 0),
+                   "pcv_training": pcv_train.get(name, 0)}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     k2p = k2["plain"]
@@ -1812,6 +2106,10 @@ def main():
         dict(name="row_sample", route="cuda", source="dkt_stereo_tpu_torch/csrc/row_sample.cu",
              replaces="dkt_stereo_tpu/ops/pallas/row_sample.py:145",
              **launches("gaussian_row_sample"), **k5),
+        dict(name="row_sample_bwd", route="cuda",
+             source="dkt_stereo_tpu_torch/csrc/row_sample_bwd.cu",
+             replaces="dkt_stereo_tpu/ops/pallas/row_sample.py:108",
+             **launches("gaussian_row_sample_bwd"), **k5b),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

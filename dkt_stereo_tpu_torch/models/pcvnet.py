@@ -1,16 +1,30 @@
 """PCVNet, the parameterized cost volume network
 (``dkt_stereo_tpu/models/pcvnet.py``; the reference's
-meta_arch/pcvnet/model.py:26-196), test mode.
+meta_arch/pcvnet/model.py:26-196), in test and train mode.
 
 Public conventions are the JAX package's: NHWC images in [0, 255] in; test
-mode returns ``(None, -refined_up (B, H, W))``. The model works on positive
-disparities and negates at the API (JAX ``models/pcvnet.py:8-13``), and it
-refines after the last iteration whatever ``valid_iters`` says (:15-18).
-With ``cascade=True`` it returns the last iteration's upsampled mixture
-instead, ``{"disp": (B, H, W, 1), "mu", "sigma", "w": (B, H, W, G)}``,
-which ``init_param`` of a second, finer stage takes. Inside, modules run
-NCHW, the mixture parameters are (B, G, H, W) and the iterations are a
-Python loop. Train mode raises (ROADMAP.md Queue 1 item 8b).
+mode returns ``(None, -refined_up (B, H, W))``; train mode returns
+``{"disp_preds": -refined_up[None], "output_list": (refined_up (B, H, W),
+disp_seq (N, B, H, W), mu_seq, w_seq, sigma_seq (N, B, H, W, G))}``, the
+per-iteration outputs convex-upsampled, positive. The model works on
+positive disparities and negates at the API (JAX ``models/pcvnet.py:8-13``),
+and it refines after the last iteration whatever ``valid_iters`` says
+(:15-18). With ``cascade=True`` test mode returns the last iteration's
+upsampled mixture instead, ``{"disp": (B, H, W, 1), "mu", "sigma", "w": (B,
+H, W, G)}``, which ``init_param`` of a second, finer stage takes; train mode
+adds that dict, read off the last iteration's outputs, as
+``init_params``. Inside, modules run NCHW, the mixture parameters are (B,
+G, H, W) and the iterations are a Python loop.
+
+Gradients follow the JAX model (:83-152): every iteration detaches the
+incoming centres (coords1), and the update block and the updater read the
+mixture detached, but sigma enters the lookup undetached (model.py:121-122
+detaches only coords1), so the loss reaches the previous iteration's
+updater through K5's position gradient. The per-iteration disparity
+upsamples with the mask attached, mu, sigma and w with it detached; the
+refinement reads the final mixture detached and upsamples with the last
+mask detached. ``remat_iters`` runs each train-mode iteration, its
+upsampling included, under ``torch.utils.checkpoint``.
 
 The forward: both views through the context encoder as one batch; the
 shared layer3 features through ``conv2`` give the 256-channel fmaps; the
@@ -44,6 +58,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dkt_stereo_tpu_torch.nn.blocks import ResidualBlock
 from dkt_stereo_tpu_torch.nn.pcv import (
@@ -57,7 +72,10 @@ from dkt_stereo_tpu_torch.ops.upsample import convex_upsample
 @dataclasses.dataclass(frozen=True)
 class PCVNetConfig:
     """The fields of the JAX ``PCVNetConfig`` (configs/pcvnet/base.json;
-    fast.json differs only in ``n_downsample`` 3) that test mode reads."""
+    fast.json differs only in ``n_downsample`` 3). ``valid_iters`` and
+    ``corr_implementation`` are read by nothing here: the caller sets the
+    iterations, and every ``corr_implementation`` builds the volume and
+    takes K5 on the card."""
 
     corr_levels: int = 3
     n_downsample: int = 2
@@ -70,7 +88,11 @@ class PCVNetConfig:
     init_sigma: float = 32.0
     init_mu: Tuple[float, ...] = (0.0, 64.0, 128.0, 192.0)
     mixed_precision: bool = True
+    valid_iters: int = 32
+    corr_implementation: str = "reg"
     corr_dtype: str = "bfloat16"
+    # run each train-mode iteration under torch.utils.checkpoint
+    remat_iters: bool = False
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -104,16 +126,12 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 
 class PCVNet(nn.Module):
-    """PCVNet with ``iters`` GRU iterations, in test mode; ``cascade``
-    returns the upsampled mixture for a second stage."""
+    """PCVNet with ``iters`` GRU iterations, in test or train mode;
+    ``cascade`` returns the upsampled mixture for a second stage."""
 
     def __init__(self, cfg: PCVNetConfig, iters: int = 12, test_mode: bool = True,
                  cascade: bool = False):
         super().__init__()
-        if not test_mode:
-            raise NotImplementedError(
-                "PCVNet train mode is not ported yet: ROADMAP.md Queue 1 item 8b (K5 backward, "
-                "sequence_loss_pcvnet)")
         if iters < 1:
             raise ValueError(f"iters must be at least 1, got {iters}")
         self.cfg, self.iters, self.test_mode, self.cascade = cfg, iters, test_mode, cascade
@@ -136,39 +154,62 @@ class PCVNet(nn.Module):
         return torch.autocast(device.type, dtype=torch.bfloat16)
 
     def _iteration(self, net, inp, pyramid, coords0, coords1, sigma, w, with_mask: bool):
-        """One iteration (the JAX ``_PCVIterStep`` in test mode): the lookup
-        at the current mixture, the slow-fast GRU schedule with the motion
-        features computed once, and the updater. Returns ``(net, coords1,
-        sigma, w, mask)``."""
+        """One iteration (the JAX ``_PCVIterStep``): the lookup at the
+        current mixture, the slow-fast GRU schedule with the motion features
+        computed once, and the updater. coords1 comes in detached and sigma
+        reaches the lookup undetached; the update block and the updater read
+        mu, w and sigma detached. Returns ``(net, coords1, sigma, w, mu,
+        mask)`` with the updater's mu."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         n = cfg.n_gru_layers
+        coords1 = coords1.detach()
+        sigma_d, w_d = sigma.detach(), w.detach()
         pos = gaussian_positions(coords1, sigma, cfg.sample_num)
         corr = gaussian_row_sample(pyramid, pos, cfg.compress_factor)
         mu = coords0 - coords1
         with self._autocast(coords1.device):
-            mfl = self.FDM.motion_features(mu.to(dt), corr.to(dt), w.to(dt), sigma.to(dt))
+            mfl = self.FDM.motion_features(mu.to(dt), corr.to(dt), w_d.to(dt), sigma_d.to(dt))
             if n >= 3 and cfg.slow_fast_gru:
                 net = self.FDM(net, inp, mfl, iter16=True, iter08=False, iter04=False,
                                update=False)
             if n >= 2 and cfg.slow_fast_gru:
                 net = self.FDM(net, inp, mfl, iter16=n >= 3, iter08=True, iter04=False,
                                update=False)
-            net, mask, mu, sigma, w = self.FDM(net, inp, mfl, mu=mu, w=w, sigma=sigma,
+            net, mask, mu, sigma, w = self.FDM(net, inp, mfl, mu=mu, w=w_d, sigma=sigma_d,
                                                iter16=n >= 3, iter08=n >= 2, iter04=True,
                                                with_mask=with_mask)
-        return net, coords0 - mu, sigma, w, mask
+        return net, coords0 - mu, sigma, w, mu, mask
+
+    def _train_iteration(self, net, inp, pyramid, coords0, coords1, sigma, w):
+        """One train-mode iteration and its upsampled outputs: the mixture
+        disparity with the mask attached, mu, sigma and w (unscaled) with it
+        detached, each (B, H, W[, G]). Returns ``(net, coords1, sigma, w,
+        mask, (disp_up, mu_up, w_up, sigma_up))``."""
+        net, coords1, sigma, w, mu, mask = self._iteration(
+            net, inp, pyramid, coords0, coords1, sigma, w, True)
+        factor = 2**self.cfg.n_downsample
+        mask = mask.float()
+        mask_det = mask.detach()
+        disp = (w * mu).sum(dim=1, keepdim=True)
+        ys = (convex_upsample(disp, mask, factor)[:, 0],
+              _nhwc(convex_upsample(mu, mask_det, factor)),
+              _nhwc(convex_upsample(w, mask_det, factor, scale=False)),
+              _nhwc(convex_upsample(sigma, mask_det, factor)))
+        return net, coords1, sigma, w, mask, ys
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
-                init_param: Optional[dict] = None):
-        """(image1, image2) NHWC in [0, 255]. ``init_param``: a coarser
-        stage's cascade dict (NHWC), which sets the starting mixture
-        (model.py:99-108). Returns ``(None, disparity (B, H, W))``,
-        negative, or with ``cascade`` the upsampled mixture dict."""
+                flow_init: Optional[torch.Tensor] = None, init_param: Optional[dict] = None):
+        """(image1, image2) NHWC in [0, 255]. ``flow_init`` is ignored, as in
+        the JAX model (it keeps the DKT step's model-generic call).
+        ``init_param``: a coarser stage's cascade dict (NHWC), which sets the
+        starting mixture (model.py:99-108). See the module docstring for
+        what each mode returns."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         G = cfg.gauss_num
         factor = 2**cfg.n_downsample
+        train = not self.test_mode
         x1 = _nchw((2.0 * (image1 / 255.0) - 1.0).to(dt))
         x2 = _nchw((2.0 * (image2 / 255.0) - 1.0).to(dt))
 
@@ -203,15 +244,25 @@ class PCVNet(nn.Module):
             sigma = torch.full((B, G, Hc, Wc), cfg.init_sigma / factor, device=dev)
             w = torch.full((B, G, Hc, Wc), 1.0 / G, device=dev)
 
+        ys = []
         for itr in range(self.iters):
-            # test mode consumes only the final iteration's mask
-            net, coords1, sigma, w, mask = self._iteration(
-                net, inp, pyramid, coords0, coords1, sigma, w, itr == self.iters - 1)
+            if train:
+                args = (net, inp, pyramid, coords0, coords1, sigma, w)
+                if cfg.remat_iters:
+                    net, coords1, sigma, w, mask, y = checkpoint(self._train_iteration, *args,
+                                                                 use_reentrant=False)
+                else:
+                    net, coords1, sigma, w, mask, y = self._train_iteration(*args)
+                ys.append(y)
+            else:
+                # test mode consumes only the final iteration's mask
+                net, coords1, sigma, w, _, mask = self._iteration(
+                    net, inp, pyramid, coords0, coords1, sigma, w, itr == self.iters - 1)
 
         mu = coords0 - coords1
         disp = (w * mu).sum(dim=1, keepdim=True)
-        mask = mask.float()
-        if self.cascade:
+        mask = mask.float().detach()
+        if self.cascade and not train:
             return {
                 "disp": _nhwc(convex_upsample(disp, mask, factor)),
                 "sigma": _nhwc(convex_upsample(sigma, mask, factor)),
@@ -219,6 +270,15 @@ class PCVNet(nn.Module):
                 "w": _nhwc(convex_upsample(w, mask, factor, scale=False)),
             }
         with self._autocast(x1.device):
-            refined = self.refineNet(w.to(dt), sigma.to(dt), mu.to(dt), disp.to(dt), low_f)
+            refined = self.refineNet(w.detach().to(dt), sigma.detach().to(dt),
+                                     mu.detach().to(dt), disp.detach().to(dt), low_f)
         refined_up = convex_upsample(refined.float(), mask, factor)[:, 0]
-        return None, -refined_up
+        if not train:
+            return None, -refined_up
+        disp_seq, mu_seq, w_seq, sigma_seq = (torch.stack(t) for t in zip(*ys))
+        out = {"disp_preds": -refined_up[None],
+               "output_list": (refined_up, disp_seq, mu_seq, w_seq, sigma_seq)}
+        if self.cascade:
+            out["init_params"] = {"disp": disp_seq[-1][..., None], "sigma": sigma_seq[-1],
+                                  "mu": mu_seq[-1], "w": w_seq[-1]}
+        return out

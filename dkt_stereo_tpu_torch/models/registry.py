@@ -2,16 +2,17 @@
 (``dkt_stereo_tpu/models/registry.py``), the model factory and the loss
 adapter of the DKT step.
 
-RAFTStereo and IGEVStereo (test and train mode, with their
-``sequence_loss_raft`` and ``sequence_loss_igev``) and PCVNet (test mode)
-are ported; the other names of the JAX registries, PCVNet's train mode and
-its ``sequence_loss_pcvnet`` raise naming their ROADMAP.md queue entry."""
+RAFTStereo, IGEVStereo and PCVNet are ported in test and train mode, with
+their ``sequence_loss_raft``, ``sequence_loss_igev`` and
+``sequence_loss_pcvnet``; the other names of the JAX registries raise
+naming their ROADMAP.md queue entry."""
 
 from __future__ import annotations
 
 import torch
 
 from dkt_stereo_tpu_torch.device import resolve_device
+from dkt_stereo_tpu_torch.losses.pcv import sequence_loss_pcvnet
 from dkt_stereo_tpu_torch.losses.sequence import sequence_loss_igev, sequence_loss_raft
 from dkt_stereo_tpu_torch.models.igev_stereo import IGEVStereo, IGEVStereoConfig
 from dkt_stereo_tpu_torch.models.pcvnet import PCVNet, PCVNetConfig
@@ -33,7 +34,6 @@ _QUEUED = {
 DEFAULT_LOSS = {"RAFTStereo": "sequence_loss_raft", "IGEVStereo": "sequence_loss_igev",
                 "PCVNet": "sequence_loss_pcvnet"}
 _QUEUED_LOSSES = {
-    "sequence_loss_pcvnet": "Queue 1 item 8b",
     "loss_gwcnet": "Queue 1 item 9",
     "loss_cgi": "Queue 1 item 9",
     "ns_loss": "Queue 1 item 10",
@@ -98,8 +98,10 @@ def make_loss_adapter(name: str, cfg: dict | None = None, loss_func: str | None 
         max_disp = cfg.get("max_disp", cfg.get("maxdisp", 192))
         return lambda out, gt, v: sequence_loss_igev(out["disp_preds"], out["init_disp"], gt, v,
                                                      max_disp=max_disp)
+    if loss_func == "sequence_loss_pcvnet":
+        return lambda out, gt, v: sequence_loss_pcvnet(out["output_list"], gt, v)
     where = _QUEUED_LOSSES.get(loss_func)
     if where is not None:
         raise KeyError(f"loss_func {loss_func!r} is not ported yet: ROADMAP.md {where}")
     raise KeyError(f"unknown loss_func {loss_func!r}; ported: "
-                   "['sequence_loss_igev', 'sequence_loss_raft']")
+                   "['sequence_loss_igev', 'sequence_loss_pcvnet', 'sequence_loss_raft']")

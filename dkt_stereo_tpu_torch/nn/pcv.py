@@ -116,8 +116,8 @@ def gaussian_corr_lookup(pyramid, mu_coords, sigma, sample_num: int, compress_fa
 
 class BasicMotionEncoderPCV(nn.Module):
     """update.py:37-61: per-Gaussian correlation convs (the Gaussians folded
-    into the batch) and a branch on the mixture parameters. Output 48*G + 64
-    channels (256 at G = 4)."""
+    into the batch) and a branch on the mixture parameters, which passes no
+    gradient to w and sigma. Output 48*G + 64 channels (256 at G = 4)."""
 
     def __init__(self, gauss_num=4, sample_num=9, corr_levels=3):
         super().__init__()
@@ -138,7 +138,9 @@ class BasicMotionEncoderPCV(nn.Module):
         c = c.reshape(B * G, self.L * self.S, H, W)
         c = relu(self.convc3(relu(self.convc2(relu(self.convc1(c))))))
         c = c.reshape(B, G * 48, H, W)  # channel g*48 + c
-        param = torch.cat([mu, w, sigma], dim=1)
+        # the parameter branch sees w and sigma without their gradient, as
+        # JAX's stop_gradient there (nn/pcv.py:154-156); mu keeps its gradient
+        param = torch.cat([mu, w.detach(), sigma.detach()], dim=1)
         pf = relu(self.convf2(relu(self.convf1(param))))
         return torch.cat([c, pf, param], dim=1)
 

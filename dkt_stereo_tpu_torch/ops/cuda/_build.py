@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNELS = ("corr_alt", "corr_lookup", "corr_lookup_bwd", "encoder_stage", "geo_lookup",
-           "geo_lookup_bwd", "row_sample")
+           "geo_lookup_bwd", "row_sample", "row_sample_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

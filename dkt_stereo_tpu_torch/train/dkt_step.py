@@ -65,15 +65,25 @@ def create_dkt_state(config: dict, hyper: DKTHyperParams, seed: int | None = 0, 
 
 
 def cascade_upsample2x(out: dict) -> dict:
-    """Nearest x2 upsample, values doubled, of a train output's
-    disparity-valued fields, ``disp_preds`` and (IGEV) ``init_disp``: the
-    cascade transform the reference applies to ``results_dw2['disp_preds']``
-    (ft_dkt.py:217-219). The JAX package's ``_cascade_upsample2x`` also
-    covers PCVNet's ``output_list``, not ported yet."""
+    """Nearest x2 upsample of a train output's fields, as the JAX package's
+    ``_cascade_upsample2x``: the cascade transform the reference applies to
+    ``results_dw2['disp_preds']`` (ft_dkt.py:217-219), extended to every
+    model's output. Disparity-valued fields are doubled: ``disp_preds``,
+    (IGEV) ``init_disp``, and in PCVNet's ``output_list`` the refined and
+    per-iteration disparities, mu and sigma; the mixture weights w are
+    not."""
+
+    def up(t, ax):
+        return t.repeat_interleave(2, ax).repeat_interleave(2, ax + 1)
+
     out = dict(out)
     for k in ("disp_preds", "init_disp"):
         if k in out:
-            out[k] = 2.0 * out[k].repeat_interleave(2, -2).repeat_interleave(2, -1)
+            out[k] = 2.0 * up(out[k], out[k].dim() - 2)
+    if "output_list" in out:
+        refined, disp_seq, mu, w, sigma = out["output_list"]
+        out["output_list"] = (2.0 * up(refined, 1), 2.0 * up(disp_seq, 2), 2.0 * up(mu, 2),
+                              up(w, 2), 2.0 * up(sigma, 2))
     return out
 
 
@@ -104,7 +114,8 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
     given, is called as each part of the step has been issued ("ema",
     "teachers", "fande", "student", "optimizer"), e.g. to record CUDA
     events. ``metrics`` are Python floats: loss, loss_GT, loss_PL, the loss's own
-    metrics (epe, 1px, 3px, 5px; IGEV's also init_epe), ema_divergence,
+    metrics (epe, 1px, 3px, 5px; IGEV's also init_epe; PCVNet's also bad1,
+    bad2, bad5 and the seven ``*_final`` ones), ema_divergence,
     teacher_divergence, ok, learning_rate."""
     loss_adapter = make_loss_adapter(config["model"], config, config.get("loss_func"))
     schedule = make_schedule(hyper)

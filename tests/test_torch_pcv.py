@@ -514,15 +514,22 @@ def test_state_dict_from_flax_matches_export_reference_pth(jax_params):
 
 
 def test_registry_and_unported_modes():
-    """The registry entry; train mode and the PCV loss name ROADMAP Queue 1
-    item 8b; without a card the default device raises."""
+    """The registry entry; train mode builds (in train mode, the shipped
+    config's remat off) and the model's default loss adapter is the PCV
+    loss, which reads ``output_list``; without a card the default device
+    raises."""
     assert get_model("PCVNet") == (PCVNet, PCVNetConfig)
     assert PCVNetConfig.from_dict(BASE).compress_factor == 4
     assert PCVNetConfig.from_dict(FAST).compress_factor == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
-        create_model(BASE, iters=1, device="cpu", test_mode=False)
-    with pytest.raises(KeyError, match="Queue 1 item 8b"):
-        make_loss_adapter("PCVNet", BASE)
+    model = create_model(BASE, iters=1, device="cpu", test_mode=False)
+    assert isinstance(model, PCVNet) and model.training and not model.test_mode
+    assert not model.cfg.remat_iters
+    loss_fn = make_loss_adapter("PCVNet", BASE)
+    ones = torch.ones(1, 2, 3)
+    out = {"output_list": (ones, ones[None], ones[None, ..., None].expand(1, 1, 2, 3, G),
+                           None, None)}
+    loss, metrics, mask, ok = loss_fn(out, -ones, ones)
+    assert float(loss) == 0.0 and bool(ok) and bool(mask.all()) and len(metrics) == 14
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_model(BASE)

@@ -527,8 +527,8 @@ def test_loss_adapter_and_unported_training_options():
         loss, metrics, _, ok = make_loss_adapter("RAFTStereo", cfg, "sequence_loss_igev")(
             igev, -3 * torch.ones(1, 4, 4), torch.ones(1, 4, 4))
         assert float(loss) == pytest.approx(want) and bool(ok) and "init_epe" in metrics
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 8"):
-        make_loss_adapter("RAFTStereo", None, "sequence_loss_pcvnet")
+    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 9"):
+        make_loss_adapter("RAFTStereo", None, "loss_gwcnet")
     with pytest.raises(KeyError, match="unknown loss_func"):
         make_loss_adapter("RAFTStereo", None, "no_such_loss")
     with pytest.raises(NotImplementedError, match="ROADMAP.md .*batched_teachers"):
