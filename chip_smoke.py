@@ -24,7 +24,14 @@ out-of-tolerance result raises and exits non-zero:
      shapes (8x80x180, W2 180/90/45/22), bf16 and fp32 pyramids, and the
      adjoint check <K1(v), g> = <v, K1^T(g)> against the forward kernel,
      and the time autograd spends summing the per-iteration d/dpyramid;
-     K2 refusing inputs that require grad (it has no backward yet);
+     K2's VJP (EncoderStage's backward: the adjoint conv as one more K2
+     launch, without statistics, the rest PyTorch) vs its plain twin, all
+     seven cotangents, plain and residual+emit_h forms, at the training
+     shape (16, 320, 720, 64) bf16, a small fp32 case with TF32 off and a
+     ragged (3, 37, 45, 64) bf16; the adjoint check <K2(x), g> = <x,
+     K2^T(g)> in fp32; the times of the adjoint launch, the whole stage
+     backward and the plain twin, with cuDNN's dgrad and wgrad as
+     yardsticks;
   8. DKT train-step parity, kernels (card) vs plain path (CPU): fp32, TF32
      off, 1x64x128, 2 student and 2 teacher iterations, same weights and
      draws; losses, and gradients by module (fnet, cnet, update block);
@@ -119,6 +126,23 @@ out-of-tolerance result raises and exits non-zero:
      batches: 1 warm-up and 5 timed steps with the time of each part, exact
      launch counts (80 K5 and 16 K5 backward a step), peak memory and a
      profile of one step (chiprun_out/chip_smoke_pcv_train_profile.txt);
+ 26. the JAX package's ENCODER_VJP_r05.json protocol: every parameter
+     gradient of BasicEncoder(instance, downsample 2) at 2x320x704 through
+     the fused path (K2 and its VJP, 4 + 4 launches) vs the unfused port
+     path, fp32 with TF32 off (worst leaf <= 1e-2) and bf16 against the
+     fp32 truth (fused deviation <= 2 x unfused + 1e-3); the stem and
+     layer1 conv biases get no gradient;
+ 27. DKT train-step parity as phase 8 for train.json with pallas_encoder
+     merged in (exact counts 8 K1, 2 K1 bwd, 12 K2, 4 K2 adjoint), with a
+     nonzero gradient on the fnet's layer1;
+ 28. the fused training paths at B=8, 320x720, 16 student / 32 teacher
+     iterations, exact launch counts on each: train.json with
+     pallas_encoder merged in (96 K1, 16 K1 bwd, 12 K2, 4 K2 adjoint a
+     step; 1 warm-up and 5 timed steps, peak memory, the unfused step's
+     mean of phase 9 beside it, a profile with the K2 adjoint in a bucket
+     of its own, chiprun_out/chip_smoke_fused_train_profile.txt),
+     alt_pallas.json as shipped (80 K3, 12 K2, 4 adjoint; 1 + 3 steps) and
+     pallas.json as shipped (80 K1, 16 K1 bwd, 12 K2, 4 adjoint; one step);
      then the "kernels" JSON line and the card's line.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -170,14 +194,15 @@ def _wrappers():
     launches its kernel, and nowhere else."""
     from dkt_stereo_tpu_torch.ops.cuda.corr_alt import corr_lookup_alt
     from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup, corr_lookup_bwd
-    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage
+    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage, encoder_stage_bwd
     from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import (
         geo_lookup, geo_lookup_bwd_corr, geo_lookup_bwd_geo)
     from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
         gaussian_row_sample, gaussian_row_sample_bwd)
 
-    return (corr_lookup, corr_lookup_bwd, encoder_stage, geo_lookup, geo_lookup_bwd_geo,
-            geo_lookup_bwd_corr, corr_lookup_alt, gaussian_row_sample, gaussian_row_sample_bwd)
+    return (corr_lookup, corr_lookup_bwd, encoder_stage, encoder_stage_bwd, geo_lookup,
+            geo_lookup_bwd_geo, geo_lookup_bwd_corr, corr_lookup_alt, gaussian_row_sample,
+            gaussian_row_sample_bwd)
 
 
 def kernel_counts():
@@ -392,6 +417,8 @@ BUCKETS = (
     ("K1", r"corr_lookup_kernel"),
     ("K5 bwd", r"row_sample_bwd_kernel"),
     ("K5", r"row_sample_kernel"),
+    # the adjoint conv of K2's VJP is the instantiation without statistics
+    ("K2 adjoint", r"encoder_stage_\w+_kernel<(\w+, )?false>"),
     ("K2", r"encoder_stage"),
     ("convolutions/GEMMs", r"xmma|cutlass|gemm|nvjet|conv|wgrad|dgrad|fprop"),
     ("cuDNN layout transforms", r"nchwToNhwc|nhwcToNchw|AddPadding"),
@@ -535,26 +562,161 @@ def phase_k1_bwd(torch):
                 max_abs_err=max(res.values()))
 
 
-def phase_k2_refuses_grad(torch):
-    """K2 has no backward: on the card it must raise rather than cut the
-    graph when an input requires grad."""
+K2_VJP_IMAGE = (16, 320, 720)  # the fnet's pair batch of the 8x320x720 training crops
+
+
+def _stage_case(torch, gen, B, H, W, dt, residual):
+    """Inputs, forward outputs (y and h from the K2 forward) and random
+    output cotangents of one encoder stage."""
     from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage
 
-    u = torch.randn((1, 8, 16, 64), device="cuda", requires_grad=True)
-    ab = torch.ones((1, 64), device="cuda")
-    w = torch.zeros((64, 64, 3, 3), device="cuda")
-    n = encoder_stage.launches
-    try:
-        encoder_stage(u, ab, ab, w)
-    except RuntimeError as e:
-        check("K2 VJP" in str(e), f"K2 refusal names no ROADMAP entry: {e}")
-    else:
-        raise SmokeFailure("encoder_stage accepted an input that requires grad")
-    check(encoder_stage.launches == n, "encoder_stage launched on a refused call")
+    C = 64
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    u = randn(B, H, W, C).to(dt)
+    a1, b1 = 0.5 + torch.rand((B, C), generator=gen, device="cuda"), 0.3 * randn(B, C)
+    w = randn(C, C, 3, 3) * (2.0 / (9 * C)) ** 0.5
+    kw = {}
+    if residual:
+        kw = dict(v=randn(B, H, W, C).to(dt), a2=0.5 + torch.rand((B, C), generator=gen,
+                                                                device="cuda"),
+                  b2=0.3 * randn(B, C))
     with torch.no_grad():
-        encoder_stage(u, ab, ab, w)
-    print("K2 encoder_stage with an input that requires grad: RuntimeError naming the K2 VJP "
-          "entry; under no_grad it runs")
+        y, _, _, h = encoder_stage(u, a1, b1, w, emit_h=True, **kw)
+    cts = dict(gy=randn(B, H, W, C).to(dt), gs=randn(B, C), gss=randn(B, C),
+               gh_out=randn(B, H, W, C).to(dt) if residual else None)
+    return (u, a1, b1, w, y, h), kw, cts
+
+
+VJP_NAMES = ("g_u", "g_a1", "g_b1", "g_w", "g_v", "g_a2", "g_b2")
+
+
+def _vjp_errors(torch, args, kw, cts, tol_rel, label):
+    """Each cotangent of the stage's VJP through the kernel vs the plain
+    twin on the same inputs: max-abs error over max|plain|."""
+    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import (
+        encoder_stage_bwd, encoder_stage_bwd_plain)
+
+    got = encoder_stage_bwd(*args, **kw, **cts)
+    want = encoder_stage_bwd_plain(*args, **kw, **cts)
+    rel = {}
+    for name, g, w in zip(VJP_NAMES, got, want):
+        if w is None:
+            check(g is None, f"K2 VJP {label}: {name} should be None")
+            continue
+        check(g.dtype == w.dtype and g.shape == w.shape, f"K2 VJP {label}: {name} dtype/shape")
+        rel[name] = float((g.float() - w.float()).abs().max()) / float(w.float().abs().max())
+        check(rel[name] <= tol_rel, f"K2 VJP {label}: {name} relative {rel[name]} > {tol_rel}")
+    return rel
+
+
+def phase_k2_vjp(torch):
+    """K2's VJP (EncoderStage's backward: the adjoint conv through the K2
+    kernel, the rest PyTorch) vs its plain twin on the card, the adjoint
+    check, and the times of the adjoint launch, the whole stage backward,
+    the plain twin and cuDNN's dgrad and wgrad at the training shape."""
+    import torch.nn.functional as F
+
+    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import (
+        encoder_stage, encoder_stage_adjoint, encoder_stage_adjoint_plain, encoder_stage_bwd,
+        encoder_stage_bwd_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    C = 64
+    forms = (("plain", False), ("residual+emit_h", True))
+    # a small fp32 case with TF32 off, then a ragged bf16 one that the 8x16
+    # tiles do not divide; bf16: one bf16 step (2^-8) of g_h can flip where
+    # the kernel and cuDNN sum the 576 products in another order
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = {name: _vjp_errors(torch, *_stage_case(torch, gen, 2, 40, 72, torch.float32, res),
+                               1e-4, f"fp32 {name}") for name, res in forms}
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    ragged = {name: _vjp_errors(torch, *_stage_case(torch, gen, 3, 37, 45, torch.bfloat16, res),
+                                2**-7, f"ragged bf16 {name}") for name, res in forms}
+    B, H, W = K2_VJP_IMAGE
+    train = {}
+    for name, res in forms:
+        train[name] = _vjp_errors(torch, *_stage_case(torch, gen, B, H, W, torch.bfloat16, res),
+                                  2**-7, f"training bf16 {name}")
+        torch.cuda.empty_cache()
+
+    def fmt(rel):
+        return " ".join(f"{k} {e:.2e}" for k, e in rel.items())
+
+    for label, res in (("fp32 (2,40,72,64), TF32 off, tol 1e-4", small),
+                       ("bf16 ragged (3,37,45,64), tol 2^-7", ragged),
+                       (f"bf16 training {(B, H, W, C)}, tol 2^-7", train)):
+        for name, rel in res.items():
+            print(f"K2 VJP [{name}] {label}: relative max-abs vs plain {fmt(rel)}")
+
+    # adjoint: <K2(x), g> == <x, K2^T(g)>, identity affine, no ReLU, fp32
+    # (the fp32 kernels use no TF32), fp64 sums
+    x = torch.randn((B, H, W, C), generator=gen, device="cuda")
+    g = torch.randn((B, H, W, C), generator=gen, device="cuda")
+    w = torch.randn((C, C, 3, 3), generator=gen, device="cuda") * (2.0 / (9 * C)) ** 0.5
+    ones, zeros = torch.ones((B, C), device="cuda"), torch.zeros((B, C), device="cuda")
+    with torch.no_grad():
+        kx = encoder_stage(x, ones, zeros, w, relu_u=False)[0]
+    ktg = encoder_stage_adjoint(g, w)
+    lhs = float((kx.double() * g.double()).sum())
+    rhs = float((x.double() * ktg.double()).sum())
+    adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+    check(adj <= 1e-5, f"K2 adjoint check: relative {adj} > 1e-5")
+    del x, g, kx, ktg
+    torch.cuda.empty_cache()
+
+    # times at the training shape, bf16, plain form
+    args, kw, cts = _stage_case(torch, gen, B, H, W, torch.bfloat16, False)
+    w, h = args[3], args[5]
+    gq = cts["gy"]
+    got = encoder_stage_adjoint(gq, w)
+    want = encoder_stage_adjoint_plain(gq, w)
+    adj_err = float((got.float() - want.float()).abs().max())
+    adj_rel = adj_err / float(want.float().abs().max())
+    check(adj_rel <= 2**-7, f"K2 adjoint launch vs plain: relative {adj_rel} > 2^-7")
+    del got, want
+    ms = cuda_ms(torch, lambda: encoder_stage_adjoint(gq, w), 20)
+    plain_ms = cuda_ms(torch, lambda: encoder_stage_adjoint_plain(gq, w), 3)
+    bwd_ms = cuda_ms(torch, lambda: encoder_stage_bwd(*args, **cts), 5)
+    bwd_plain_ms = cuda_ms(torch, lambda: encoder_stage_bwd_plain(*args, **cts), 3)
+    # cuDNN's dgrad and wgrad of the same conv, channels-last bf16, as
+    # yardsticks the port never calls: convolution_backward with one output
+    # each; torch.nn.grad.conv2d_input, which makes an NCHW dgrad, beside it
+    gn, hn = gq.permute(0, 3, 1, 2), h.permute(0, 3, 1, 2)  # NCHW views of NHWC memory
+    wl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    def conv_bwd(mask):
+        return torch.ops.aten.convolution_backward(gn, hn, wl, None, [1, 1], [1, 1], [1, 1],
+                                                   False, [0, 0], 1, mask)
+
+    lib_ms = cuda_ms(torch, lambda: conv_bwd([True, False, False]), 10)
+    nchw_ms = cuda_ms(torch, lambda: torch.nn.grad.conv2d_input((B, C, H, W), wl, gn, padding=1),
+                      10)
+    wgrad_ms = cuda_ms(torch, lambda: conv_bwd([False, True, False]), 10)
+    # the adjoint launch reads g and writes g_h once (bf16) and the taps;
+    # 2 * 9 * 64 * 64 operations a pixel on the bf16 tensor cores
+    nbytes = 2 * gq.numel() * gq.element_size() + w.numel() * 2
+    flops = 2.0 * B * H * W * C * C * 9
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"K2 VJP adjoint check <K2(x), g> = <x, K2^T(g)> (fp32, {(B, H, W, C)}): relative "
+          f"{adj:.2e} (tol 1e-5) | adjoint launch vs plain at {(B, H, W, C)} bf16: max_abs "
+          f"{adj_err:.3e} (relative {adj_rel:.2e}) | adjoint kernel_ms {ms:.4f} plain_ms "
+          f"{plain_ms:.3f} library_ms {lib_ms:.4f} (cuDNN dgrad, convolution_backward, "
+          f"channels-last bf16; torch.nn.grad.conv2d_input {nchw_ms:.4f}) bound_ms "
+          f"{bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.1f} GFLOP) | "
+          f"whole stage backward {bwd_ms:.3f} ms (plain twin {bwd_plain_ms:.3f}) | cuDNN wgrad "
+          f"(convolution_backward, channels-last bf16) {wgrad_ms:.4f} ms")
+    del args, kw, cts, gq, gn, hn, h
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms, max_abs_err=adj_err)
 
 
 def _train_batch(torch, gen, B, H, W, device):
@@ -587,10 +749,10 @@ def _grad_rel(named, want):
     return rel
 
 
-def phase_train_parity(torch, train_cfg):
+def phase_train_parity(torch, train_cfg, label="train-step parity", want=None):
     """One DKT step with the kernels on the card vs the plain path on the
-    CPU, from the same weights, batch and draws, fp32 with TF32 off."""
-    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup, corr_lookup_bwd
+    CPU, from the same weights, batch and draws, fp32 with TF32 off, with
+    exact launch counts ``want`` (default: train.json's K1 only)."""
     from dkt_stereo_tpu_torch.train.dkt_step import (
         create_dkt_state, fande_draws, make_dkt_train_step)
     from dkt_stereo_tpu_torch.train.state import DKTHyperParams
@@ -606,10 +768,11 @@ def phase_train_parity(torch, train_cfg):
     batch = _train_batch(torch, gen, 1, 64, 128, "cpu")
     draws = fande_draws(1, "cpu", gen)
     step = make_dkt_train_step(cfg, hyper)
-    n_fwd, n_bwd = corr_lookup.launches, corr_lookup_bwd.launches
+    zero_counts()
     gpu, m_gpu = step(gpu, {k: v.cuda() for k, v in batch.items()},
                       draws={k: v.cuda() for k, v in draws.items()})
-    launches = (corr_lookup.launches - n_fwd, corr_lookup_bwd.launches - n_bwd)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
     cpu, m_cpu = step(cpu, batch, draws=draws)
     # the chaos floor: the same CPU step from weights scaled by
     # 1 + 1e-5 N(0, 1), which moves the losses by about as much as fp32
@@ -619,51 +782,44 @@ def phase_train_parity(torch, train_cfg):
               if v.is_floating_point() else v for k, v in to_cpu.items()}
     cpu2, _ = step(create_dkt_state(cfg, hyper, params=nudged, device="cpu"), batch, draws=draws)
     torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
 
-    check(m_gpu["ok"] == m_cpu["ok"] == 1.0, f"ok gpu {m_gpu['ok']} cpu {m_cpu['ok']}")
+    check(m_gpu["ok"] == m_cpu["ok"] == 1.0, f"{label}: ok gpu {m_gpu['ok']} cpu {m_cpu['ok']}")
     # teachers 2 + 2, student 2, remat recompute 2; backward 2
-    check(launches == (8, 2), f"K1 launches fwd/bwd {launches} != (8, 2)")
+    want = {**dict.fromkeys(launches, 0), **(want or {"corr_lookup": 8, "corr_lookup_bwd": 2})}
+    check(launches == want, f"{label}: launches {launches} != {want}")
     loss_err = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
                 for k in ("loss", "loss_GT", "loss_PL")}
     for k, e in loss_err.items():
-        check(e <= 1e-3, f"train parity {k}: relative {e} > 1e-3")
+        check(e <= 1e-3, f"{label} {k}: relative {e} > 1e-3")
     # gradients (after the step's clipping) by module: relative L2 error.
     # Random-weight RAFT is chaotic, and a gradient is a sum of per-pixel
     # terms of both signs: one pixel whose L1 sign or F&E mask flips under
     # fp32 reordering moves a module's gradient by ~2/sqrt(8192) = 2 %. The
     # 1e-5 nudge above shows the floor without the card. A wrong or missing
-    # K1 backward moves the fnet's gradient by order 1.
-    want = dict(cpu.student.named_parameters())
-
-    def rel_by_module(got):
-        err2, norm2 = {}, {}
-        for k, p in got:
-            group = k.split(".")[0]
-            err2[group] = err2.get(group, 0.0) + float((p.grad.cpu() - want[k].grad).square().sum())
-            norm2[group] = norm2.get(group, 0.0) + float(want[k].grad.square().sum())
-        rel = {g: (err2[g] / norm2[g]) ** 0.5 for g in err2}
-        rel["all"] = (sum(err2.values()) / sum(norm2.values())) ** 0.5
-        return rel, norm2
-
-    rel, norm2 = rel_by_module(gpu.student.named_parameters())
-    floor, _ = rel_by_module(cpu2.student.named_parameters())
+    # backward kernel moves the fnet's gradient by order 1.
+    want_grads = dict(cpu.student.named_parameters())
+    rel = _grad_rel(gpu.student.named_parameters(), want_grads)
+    floor = _grad_rel(cpu2.student.named_parameters(), want_grads)
     for g, e in rel.items():
-        check(e <= (0.05 if g == "all" else 0.1), f"train parity gradient of {g}: relative {e}")
-    fnet = norm2["fnet"] ** 0.5
-    check(fnet > 0, "the fnet got no gradient through K1's backward")
-    gpu_fnet = float(torch.stack([p.grad.norm() for k, p in gpu.student.named_parameters()
-                                  if k.startswith("fnet.")]).norm())
-    check(gpu_fnet > 0, "the fnet got no gradient through K1's backward on the card")
-    print(f"train-step parity (fp32, TF32 off, 1x64x128, 2+2 iters), kernels vs plain: loss "
+        check(e <= (0.05 if g == "all" else 0.1), f"{label} gradient of {g}: relative {e}")
+
+    def norm(state, prefix):
+        return float(torch.stack([p.grad.norm().cpu() for k, p in state.student.named_parameters()
+                                  if k.startswith(prefix) and p.grad is not None]).norm())
+
+    reached = {f"{dev} {m}": norm(st, m) for dev, st in (("card", gpu), ("cpu", cpu))
+               for m in ("fnet.", "fnet.layer1.")}
+    check(all(v > 0 for v in reached.values()), f"{label}: no fnet gradient: {reached}")
+    print(f"{label} (fp32, TF32 off, 1x64x128, 2+2 iters), kernels vs plain: loss "
           f"{m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f}, relative errors "
           + " ".join(f"{k} {e:.2e}" for k, e in loss_err.items()) + " (tol 1e-3) | gradient "
           "relative L2 error by module " + " ".join(f"{g} {e:.2e}" for g, e in rel.items())
           + " (tol 0.1 per module, 0.05 all; chaos floor on the CPU from a 1e-5 weight nudge: "
           + " ".join(f"{g} {e:.2e}" for g, e in floor.items())
-          + f") | fnet gradient norm card {gpu_fnet:.3e} "
-          f"cpu {fnet:.3e} | K1 launches fwd {launches[0]} bwd {launches[1]}")
-    del gpu, cpu
-
+          + ") | gradient norms " + " ".join(f"{m} {v:.3e}" for m, v in reached.items())
+          + f" | launches {launches}")
+    del gpu, cpu, cpu2
 
 
 TRAIN_STEPS = 5
@@ -682,14 +838,16 @@ def snapshot(state, label):
     return out
 
 
-def check_moved_and_frozen(torch, state, before, label, moved=True):
+def check_moved_and_frozen(torch, state, before, label, moved=True, still_ok=()):
     """Against a :func:`snapshot`: every student tensor moved (unless
-    ``moved`` is False), while the frozen teacher and the student's
-    batch-norm statistics are bit-identical."""
+    ``moved`` is False) except exactly those named in ``still_ok``, while
+    the frozen teacher and the student's batch-norm statistics are
+    bit-identical."""
     if moved:
         still = [k for k, v in state.student.named_parameters()
                  if torch.equal(v, before["student"][k])]
-        check(not still, f"{label} student tensors that did not move: {still[:5]}")
+        check(still == list(still_ok),
+              f"{label} student tensors that did not move: {still[:5]} (expected {still_ok})")
     check(all(torch.equal(v, before["teacher"][k]) for k, v in state.teacher.state_dict().items()),
           f"the frozen {label} teacher changed")
     student = state.student.state_dict()
@@ -697,8 +855,8 @@ def check_moved_and_frozen(torch, state, before, label, moved=True):
           f"{label} student BN running statistics changed")
 
 
-def timed_steps(torch, state, step, gen, image, label):
-    """1 warm-up step, which must be ok, then TRAIN_STEPS timed DKT steps on
+def timed_steps(torch, state, step, gen, image, label, steps=TRAIN_STEPS):
+    """1 warm-up step, which must be ok, then ``steps`` timed DKT steps on
     seeded synthetic batches of ``image`` (B, H, W), all launch counters
     zeroed first. Returns the state and a dict: host ms per step, the mean
     device ms of each part (CUDA events from the step's ``mark`` hook),
@@ -712,7 +870,7 @@ def timed_steps(torch, state, step, gen, image, label):
 
     zero_counts()
     times, parts, per_step, metrics = [], {p: [] for p in TRAIN_PARTS}, [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         batch = _train_batch(torch, gen, B, H, W, "cuda")
         events = {}
 
@@ -806,7 +964,9 @@ def phase_train(torch, train_cfg, card):
           f"{step_line(run)} | lr {metrics[-1]['learning_rate']:.3e} | {card}")
     profile_step(torch, state, step, gen, (B, H, W), run["ms"].mean(),
                  "chip_smoke_train_profile.txt", "training")
-    return launches
+    del state, step
+    torch.cuda.empty_cache()
+    return launches, float(run["ms"].mean())
 
 
 IGEV_SHAPE = (1, 184, 320)  # 1/4 resolution of the 736x1280 main path
@@ -1127,9 +1287,8 @@ def phase_igev_train_parity(torch, train_cfg):
     check(m_gpu["ok"] == m_cpu["ok"] == 1.0, f"IGEV ok gpu {m_gpu['ok']} cpu {m_cpu['ok']}")
     # teachers 2 + 2, student 2, remat recompute 2; one dgeo and one dcorr
     # launch per student iteration
-    want = {"geo_lookup": 8, "geo_lookup_bwd_geo": 2, "geo_lookup_bwd_corr": 2,
-            "corr_lookup": 0, "corr_lookup_bwd": 0, "encoder_stage": 0, "corr_lookup_alt": 0,
-            "gaussian_row_sample": 0, "gaussian_row_sample_bwd": 0}
+    want = {**dict.fromkeys(launches, 0), "geo_lookup": 8, "geo_lookup_bwd_geo": 2,
+            "geo_lookup_bwd_corr": 2}
     check(launches == want, f"IGEV train parity launches {launches} != {want}")
     loss_err = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
                 for k in ("loss", "loss_GT", "loss_PL")}
@@ -1180,9 +1339,7 @@ def phase_igev_train(torch, train_cfg, card):
     # 2 x 32 teacher iterations + 16 student + 16 recomputed by remat; one
     # dgeo launch per student iteration; no dcorr (the frozen backbone
     # detaches the descriptors, so the corr pyramid needs no gradient)
-    want = {"geo_lookup": 96, "geo_lookup_bwd_geo": 16, "geo_lookup_bwd_corr": 0,
-            "corr_lookup": 0, "corr_lookup_bwd": 0, "encoder_stage": 0, "corr_lookup_alt": 0,
-            "gaussian_row_sample": 0, "gaussian_row_sample_bwd": 0}
+    want = {**dict.fromkeys(launches, 0), "geo_lookup": 96, "geo_lookup_bwd_geo": 16}
     check(all(c == want for c in per_step), f"IGEV launches per step {per_step} != {want}")
     # every tensor outside the detached trunk and the unused slots gets a
     # gradient (a non-zero Adam first moment) and moves, unless its gradient
@@ -2007,6 +2164,147 @@ def phase_pcv_train(torch, config, card):
     return launches
 
 
+# the parameters the fused fnet never reads: instance norm cancels the stem's
+# and layer1's conv biases, so their gradient is zero (JAX's too)
+FUSED_UNUSED = ["conv1.bias"] + [f"layer1.{i}.conv{j}.bias" for i in (0, 1) for j in (1, 2)]
+
+
+def phase_encoder_vjp(torch):
+    """The protocol of the JAX package's ENCODER_VJP_r05.json on the card:
+    every parameter gradient of BasicEncoder(instance, downsample 2) at
+    2x320x704 through the fused path (K2 and its VJP) vs the unfused port
+    path; fp32 with TF32 off, and bf16 against the fp32 truth."""
+    from dkt_stereo_tpu_torch.models.registry import init_weights
+    from dkt_stereo_tpu_torch.nn.blocks import BasicEncoder
+
+    B, H, W = 2, 320, 704
+    unfused = BasicEncoder(256, "instance", 2)
+    init_weights(unfused, torch.Generator().manual_seed(27))
+    unfused.cuda()
+    fused = copy.deepcopy(unfused)
+    fused.fused_fullres = True
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    x = 2 * torch.rand((B, 3, H, W), generator=gen, device="cuda") - 1
+
+    def grads(model, dt):
+        model.zero_grad(set_to_none=True)
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=dt == torch.bfloat16):
+            out = model(x.to(dt))
+        out.float().square().sum().backward()
+        return {k: p.grad for k, p in model.named_parameters()}
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    zero_counts()
+    truth = grads(unfused, torch.float32)
+    g32 = grads(fused, torch.float32)
+    launches = kernel_counts()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    want = {**dict.fromkeys(launches, 0), "encoder_stage": 4, "encoder_stage_bwd": 4}
+    check(launches == want, f"encoder VJP protocol launches {launches} != {want}")
+    check([k for k, g in g32.items() if g is None] == FUSED_UNUSED,
+          f"fused fnet: parameters without gradient {[k for k, g in g32.items() if g is None]}")
+    # every conv bias in front of an instance norm has a zero gradient in
+    # exact arithmetic; the head's (conv2) is the only bias that trains
+    zero_math = [k for k in truth if k.endswith(".bias") and k != "conv2.bias"]
+    leaves = [k for k in truth if k not in zero_math]
+
+    def dev(g):
+        """Worst leaf: max-abs error over the truth's max |g|."""
+        errs = {k: float((g[k] - truth[k]).abs().max()) / float(truth[k].abs().max())
+                for k in leaves}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+
+    def zero_ok(g):
+        scale = max(float(truth[k].abs().max()) for k in leaves)
+        return all(g[k] is None or float(g[k].abs().max()) <= 1e-3 * scale for k in zero_math)
+
+    worst32, leaf32 = dev(g32)
+    check(worst32 <= 1e-2, f"encoder VJP fp32: worst leaf {leaf32} relative {worst32} > 1e-2")
+    check(zero_ok(g32) and zero_ok(truth), "encoder VJP fp32: a zero-gradient bias is not ~0")
+    unfused_dev, unfused_leaf = dev(grads(unfused, torch.bfloat16))
+    g16 = grads(fused, torch.bfloat16)
+    fused_dev, fused_leaf = dev(g16)
+    check(fused_dev <= 2 * unfused_dev + 1e-3,
+          f"encoder VJP bf16: fused deviation {fused_dev} > 2 x unfused {unfused_dev} + 1e-3")
+    # in bf16 the biases in front of the later instance norms keep the
+    # rounding noise of both paths; only the unread ones are exactly zero
+    check(all(g16[k] is None for k in FUSED_UNUSED),
+          "encoder VJP bf16: an unread bias got a gradient")
+    print(f"encoder VJP protocol (ENCODER_VJP_r05.json's, BasicEncoder(instance, 2), "
+          f"{B}x{H}x{W}): fp32 TF32 off fused vs unfused worst leaf {leaf32} {worst32:.3e} "
+          f"(tol 1e-2) | bf16 deviation from fp32 truth: fused {fused_dev:.4f} ({fused_leaf}), "
+          f"unfused {unfused_dev:.4f} ({unfused_leaf}) (tol fused <= 2 x unfused + 1e-3) | "
+          f"zero-gradient biases: fused {FUSED_UNUSED} none (fp32 and bf16), the rest <= 1e-3 of "
+          f"the gradient scale in fp32 | launches {launches}")
+    del unfused, fused, truth, g32, g16
+    torch.cuda.empty_cache()
+
+
+def phase_fused_train(torch, train_cfg, alt_cfg, pallas_cfg, card, unfused_ms):
+    """The DKT step with the fused fnet in train mode at B=8, 320x720, 16
+    student / 32 teacher iterations: train.json with pallas_encoder merged
+    in (1 warm-up and TRAIN_STEPS timed steps, a profile), alt_pallas.json
+    as shipped (1 + 3 steps) and pallas.json as shipped (one step), each
+    with exact launch counts."""
+    from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    B, H, W = TRAIN_IMAGE
+    hyper = DKTHyperParams(train_iters=16, teacher_iters=32)
+    unused = ["fnet." + k for k in FUSED_UNUSED]
+    # K2: 4 stages for each of the two teachers and the student, whose
+    # backward adds 4 adjoint launches; remat recomputes only the GRU
+    # iterations
+    k2 = {"encoder_stage": 12, "encoder_stage_bwd": 4}
+    paths = {}
+    for name, cfg, steps, want in (
+            ("fused_training", {**train_cfg, "pallas_encoder": True}, TRAIN_STEPS,
+             {"corr_lookup": 96, "corr_lookup_bwd": 16}),
+            ("alt_training", alt_cfg, 3, {"corr_lookup_alt": 80}),
+            ("pallas_training", pallas_cfg, 0, {"corr_lookup": 80, "corr_lookup_bwd": 16})):
+        remat = bool(cfg.get("remat_iters", False))
+        state = create_dkt_state(cfg, hyper, seed=0)
+        step = make_dkt_train_step(cfg, hyper)
+        gen = torch.Generator(device="cuda").manual_seed(28)
+        before = snapshot(state, name)
+        if steps:
+            state, run = timed_steps(torch, state, step, gen, (B, H, W), name, steps)
+            per_step, launches = run["per_step"], run["launches"]
+        else:
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            state, m = step(state, _train_batch(torch, gen, B, H, W, "cuda"), generator=gen)
+            torch.cuda.synchronize()
+            launches = kernel_counts()
+            per_step = [launches]
+            check(m["ok"] == 1.0 and np.isfinite(m["loss"]), f"{name} step not ok: {m}")
+        want = {**dict.fromkeys(launches, 0), **want, **k2}
+        check(all(c == want for c in per_step), f"{name} launches per step {per_step} != {want}")
+        # the fused fnet's unread biases get a zero gradient; from their zero
+        # init AdamW's decay leaves them at zero, as optax does
+        check_moved_and_frozen(torch, state, before, name, still_ok=unused)
+        label = (f"{name} ({cfg['model']} {cfg.get('corr_implementation')}, pallas_encoder, bf16, "
+                 f"remat {remat}, B={B} {H}x{W}, {hyper.train_iters}/{hyper.teacher_iters} iters")
+        if steps:
+            print(f"{label}, {steps} steps after 1 warm-up): {step_line(run)} | {card}")
+        else:
+            print(f"{label}, one step): loss {m['loss']:.3f} ok {m['ok']} | peak mem "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches {launches} "
+                  f"| {card}")
+        if name == "fused_training":
+            print(f"the unfused train.json step (phase 9, same call): mean {unfused_ms:.2f} "
+                  f"ms/step; fused / unfused {run['ms'].mean() / unfused_ms:.3f}")
+            profile_step(torch, state, step, gen, (B, H, W), run["ms"].mean(),
+                         "chip_smoke_fused_train_profile.txt", "fused training")
+        paths[name] = launches
+        del state, step
+        torch.cuda.empty_cache()
+    return paths
+
+
 def main():
     import torch
 
@@ -2035,10 +2333,10 @@ def main():
     phase_profile(torch, forward, images)
 
     k1b = phase_k1_bwd(torch)
-    phase_k2_refuses_grad(torch)
+    k2b = phase_k2_vjp(torch)
     train_cfg = json.loads((ROOT / "configs/raft_stereo/train.json").read_text())
     phase_train_parity(torch, train_cfg)
-    train = phase_train(torch, train_cfg, card)
+    train, unfused_ms = phase_train(torch, train_cfg, card)
 
     k4 = phase_k4(torch)
     k4b = phase_k4_bwd(torch)
@@ -2065,13 +2363,20 @@ def main():
     phase_pcv_train_parity(torch, pcv_cfgs["base"])
     pcv_train = phase_pcv_train(torch, pcv_cfgs["base"], card)
 
+    phase_encoder_vjp(torch)
+    phase_train_parity(torch, {**train_cfg, "pallas_encoder": True}, "fused train-step parity",
+                       {"corr_lookup": 8, "corr_lookup_bwd": 2, "encoder_stage": 12,
+                        "encoder_stage_bwd": 4})
+    fused_paths = phase_fused_train(torch, train_cfg, alt_cfg, config, card, unfused_ms)
+
     def launches(name):
         by_path = {"inference": infer.get(name, 0), "training": train.get(name, 0),
                    "igev_inference": igev.get(name, 0),
                    "igev_training": igev_train.get(name, 0),
                    "alt_inference": alt.get(name, 0), "pcv_inference": pcv.get(name, 0),
                    "pcv_fast_inference": pcv_fast.get(name, 0),
-                   "pcv_training": pcv_train.get(name, 0)}
+                   "pcv_training": pcv_train.get(name, 0),
+                   **{path: c.get(name, 0) for path, c in fused_paths.items()}}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     k2p = k2["plain"]
@@ -2089,6 +2394,10 @@ def main():
              **launches("encoder_stage"),
              max_abs_err=max(r["max_abs_err"] for r in k2.values()),
              **{k: k2p[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+        dict(name="encoder_stage_bwd", route="cuda",
+             source="dkt_stereo_tpu_torch/csrc/encoder_stage.cu",
+             replaces="dkt_stereo_tpu/ops/pallas/encoder_conv.py:476",
+             **launches("encoder_stage_bwd"), **k2b),
         dict(name="geo_lookup", route="cuda", source="dkt_stereo_tpu_torch/csrc/geo_lookup.cu",
              replaces="dkt_stereo_tpu/ops/pallas/geo_lookup.py:302",
              **launches("geo_lookup"), **k4),

@@ -14,6 +14,13 @@
 // fp32 sums of y and y^2 taken from the fp32 accumulator, not from the
 // rounded y. Optionally h itself is written out (the block's residual tap).
 //
+// The file also serves the VJP (encoder_conv.py::encoder_stage_ad, :476;
+// its backward _stage_ad_bwd, :394-470, calls encoder_stage again): the
+// adjoint SAME conv of the output cotangent g_y is this kernel with the
+// identity affine, no ReLU, no v and flipped, IO-transposed taps, as in JAX.
+// The adjoint passes null statistics pointers, and the kernel then skips the
+// statistics (the STATS template argument, false in that instantiation).
+//
 // What bounds it on the H100: at (2, 736, 1280, 64) bf16 one stage moves
 // 0.48 GB (u in, y out; 0.96 GB with v and h) and does 139 GFLOP of
 // multiply-adds: ~0.14 ms of memory traffic, ~0.14 ms of tensor-core time.
@@ -64,6 +71,7 @@ constexpr int NT = 256;     // threads per block
 constexpr int IH = TH + 2;  // input tile rows with halo
 constexpr int IW = TW + 2;  // input tile columns with halo
 
+template <bool STATS>
 __global__ void __launch_bounds__(NT)
 encoder_stage_f32_kernel(const float* __restrict__ u, const float* __restrict__ a1,
                          const float* __restrict__ b1, const float* __restrict__ v,
@@ -176,26 +184,28 @@ encoder_stage_f32_kernel(const float* __restrict__ u, const float* __restrict__ 
       }
     }
   }
-  // lanes 8q + cg share their channels: fold the four of them
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    ps[k] += __shfl_xor_sync(0xffffffffu, ps[k], 8);
-    ps[k] += __shfl_xor_sync(0xffffffffu, ps[k], 16);
-    pq[k] += __shfl_xor_sync(0xffffffffu, pq[k], 8);
-    pq[k] += __shfl_xor_sync(0xffffffffu, pq[k], 16);
-  }
-  if ((tid & 31) < 8) {
+  if constexpr (STATS) {
+    // lanes 8q + cg share their channels: fold the four of them
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const int co = (k < 4) ? 4 * cg + k : 32 + 4 * cg + (k - 4);
-      atomicAdd(&red_sum[co], ps[k]);
-      atomicAdd(&red_ssq[co], pq[k]);
+      ps[k] += __shfl_xor_sync(0xffffffffu, ps[k], 8);
+      ps[k] += __shfl_xor_sync(0xffffffffu, ps[k], 16);
+      pq[k] += __shfl_xor_sync(0xffffffffu, pq[k], 8);
+      pq[k] += __shfl_xor_sync(0xffffffffu, pq[k], 16);
     }
-  }
-  __syncthreads();
-  if (tid < C) {
-    atomicAdd(&ssum[bc + tid], red_sum[tid]);
-    atomicAdd(&sssq[bc + tid], red_ssq[tid]);
+    if ((tid & 31) < 8) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int co = (k < 4) ? 4 * cg + k : 32 + 4 * cg + (k - 4);
+        atomicAdd(&red_sum[co], ps[k]);
+        atomicAdd(&red_ssq[co], pq[k]);
+      }
+    }
+    __syncthreads();
+    if (tid < C) {
+      atomicAdd(&ssum[bc + tid], red_sum[tid]);
+      atomicAdd(&sssq[bc + tid], red_ssq[tid]);
+    }
   }
 }
 
@@ -246,7 +256,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <bool HAS_V>
+template <bool HAS_V, bool STATS>
 __global__ void __launch_bounds__(TC_NT, 2)
 encoder_stage_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ a1,
                           const float* __restrict__ b1, const bf16* __restrict__ v,
@@ -290,7 +300,7 @@ encoder_stage_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ 
     const size_t base = (size_t)b * H * W * C;
     if (b != cur_b) {  // tiles go in sample order: flush the last sample's statistics
       if (tid < C) {
-        if (cur_b >= 0) {
+        if (STATS && cur_b >= 0) {
           atomicAdd(&ssum[cur_b * C + tid], red_sum[tid]);
           atomicAdd(&sssq[cur_b * C + tid], red_ssq[tid]);
         }
@@ -411,7 +421,7 @@ encoder_stage_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ 
           const float y1 = acc[rr][nb][2 * half + 1];
           *reinterpret_cast<__nv_bfloat162*>(st + (rr * TC_TW + px) * PS + nb * 8 + 2 * cq) =
               __floats2bfloat162_rn(y0, y1);
-          if (ok) {
+          if (STATS && ok) {
             s[nb][0] += y0;
             s[nb][1] += y1;
             q[nb][0] += y0 * y0;
@@ -420,24 +430,26 @@ encoder_stage_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ 
         }
       }
     }
-    // lanes with the same cq hold the same channels: fold the eight pixels g
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int m = 4; m < 32; m <<= 1) {
-          s[nb][e] += __shfl_xor_sync(0xffffffffu, s[nb][e], m);
-          q[nb][e] += __shfl_xor_sync(0xffffffffu, q[nb][e], m);
-        }
-    if (lane < 4) {
+    if constexpr (STATS) {
+      // lanes with the same cq hold the same channels: fold the eight pixels g
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          atomicAdd(&red_sum[nb * 8 + 2 * lane + e], s[nb][e]);
-          atomicAdd(&red_ssq[nb * 8 + 2 * lane + e], q[nb][e]);
-        }
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int m = 4; m < 32; m <<= 1) {
+            s[nb][e] += __shfl_xor_sync(0xffffffffu, s[nb][e], m);
+            q[nb][e] += __shfl_xor_sync(0xffffffffu, q[nb][e], m);
+          }
+      if (lane < 4) {
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            atomicAdd(&red_sum[nb * 8 + 2 * lane + e], s[nb][e]);
+            atomicAdd(&red_ssq[nb * 8 + 2 * lane + e], q[nb][e]);
+          }
+      }
     }
     __syncwarp();
     // 32 pixels x 8 vectors of 16 bytes, eight lanes per pixel
@@ -454,33 +466,34 @@ encoder_stage_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ 
     }
     __syncthreads();  // the staging area is the next tile's input tile
   }
-  if (cur_b >= 0 && tid < C) {
+  if (STATS && cur_b >= 0 && tid < C) {
     atomicAdd(&ssum[cur_b * C + tid], red_sum[tid]);
     atomicAdd(&sssq[cur_b * C + tid], red_ssq[tid]);
   }
 }
 
-template <bool HAS_V>
+template <bool HAS_V, bool STATS>
 int launch_bf16(const bf16* u, const float* a1, const float* b1, const bf16* v, const float* a2,
                 const float* b2, const bf16* w, bf16* y, float* ssum, float* sssq, bf16* h, int B,
                 int H, int W, int relu_u, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      encoder_stage_bf16_kernel<HAS_V>, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+      encoder_stage_bf16_kernel<HAS_V, STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      TC_SMEM);
   if (attr != cudaSuccess) return (int)attr;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, encoder_stage_bf16_kernel<HAS_V>,
-                                                      TC_NT, TC_SMEM);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, encoder_stage_bf16_kernel<HAS_V, STATS>, TC_NT, TC_SMEM);
   if (e != cudaSuccess) return (int)e;
   const long long tiles =
       (long long)B * ((H + TC_TH - 1) / TC_TH) * ((W + TC_TW - 1) / TC_TW);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int grid = (int)(tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm);
   if (grid < 1) return (int)cudaErrorInvalidConfiguration;
-  encoder_stage_bf16_kernel<HAS_V><<<grid, TC_NT, TC_SMEM, s>>>(u, a1, b1, v, a2, b2, w, y, ssum,
-                                                                 sssq, h, B, H, W, relu_u);
+  encoder_stage_bf16_kernel<HAS_V, STATS><<<grid, TC_NT, TC_SMEM, s>>>(
+      u, a1, b1, v, a2, b2, w, y, ssum, sssq, h, B, H, W, relu_u);
   return (int)cudaGetLastError();
 }
 
@@ -488,14 +501,18 @@ int launch_bf16(const bf16* u, const float* a1, const float* b1, const bf16* v, 
 
 // u, v, y, h: (B, H, W, 64) contiguous, fp32 or bf16 (is_bf16); v and h may
 // be null. a*, b*: (B, 64) fp32. w: (3, 3, 64, 64) HWIO in the activation
-// dtype. ssum, sssq: (B, 64) fp32, zeroed by the caller. Launches on
-// `stream` and returns cudaGetLastError() (0 = ok).
+// dtype. ssum, sssq: (B, 64) fp32, zeroed by the caller, or both null to
+// skip the statistics (the VJP's adjoint conv). Launches on `stream` and
+// returns cudaGetLastError() (0 = ok).
 extern "C" int encoder_stage_launch(const void* u, const float* a1, const float* b1,
                                     const void* v, const float* a2, const float* b2,
                                     const void* w, void* y, float* ssum, float* sssq, void* h,
                                     int B, int H, int W, int channels, int relu_u, int is_bf16,
                                     void* stream) {
-  if (channels != C || B < 1 || B > 65535 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const bool stats = ssum != nullptr;
+  if (channels != C || B < 1 || B > 65535 || H < 1 || W < 1 || stats != (sssq != nullptr) ||
+      (!stats && v != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     const bf16* ub = static_cast<const bf16*>(u);
@@ -503,14 +520,25 @@ extern "C" int encoder_stage_launch(const void* u, const float* a1, const float*
     const bf16* wb = static_cast<const bf16*>(w);
     bf16* yb = static_cast<bf16*>(y);
     bf16* hb = static_cast<bf16*>(h);
-    return v != nullptr
-               ? launch_bf16<true>(ub, a1, b1, vb, a2, b2, wb, yb, ssum, sssq, hb, B, H, W, relu_u, s)
-               : launch_bf16<false>(ub, a1, b1, vb, a2, b2, wb, yb, ssum, sssq, hb, B, H, W, relu_u, s);
+    if (v != nullptr)
+      return launch_bf16<true, true>(ub, a1, b1, vb, a2, b2, wb, yb, ssum, sssq, hb, B, H, W,
+                                     relu_u, s);
+    return stats ? launch_bf16<false, true>(ub, a1, b1, vb, a2, b2, wb, yb, ssum, sssq, hb, B, H,
+                                            W, relu_u, s)
+                 : launch_bf16<false, false>(ub, a1, b1, vb, a2, b2, wb, yb, ssum, sssq, hb, B,
+                                             H, W, relu_u, s);
   }
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  encoder_stage_f32_kernel<<<grid, NT, 0, s>>>(
-      static_cast<const float*>(u), a1, b1, static_cast<const float*>(v), a2, b2,
-      static_cast<const float*>(w), static_cast<float*>(y), ssum, sssq,
-      static_cast<float*>(h), H, W, relu_u);
+  const float* uf = static_cast<const float*>(u);
+  const float* vf = static_cast<const float*>(v);
+  const float* wf = static_cast<const float*>(w);
+  if (stats)
+    encoder_stage_f32_kernel<true><<<grid, NT, 0, s>>>(uf, a1, b1, vf, a2, b2, wf,
+                                                       static_cast<float*>(y), ssum, sssq,
+                                                       static_cast<float*>(h), H, W, relu_u);
+  else
+    encoder_stage_f32_kernel<false><<<grid, NT, 0, s>>>(uf, a1, b1, vf, a2, b2, wf,
+                                                        static_cast<float*>(y), ssum, sssq,
+                                                        static_cast<float*>(h), H, W, relu_u);
   return (int)cudaGetLastError();
 }

@@ -28,9 +28,12 @@ Correlation modes, in both modes of the model:
     features pooled in fp32 (the JAX model's rule: its levels >= 1 differ
     from ``alt_cuda``'s by one bf16 rounding under mixed precision).
 
-The fnet's full-resolution section runs through the K2 kernel when
-``pallas_encoder`` is set (test mode only: K2 has no backward yet). Batch
-norm is frozen in both modes (``nn/norms.py::FrozenBatchNorm2d``).
+The fnet's full-resolution section (and the cnet's, with an instance-norm
+``context_norm``) runs through the K2 kernel when ``pallas_encoder`` is
+set, in both modes: in train mode its backward runs K2 again for the
+adjoint conv (``ops/cuda/encoder_conv.py::EncoderStage``). ``remat_iters``
+recomputes only the GRU iterations, never the encoder. Batch norm is frozen
+in both modes (``nn/norms.py::FrozenBatchNorm2d``).
 """
 
 from __future__ import annotations
@@ -60,7 +63,6 @@ _UNPORTED = {
     "interpolate": "Queue 1 item 4 (backbone_type='interpolate')",
     "fast_in_stats": "Queue 1 item 4 (subsampled IN statistics)",
     "shared_backbone": "Queue 1 item 4 (shared backbone)",
-    "pallas_encoder_train": "Queue 2 K2 VJP (encoder_stage_ad: pallas_encoder in train mode)",
 }
 
 
@@ -125,8 +127,6 @@ class RAFTStereo(nn.Module):
     def __init__(self, cfg: RAFTStereoConfig, iters: int = 12, test_mode: bool = True):
         super().__init__()
         cfg.check_ported()
-        if not test_mode and cfg.pallas_encoder:
-            raise _unported("pallas_encoder_train")
         if iters < 1:
             raise ValueError(f"iters must be at least 1, got {iters}")
         self.cfg, self.iters, self.test_mode = cfg, iters, test_mode

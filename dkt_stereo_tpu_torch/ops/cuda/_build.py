@@ -18,8 +18,6 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-import torch
-
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -92,14 +90,3 @@ def check_launch(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
 
-
-def refuse_grad(name: str, where: str, *tensors) -> None:
-    """Raise when autograd would record through a kernel that has no
-    backward. A ctypes launch writes into ``torch.empty`` outputs that carry
-    no ``grad_fn``, so without this check the graph would be cut silently.
-    ``where`` names the ROADMAP.md entry that ports the backward."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} has no backward yet (ROADMAP.md {where}); call it under torch.no_grad() "
-            "or on inputs that do not require grad"
-        )

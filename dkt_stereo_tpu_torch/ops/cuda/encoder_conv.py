@@ -1,6 +1,7 @@
 """K2: one fused full-resolution encoder stage (``csrc/encoder_stage.cu``),
 the port of the Pallas ``dkt_stereo_tpu/ops/pallas/encoder_conv.py::
-encoder_stage``, plus the instance-norm fold :func:`in_affine`.
+encoder_stage``, its VJP (``encoder_stage_ad``), and the instance-norm fold
+:func:`in_affine`.
 
 The JAX kernel works on a width-to-depth packed, row-shifted frame (a TPU
 lane and VMEM layout); this one takes logical (B, H, W, 64) NHWC tensors and
@@ -8,9 +9,11 @@ returns statistics per logical channel.
 
 :func:`encoder_stage` takes the plain path (:func:`encoder_stage_plain`)
 only for CPU tensors; for CUDA tensors it launches the kernel or raises.
-The kernel has no backward yet: on CUDA it refuses inputs that require grad
-while grad mode is on, rather than cut the graph (the plain CPU path keeps
-its autograd).
+Under grad mode, with an input that requires grad, it runs through
+:class:`EncoderStage`, whose backward (:func:`encoder_stage_bwd`) runs the
+adjoint conv as one more launch of the same kernel on flipped,
+IO-transposed taps, as the JAX VJP does (``_stage_ad_bwd``). Otherwise it
+launches exactly as at inference, and writes no ``h`` residual.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from dkt_stereo_tpu_torch.ops.cuda import _build
 
 CHANNELS = 64
 
-__all__ = ["encoder_stage", "encoder_stage_plain", "in_affine"]
+__all__ = ["EncoderStage", "encoder_stage", "encoder_stage_adjoint", "encoder_stage_adjoint_plain",
+           "encoder_stage_bwd", "encoder_stage_bwd_plain", "encoder_stage_plain", "in_affine"]
 
 
 def in_affine(stats_sum, stats_sumsq, count, eps=1e-5):
@@ -39,13 +43,18 @@ def in_affine(stats_sum, stats_sumsq, count, eps=1e-5):
     return a, -mean * a
 
 
+def _bc(t):
+    """(B, C) per-sample vector -> broadcastable over (B, H, W, C)."""
+    return t[:, None, None, :]
+
+
 def _prologue(u, a1, b1, v, a2, b2, relu_u):
     """h = [relu](a1*u + b1) [then relu(h + relu(a2*v + b2))], fp32."""
-    h = u.float() * a1[:, None, None, :] + b1[:, None, None, :]
+    h = u.float() * _bc(a1) + _bc(b1)
     if relu_u:
         h = h.clamp_min(0.0)
     if v is not None:
-        hv = (v.float() * a2[:, None, None, :] + b2[:, None, None, :]).clamp_min(0.0)
+        hv = (v.float() * _bc(a2) + _bc(b2)).clamp_min(0.0)
         h = (h + hv).clamp_min(0.0)
     return h
 
@@ -54,15 +63,18 @@ def encoder_stage_plain(u, a1, b1, w, v=None, a2=None, b2=None, emit_h=False, re
     """Plain version of :func:`encoder_stage`, with the kernel's rounding
     points: h is rounded to the activation dtype, the conv accumulates in
     fp32 over the rounded h and weights, statistics come from the fp32 sums.
+    Autocast is off inside, so an enclosing autocast region does not move
+    the conv to bf16.
     """
     dt = u.dtype
-    h = _prologue(u, a1, b1, v, a2, b2, relu_u).to(dt)
-    acc = F.conv2d(h.float().permute(0, 3, 1, 2), w.to(dt).float(), padding=1)
-    out = (
-        acc.permute(0, 2, 3, 1).to(dt).contiguous(),
-        acc.sum(dim=(2, 3)),
-        acc.square().sum(dim=(2, 3)),
-    )
+    with torch.autocast(u.device.type, enabled=False):
+        h = _prologue(u, a1, b1, v, a2, b2, relu_u).to(dt)
+        acc = F.conv2d(h.float().permute(0, 3, 1, 2), w.to(dt).float(), padding=1)
+        out = (
+            acc.permute(0, 2, 3, 1).to(dt).contiguous(),
+            acc.sum(dim=(2, 3)),
+            acc.square().sum(dim=(2, 3)),
+        )
     return out + (h,) if emit_h else out
 
 
@@ -84,17 +96,10 @@ def _check(name, t, shape, dtype, device):
         )
 
 
-def encoder_stage(u, a1, b1, w, v=None, a2=None, b2=None, emit_h=False, relu_u=True):
-    """``y = conv3x3(relu(a1*u + b1 [+ relu(a2*v + b2)]))`` with zero SAME
-    padding and no bias.
-
-    u, v: (B, H, W, 64) NHWC, fp32 or bf16. a*, b*: (B, 64) fp32 per-sample
-    affines. w: (64, 64, 3, 3) OIHW conv weight (cast to u's dtype).
-    Returns ``(y, sum, sumsq[, h])``: y (B, H, W, 64) in u's dtype; sum and
-    sumsq (B, 64) fp32 over all H*W pixels of the fp32 conv output; h the
-    transformed input in u's dtype when ``emit_h``."""
-    if u.device.type == "cpu":
-        return encoder_stage_plain(u, a1, b1, w, v, a2, b2, emit_h, relu_u)
+def _launch(counter, u, a1, b1, w, v, a2, b2, emit_h, relu_u, stats=True):
+    """Check the arguments, launch the kernel once on the current stream and
+    add one to ``counter.launches``. Returns ``(y, sum, sumsq[, h])``; with
+    ``stats`` False the kernel skips the statistics and both are None."""
     if u.device.type != "cuda":
         raise ValueError(f"encoder_stage: unsupported device {u.device}")
     if u.dtype not in (torch.float32, torch.bfloat16):
@@ -113,13 +118,10 @@ def encoder_stage(u, a1, b1, w, v=None, a2=None, b2=None, emit_h=False, relu_u=T
         _check("a2", a2, (B, C), f32, dev)
         _check("b2", b2, (B, C), f32, dev)
 
-    _build.refuse_grad("encoder_stage", "Queue 2 K2 VJP (encoder_stage_ad)",
-                       u, a1, b1, w, v, a2, b2)
-
-    w_hwio = w.to(u.dtype).permute(2, 3, 1, 0).contiguous()
+    w_hwio = w.detach().to(u.dtype).permute(2, 3, 1, 0).contiguous()
     y = torch.empty_like(u)
-    ssum = torch.zeros((B, C), dtype=f32, device=dev)
-    sssq = torch.zeros((B, C), dtype=f32, device=dev)
+    ssum = torch.zeros((B, C), dtype=f32, device=dev) if stats else None
+    sssq = torch.zeros((B, C), dtype=f32, device=dev) if stats else None
     h = torch.empty_like(u) if emit_h else None
 
     def ptr(t):
@@ -132,9 +134,151 @@ def encoder_stage(u, a1, b1, w, v=None, a2=None, b2=None, emit_h=False, relu_u=T
                  ptr(ssum), ptr(sssq), ptr(h), B, H, W, C, int(relu_u),
                  int(u.dtype == torch.bfloat16), stream)
     _build.check_launch(err, "encoder_stage")
-    encoder_stage.launches += 1
+    counter.launches += 1
     out = (y, ssum, sssq)
     return out + (h,) if emit_h else out
 
 
+def encoder_stage(u, a1, b1, w, v=None, a2=None, b2=None, emit_h=False, relu_u=True):
+    """``y = conv3x3(relu(a1*u + b1 [+ relu(a2*v + b2)]))`` with zero SAME
+    padding and no bias.
+
+    u, v: (B, H, W, 64) NHWC, fp32 or bf16. a*, b*: (B, 64) fp32 per-sample
+    affines. w: (64, 64, 3, 3) OIHW conv weight (cast to u's dtype).
+    Returns ``(y, sum, sumsq[, h])``: y (B, H, W, 64) in u's dtype; sum and
+    sumsq (B, 64) fp32 over all H*W pixels of the fp32 conv output; h the
+    transformed input in u's dtype when ``emit_h``. Differentiable in every
+    tensor argument through :class:`EncoderStage`."""
+    tensors = (u, a1, b1, w, v, a2, b2)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        return EncoderStage.apply(*tensors, emit_h, relu_u)
+    if u.device.type == "cpu":
+        return encoder_stage_plain(u, a1, b1, w, v, a2, b2, emit_h, relu_u)
+    return _launch(encoder_stage, u, a1, b1, w, v, a2, b2, emit_h, relu_u)
+
+
 encoder_stage.launches = 0
+
+
+def _identity(g):
+    """The identity affine (a = 1, b = 0), fp32 (B, C), for g (B, H, W, C)."""
+    ones = torch.ones((g.shape[0], g.shape[-1]), dtype=torch.float32, device=g.device)
+    return ones, torch.zeros_like(ones)
+
+
+def _flip_transpose(w):
+    """The adjoint taps of an OIHW 3x3 conv: spatial flip + IO transpose
+    (JAX ``_flip_transpose``, ``encoder_conv.py:369``)."""
+    return w.detach().flip(2, 3).transpose(0, 1)
+
+
+def encoder_stage_adjoint_plain(g, w):
+    """Plain version of :func:`encoder_stage_adjoint`: the plain stage with
+    the identity affine, no ReLU and the adjoint taps."""
+    ones, zeros = _identity(g)
+    return encoder_stage_plain(g, ones, zeros, _flip_transpose(w), relu_u=False)[0]
+
+
+def encoder_stage_adjoint(g, w):
+    """The adjoint of a stage's zero-SAME 3x3 conv with OIHW weights ``w``,
+    applied to g (B, H, W, 64) in the activation dtype: one launch of the K2
+    kernel with the identity affine, no ReLU, no v, the flipped,
+    IO-transposed taps and no statistics, as JAX's VJP calls
+    ``encoder_stage`` (``encoder_conv.py:411-422``). The result is rounded to
+    g's dtype. Counts in ``encoder_stage_bwd.launches``."""
+    ones, zeros = _identity(g)
+    return _launch(encoder_stage_bwd, g, ones, zeros, _flip_transpose(w), None, None, None,
+                   False, False, stats=False)[0]
+
+
+def _stage_bwd(adjoint, u, a1, b1, w, y, h, gy, gs, gss, v=None, a2=None, b2=None,
+               gh_out=None, relu_u=True, needs=(True,) * 7):
+    """The steps of JAX ``_stage_ad_bwd`` on logical tensors, with the
+    adjoint conv ``adjoint(g, w)`` given by the caller. Zero SAME padding
+    takes the place of JAX's valid-region masks. ``needs`` says which of
+    (u, a1, b1, w, v, a2, b2) get a gradient; the others get None."""
+    dt = u.dtype
+    # the cotangent of the raw conv output: y also feeds sum y and sum y^2.
+    # JAX takes y here as stored (rounded), not the fp32 accumulator
+    g_y = gy.float() + _bc(gs) + 2.0 * y.float() * _bc(gss)
+    g_u = g_a1 = g_b1 = g_w = g_v = g_a2 = g_b2 = None
+    if any(needs[i] for i in (0, 1, 2, 4, 5, 6)):
+        # the adjoint conv reads g_y rounded to the activation dtype; g_h
+        # comes out rounded too, and only then is gh_out added in fp32
+        g_h = adjoint(g_y.to(dt).contiguous(), w).float()
+        if gh_out is not None:
+            g_h += gh_out.float()
+        # back through the ReLU gates and the affines
+        if v is not None:
+            g_h *= h > 0  # the outer relu: h = relu(relu?(t1) + relu(t2))
+            g_t2 = g_h * (v.float() * _bc(a2) + _bc(b2) > 0)
+            g_v = (g_t2 * _bc(a2)).to(v.dtype) if needs[4] else None
+            g_a2 = (g_t2 * v.float()).sum(dim=(1, 2)) if needs[5] else None
+            g_b2 = g_t2.sum(dim=(1, 2)) if needs[6] else None
+            del g_t2
+        g_t1 = g_h * (u.float() * _bc(a1) + _bc(b1) > 0) if relu_u else g_h
+        g_u = (g_t1 * _bc(a1)).to(dt) if needs[0] else None
+        g_a1 = (g_t1 * u.float()).sum(dim=(1, 2)) if needs[1] else None
+        g_b1 = g_t1.sum(dim=(1, 2)) if needs[2] else None
+        del g_t1, g_h
+    if needs[3]:
+        # nine tap contractions of the fp32 h with the unrounded g_y over
+        # (B, H, W), rounded to the weight's working dtype as JAX rounds its
+        # dense taps, then returned in the weight's own dtype
+        g_w = torch.ops.aten.convolution_backward(
+            g_y.permute(0, 3, 1, 2), h.float().permute(0, 3, 1, 2), w.detach().float(), None,
+            [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, False])[1]
+        g_w = g_w.to(dt).to(w.dtype)
+    return g_u, g_a1, g_b1, g_w, g_v, g_a2, g_b2
+
+
+def encoder_stage_bwd_plain(u, a1, b1, w, y, h, gy, gs, gss, v=None, a2=None, b2=None,
+                            gh_out=None, relu_u=True, needs=(True,) * 7):
+    """Plain version of :func:`encoder_stage_bwd`: the adjoint conv is
+    :func:`encoder_stage_adjoint_plain`."""
+    return _stage_bwd(encoder_stage_adjoint_plain, u, a1, b1, w, y, h, gy, gs, gss, v, a2, b2,
+                      gh_out, relu_u, needs)
+
+
+def encoder_stage_bwd(u, a1, b1, w, y, h, gy, gs, gss, v=None, a2=None, b2=None,
+                      gh_out=None, relu_u=True, needs=(True,) * 7):
+    """The VJP of one stage (JAX ``_stage_ad_bwd``, ``encoder_conv.py:394``)
+    from the forward's inputs, its outputs ``y`` and ``h`` (always kept by
+    :class:`EncoderStage`), and the cotangents of y, sum, sumsq and, with
+    the emitted h, of h. Returns the gradients of (u, a1, b1, w, v, a2, b2),
+    None where ``needs`` says so. The adjoint conv is one launch of the K2
+    kernel (:func:`encoder_stage_adjoint`); the rest is PyTorch, as it is
+    XLA in JAX."""
+    return _stage_bwd(encoder_stage_adjoint, u, a1, b1, w, y, h, gy, gs, gss, v, a2, b2,
+                      gh_out, relu_u, needs)
+
+
+encoder_stage_bwd.launches = 0
+
+
+class EncoderStage(torch.autograd.Function):
+    """:func:`encoder_stage` with a backward. The forward always writes h,
+    the backward's residual (JAX ``_stage_ad_fwd``), and returns it only
+    when ``emit_h`` asks. CPU tensors take the plain forward and
+    :func:`encoder_stage_bwd_plain`; CUDA tensors the kernel and
+    :func:`encoder_stage_bwd`. The backward runs with autocast off, so its
+    fp32 cotangent and weight contraction stay fp32."""
+
+    @staticmethod
+    def forward(ctx, u, a1, b1, w, v, a2, b2, emit_h, relu_u):
+        if u.device.type == "cpu":
+            y, s, ss, h = encoder_stage_plain(u, a1, b1, w, v, a2, b2, True, relu_u)
+        else:
+            y, s, ss, h = _launch(encoder_stage, u, a1, b1, w, v, a2, b2, True, relu_u)
+        ctx.save_for_backward(u, a1, b1, w, v, a2, b2, y, h)
+        ctx.relu_u = relu_u
+        return (y, s, ss, h) if emit_h else (y, s, ss)
+
+    @staticmethod
+    def backward(ctx, gy, gs, gss, gh_out=None):
+        u, a1, b1, w, v, a2, b2, y, h = ctx.saved_tensors
+        bwd = encoder_stage_bwd_plain if u.device.type == "cpu" else encoder_stage_bwd
+        with torch.autocast(u.device.type, enabled=False):
+            grads = bwd(u, a1, b1, w, y, h, gy, gs, gss, v, a2, b2, gh_out, ctx.relu_u,
+                        ctx.needs_input_grad[:7])
+        return (*grads, None, None)

@@ -153,13 +153,13 @@ def test_registry_and_unported_options():
                      {"fast_in_stats": True}, {"shared_backbone": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             RAFTStereo(RAFTStereoConfig.from_dict({**PALLAS, **override}))
-    # alt_pallas.json (alt_cuda, K2 encoder) builds in test mode; in train
-    # mode its pallas_encoder still waits for the K2 VJP
+    # alt_pallas.json (alt_cuda, K2 encoder) builds in test mode and, with
+    # K2's VJP, in train mode
     alt = load_model_config(str(ROOT / "configs/raft_stereo/alt_pallas.json"))
     model = create_model(alt, iters=1, device="cpu", seed=0)
     assert model.test_mode and model.cfg.corr_implementation == "alt_cuda"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md .*K2 VJP"):
-        RAFTStereo(RAFTStereoConfig.from_dict(alt), test_mode=False)
+    model = RAFTStereo(RAFTStereoConfig.from_dict(alt), test_mode=False)
+    assert not model.test_mode and model.cfg.pallas_encoder and model.fnet.fused_fullres
     # the shipped training config builds in train mode (remat_iters on)
     train = json.loads((ROOT / "configs/raft_stereo/train.json").read_text())
     model = create_model(train, iters=2, device="cpu", seed=0, test_mode=False)
@@ -168,8 +168,8 @@ def test_registry_and_unported_options():
     with pytest.raises(NotImplementedError, match="ROADMAP.md .*mix_fmap_image"):
         RAFTStereo(RAFTStereoConfig.from_dict({**train, "corr_implementation": "mix_fmap_image"}),
                    test_mode=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md .*K2 VJP"):
-        RAFTStereo(RAFTStereoConfig.from_dict(PALLAS), test_mode=False)
+    model = create_model(PALLAS, iters=2, device="cpu", seed=0, test_mode=False)
+    assert model.training and not model.test_mode and model.cfg.pallas_encoder
     from dkt_stereo_tpu_torch.train.state import DKTHyperParams
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md .*batched_teachers"):

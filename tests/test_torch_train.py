@@ -40,7 +40,7 @@ from dkt_stereo_tpu_torch.models.raft_stereo import RAFTStereo, RAFTStereoConfig
 from dkt_stereo_tpu_torch.models.registry import make_loss_adapter
 from dkt_stereo_tpu_torch.ops.cuda import _build
 from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import CorrLookup, corr_lookup_bwd_plain
-from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage
+from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import EncoderStage, encoder_stage
 from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
 from dkt_stereo_tpu_torch.train.state import (
     DKTHyperParams,
@@ -253,20 +253,23 @@ def test_corr_lookup_autograd_function_matches_pallas_vjp(k1_case):
 
 
 def test_refuse_grad_guards_kernels_without_backward():
-    """The guard that keeps a ctypes kernel from cutting the graph: it
-    raises, naming the ROADMAP entry, only in grad mode on an input that
-    requires grad. The CPU plain path of encoder_stage keeps its autograd."""
-    a, b = torch.ones(2, requires_grad=True), torch.ones(2)
-    with pytest.raises(RuntimeError, match=r"k has no backward yet \(ROADMAP.md Queue 9\)"):
-        _build.refuse_grad("k", "Queue 9", b, None, a)
-    _build.refuse_grad("k", "Queue 9", b, None)
-    with torch.no_grad():
-        _build.refuse_grad("k", "Queue 9", a)
+    """No kernel cuts the graph: every one now has a backward, so nothing
+    refuses grad inputs. encoder_stage, the last to get one, records
+    EncoderStage's backward under grad mode when an input requires grad
+    (on CPU tensors through its plain forward and encoder_stage_bwd_plain,
+    not PyTorch's autograd of the plain conv), and gradients reach every
+    input; under no_grad it records nothing."""
+    torch.manual_seed(0)
     u = torch.randn(1, 4, 6, 64, requires_grad=True)
-    ab = torch.ones(1, 64)
-    y, _, _ = encoder_stage(u, ab, ab, torch.randn(64, 64, 3, 3) * 0.05)
-    y.float().sum().backward()
-    assert u.grad is not None and float(u.grad.abs().sum()) > 0
+    a, b = torch.ones(1, 64, requires_grad=True), torch.zeros(1, 64, requires_grad=True)
+    w = (torch.randn(64, 64, 3, 3) * 0.05).requires_grad_(True)
+    y, s, ss = encoder_stage(u, a, b, w)
+    assert type(y.grad_fn)._forward_cls is EncoderStage
+    (y.float().sum() + s.sum() + ss.sum()).backward()
+    assert all(t.grad is not None and float(t.grad.abs().sum()) > 0 for t in (u, a, b, w))
+    with torch.no_grad():
+        assert encoder_stage(u, a, b, w)[0].grad_fn is None
+    assert not hasattr(_build, "refuse_grad")
 
 
 # --- the model in train mode and the DKT step ---------------------------------
