@@ -8,7 +8,8 @@ Phases, each printing its result on a line of its own; any failure or
 out-of-tolerance result raises and exits non-zero:
 
   1. device: the card's name and power limit; builds the kernels from
-     dkt_stereo_tpu_torch/csrc with nvcc (in parallel) and times the build;
+     dkt_stereo_tpu_torch/csrc with nvcc (in parallel), times the build and
+     prints each kernel's registers and spills as ptxas reported them;
   2. K1 (corr lookup) vs its plain version at the main path's shapes, bf16
      and fp32 pyramids, coordinates far out of range included;
   3. K2 (encoder stage) vs its plain version at (2, 736, 1280, 64) bf16 and
@@ -24,11 +25,13 @@ out-of-tolerance result raises and exits non-zero:
      shapes (8x80x180, W2 180/90/45/22), bf16 and fp32 pyramids, and the
      adjoint check <K1(v), g> = <v, K1^T(g)> against the forward kernel,
      and the time autograd spends summing the per-iteration d/dpyramid;
-     K2's VJP (EncoderStage's backward: the adjoint conv as one more K2
-     launch, without statistics, the rest PyTorch) vs its plain twin, all
-     seven cotangents, plain and residual+emit_h forms, at the training
-     shape (16, 320, 720, 64) bf16, a small fp32 case with TF32 off and a
-     ragged (3, 37, 45, 64) bf16; the adjoint check <K2(x), g> = <x,
+     K2's VJP (EncoderStage's backward: the adjoint conv as one launch of
+     its own wgmma + TMA kernel in bf16, of the fp32 stage kernel without
+     statistics in fp32, the rest PyTorch) vs its plain twin, all seven
+     cotangents, plain and residual+emit_h forms, at the training shape
+     (16, 320, 720, 64) bf16, a small fp32 case with TF32 off and a ragged
+     (3, 37, 45, 64) bf16; the adjoint kernel alone at (2, 13, 61, 64),
+     whose tiles straddle samples; the adjoint check <K2(x), g> = <x,
      K2^T(g)> in fp32; the times of the adjoint launch, the whole stage
      backward and the plain twin, with cuDNN's dgrad and wgrad as
      yardsticks;
@@ -106,8 +109,9 @@ out-of-tolerance result raises and exits non-zero:
      (chiprun_out/chip_smoke_pcv_profile.txt); then fast.json at the same
      size, 1 warm-up and 5 timed frames, 32 K5 a frame;
  23. K5's backward (csrc/row_sample_bwd.cu: dvol of every level and dpos in
-     one launch) vs its plain version at the PCV training grid (8x80x180,
-     widths 180/45/11), the inference grid (1x184x320) and a ragged 2x7x37,
+     one launch, a warp a pixel, taps binned by column) vs its plain
+     version at the PCV training grid (8x80x180, widths 180/45/11), the
+     inference grid (1x184x320) and a ragged 2x7x37,
      bf16 and fp32 levels, the hostile positions of phase 20 (NaN gives no
      contribution), two launches bit for bit, the adjoint check <K5(v), g>
      = <v, K5^T(g)> against the forward kernel, the backward of grid_sample
@@ -217,6 +221,39 @@ def zero_counts():
 
 def _diff(after, before):
     return {k: after[k] - before[k] for k in after}
+
+
+def _kernel_name(mangled):
+    """The kernel's identifier and raw template arguments in a mangled
+    name: the identifier ending in _kernel after its length prefix."""
+    import re
+
+    for d in re.finditer(r"\d+", mangled):
+        for j in range(d.start(), d.end()):
+            ident = mangled[d.end():d.end() + int(mangled[j:d.end()])]
+            if ident.endswith("_kernel"):
+                args = re.match(r"I(\w*?)E", mangled[d.end() + len(ident):])
+                return ident + (f"<{args.group(1)}>" if args else "")
+    return mangled
+
+
+def ptxas_line(libs):
+    """Registers and spilled bytes of every kernel, from the reports ptxas
+    gave when the libraries were built."""
+    import re
+
+    from dkt_stereo_tpu_torch.ops.cuda import _build
+
+    rows = []
+    for lib in libs:
+        for line in _build.ptxas_path(lib).read_text().splitlines():
+            if m := re.search(r"Compiling entry function '(\w+)'", line):
+                rows.append([_kernel_name(m.group(1)), "?", "?"])
+            elif rows and (m := re.search(r"(\d+) bytes spill stores", line)):
+                rows[-1][2] = m.group(1)
+            elif rows and (m := re.search(r"Used (\d+) registers", line)):
+                rows[-1][1] = m.group(1)
+    return " | ".join(f"{n} {r} registers, {s} B spilled" for n, r, s in rows)
 
 
 def gpu_line():
@@ -417,8 +454,9 @@ BUCKETS = (
     ("K1", r"corr_lookup_kernel"),
     ("K5 bwd", r"row_sample_bwd_kernel"),
     ("K5", r"row_sample_kernel"),
-    # the adjoint conv of K2's VJP is the instantiation without statistics
-    ("K2 adjoint", r"encoder_stage_\w+_kernel<(\w+, )?false>"),
+    # the adjoint conv of K2's VJP: its own kernel in bf16, the fp32 stage
+    # kernel's instantiation without statistics in fp32
+    ("K2 adjoint", r"encoder_stage_adjoint_kernel|encoder_stage_f32_kernel<false>"),
     ("K2", r"encoder_stage"),
     ("convolutions/GEMMs", r"xmma|cutlass|gemm|nvjet|conv|wgrad|dgrad|fprop"),
     ("cuDNN layout transforms", r"nchwToNhwc|nhwcToNchw|AddPadding"),
@@ -613,7 +651,7 @@ def _vjp_errors(torch, args, kw, cts, tol_rel, label):
 
 
 def phase_k2_vjp(torch):
-    """K2's VJP (EncoderStage's backward: the adjoint conv through the K2
+    """K2's VJP (EncoderStage's backward: the adjoint conv through its
     kernel, the rest PyTorch) vs its plain twin on the card, the adjoint
     check, and the times of the adjoint launch, the whole stage backward,
     the plain twin and cuDNN's dgrad and wgrad at the training shape."""
@@ -626,9 +664,10 @@ def phase_k2_vjp(torch):
     gen = torch.Generator(device="cuda").manual_seed(26)
     C = 64
     forms = (("plain", False), ("residual+emit_h", True))
-    # a small fp32 case with TF32 off, then a ragged bf16 one that the 8x16
-    # tiles do not divide; bf16: one bf16 step (2^-8) of g_h can flip where
-    # the kernel and cuDNN sum the 576 products in another order
+    # a small fp32 case with TF32 off, then a ragged bf16 one that the
+    # forward's 8x16 and the adjoint's 8x30 tiles do not divide; bf16: one
+    # bf16 step (2^-8) of g_h can flip where the kernel and cuDNN sum the
+    # 576 products in another order
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     small = {name: _vjp_errors(torch, *_stage_case(torch, gen, 2, 40, 72, torch.float32, res),
@@ -637,6 +676,15 @@ def phase_k2_vjp(torch):
     torch.backends.cuda.matmul.allow_tf32 = True
     ragged = {name: _vjp_errors(torch, *_stage_case(torch, gen, 3, 37, 45, torch.bfloat16, res),
                                 2**-7, f"ragged bf16 {name}") for name, res in forms}
+    # the bf16 adjoint kernel alone where its 8x30 tiles straddle: the
+    # bottom tiles' boxes reach past a sample's last row (where the next
+    # sample lies in memory), the last column tile holds one column
+    g = torch.randn((2, 13, 61, C), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((C, C, 3, 3), generator=gen, device="cuda") * (2.0 / (9 * C)) ** 0.5
+    want = encoder_stage_adjoint_plain(g, w).float()
+    straddle = float((encoder_stage_adjoint(g, w).float() - want).abs().max())
+    straddle /= float(want.abs().max())
+    check(straddle <= 2**-7, f"K2 adjoint (2,13,61,64) bf16: relative {straddle} > 2^-7")
     B, H, W = K2_VJP_IMAGE
     train = {}
     for name, res in forms:
@@ -647,6 +695,8 @@ def phase_k2_vjp(torch):
     def fmt(rel):
         return " ".join(f"{k} {e:.2e}" for k, e in rel.items())
 
+    print(f"K2 adjoint kernel (2,13,61,64) bf16, tiles straddling samples and a 1-column "
+          f"tile: relative max-abs vs plain {straddle:.2e} (tol 2^-7)")
     for label, res in (("fp32 (2,40,72,64), TF32 off, tol 1e-4", small),
                        ("bf16 ragged (3,37,45,64), tol 2^-7", ragged),
                        (f"bf16 training {(B, H, W, C)}, tol 2^-7", train)):
@@ -2324,6 +2374,7 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {[p.name for p in libs]}")
+    print(f"ptxas: {ptxas_line(libs)}")
 
     k1 = phase_k1(torch)
     k2 = phase_k2(torch)

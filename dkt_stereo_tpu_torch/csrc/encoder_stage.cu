@@ -15,11 +15,11 @@
 // rounded y. Optionally h itself is written out (the block's residual tap).
 //
 // The file also serves the VJP (encoder_conv.py::encoder_stage_ad, :476;
-// its backward _stage_ad_bwd, :394-470, calls encoder_stage again): the
-// adjoint SAME conv of the output cotangent g_y is this kernel with the
-// identity affine, no ReLU, no v and flipped, IO-transposed taps, as in JAX.
-// The adjoint passes null statistics pointers, and the kernel then skips the
-// statistics (the STATS template argument, false in that instantiation).
+// its backward _stage_ad_bwd, :394-470, calls encoder_stage again on the
+// flipped, IO-transposed taps with the identity affine): the adjoint SAME
+// conv of the output cotangent g_y. In bf16 that is a kernel of its own,
+// encoder_stage_adjoint_kernel below; in fp32 (parity runs) it is the fp32
+// kernel with the identity affine and null statistics pointers.
 //
 // What bounds it on the H100: at (2, 736, 1280, 64) bf16 one stage moves
 // 0.48 GB (u in, y out; 0.96 GB with v and h) and does 139 GFLOP of
@@ -53,7 +53,55 @@
 //    8 x 32 tile streams the input through shared memory in chunks of 8
 //    channels; each thread accumulates 8 pixels x 8 channels in registers,
 //    reusing every input value for the 3 horizontal taps.
+//
+// The bf16 adjoint conv (encoder_stage_adjoint_kernel) is exactly a
+// zero-SAME 3x3 64 -> 64 conv with no bias, ReLU or statistics: cuDNN's
+// dgrad. At the training shape (16, 320, 720, 64) it moves 943.8 MB (g in,
+// g_h out) and does 271.8 GFLOP: 0.2817 ms of memory traffic and 0.275 ms
+// of tensor-core time, so it must overlap loads with products and run the
+// products near the wgmma rate at once. Run through the forward kernel
+// above (ldmatrix + mma.sync; global load, barrier, products, barrier,
+// epilogue per tile; an identity prologue; 2 blocks of 4 warps an SM) it
+// took 0.94 ms against cuDNN's 0.59. Its design:
+//  - Products through wgmma.mma_async m64n256k16, both operands read from
+//    shared memory by descriptor, fp32 accumulators in registers: the 64
+//    output channels on M (A = the taps, one 64 x 64 block a tap, rows of
+//    64 input channels), 256 pixels on N (B = the input tile, pixel rows of
+//    64 channels). Per instruction that is 2 KB of A and 8 KB of B for
+//    524 kFLOP, 80 bytes a clock at the tensor cores' rate, within shared
+//    memory's 128. Pixels on M (m64n64k16, A through ldmatrix) would need
+//    the full 128 bytes a clock: rejected.
+//  - The tap shift is a byte offset of B's start: the tile's input box is
+//    10 rows of 32 pixels, so a row pitch of 32 pixels makes output pixel
+//    n = 32 r + c and tap (dy, dx) read box pixel n + 32 dy + dx. Each tile
+//    is 8 rows x 30 columns; its columns 30 and 31 are computed and dropped
+//    (6 % of the products). Swizzling is a function of the shared-memory
+//    address (TMA's write and wgmma's read alike), so a start 128 bytes
+//    into a 1024-byte atom needs no base offset.
+//  - Input through TMA: one cp.async.bulk.tensor.4d a tile over the map
+//    (C = 64, W, H, B) with a (64, 32, 10, 1) box and the 128-byte swizzle
+//    (64 bf16 channels are one 128-byte row), into a ring of 3 stages
+//    completed by mbarriers. The box starts at (x0 - 1, y0 - 1) and TMA
+//    fills what lies outside the sample with zeros: that is the SAME
+//    padding, with no border code, and a box never reads the next sample.
+//  - Persistent blocks, one an SM (225 KB of shared memory): a producer
+//    warp keeps the next tiles' loads in flight while one consumer
+//    warpgroup runs the 36 products of a tile. The 72 KB of taps are copied
+//    once a block, already in the swizzled order the descriptors read
+//    (laid out by the host).
+//  - Epilogue: the fp32 accumulators are rounded to bf16 and written
+//    pixel-major by stmatrix.trans into a 32 KB staging area, in the
+//    swizzle a TMA store reads; one thread stores each of the tile's 8 rows
+//    (a (64, 30, 1, 1) box; TMA clips the ragged right and bottom edges)
+//    and the stores drain while the next tile is multiplied.
+//  - No affine, no ReLU, no statistics and no v: the launch passes none.
+// On the H100 it takes 0.456 ms a launch at the training shape, cuDNN's
+// dgrad 0.594 (chip_smoke.py phase 7, PERF.md). Splitting each tile into
+// two halves of 128 columns with accumulators of their own, so that one
+// half's epilogue overlaps the other half's products, was slower there and
+// needed more registers: rejected.
 
+#include <cuda.h>  // CUtensorMap and its enums only: no driver library is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -256,7 +304,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <bool HAS_V, bool STATS>
+template <bool HAS_V>
 __global__ void __launch_bounds__(TC_NT, 2)
 encoder_stage_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ a1,
                           const float* __restrict__ b1, const bf16* __restrict__ v,
@@ -300,7 +348,7 @@ encoder_stage_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ 
     const size_t base = (size_t)b * H * W * C;
     if (b != cur_b) {  // tiles go in sample order: flush the last sample's statistics
       if (tid < C) {
-        if (STATS && cur_b >= 0) {
+        if (cur_b >= 0) {
           atomicAdd(&ssum[cur_b * C + tid], red_sum[tid]);
           atomicAdd(&sssq[cur_b * C + tid], red_ssq[tid]);
         }
@@ -421,7 +469,7 @@ encoder_stage_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ 
           const float y1 = acc[rr][nb][2 * half + 1];
           *reinterpret_cast<__nv_bfloat162*>(st + (rr * TC_TW + px) * PS + nb * 8 + 2 * cq) =
               __floats2bfloat162_rn(y0, y1);
-          if (STATS && ok) {
+          if (ok) {
             s[nb][0] += y0;
             s[nb][1] += y1;
             q[nb][0] += y0 * y0;
@@ -430,7 +478,7 @@ encoder_stage_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ 
         }
       }
     }
-    if constexpr (STATS) {
+    {
       // lanes with the same cq hold the same channels: fold the eight pixels g
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb)
@@ -466,18 +514,18 @@ encoder_stage_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ 
     }
     __syncthreads();  // the staging area is the next tile's input tile
   }
-  if (STATS && cur_b >= 0 && tid < C) {
+  if (cur_b >= 0 && tid < C) {
     atomicAdd(&ssum[cur_b * C + tid], red_sum[tid]);
     atomicAdd(&sssq[cur_b * C + tid], red_ssq[tid]);
   }
 }
 
-template <bool HAS_V, bool STATS>
+template <bool HAS_V>
 int launch_bf16(const bf16* u, const float* a1, const float* b1, const bf16* v, const float* a2,
                 const float* b2, const bf16* w, bf16* y, float* ssum, float* sssq, bf16* h, int B,
                 int H, int W, int relu_u, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      encoder_stage_bf16_kernel<HAS_V, STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      encoder_stage_bf16_kernel<HAS_V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       TC_SMEM);
   if (attr != cudaSuccess) return (int)attr;
   int dev = 0, sms = 0, per_sm = 0;
@@ -485,15 +533,317 @@ int launch_bf16(const bf16* u, const float* a1, const float* b1, const bf16* v, 
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, encoder_stage_bf16_kernel<HAS_V, STATS>, TC_NT, TC_SMEM);
+        &per_sm, encoder_stage_bf16_kernel<HAS_V>, TC_NT, TC_SMEM);
   if (e != cudaSuccess) return (int)e;
   const long long tiles =
       (long long)B * ((H + TC_TH - 1) / TC_TH) * ((W + TC_TW - 1) / TC_TW);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int grid = (int)(tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm);
   if (grid < 1) return (int)cudaErrorInvalidConfiguration;
-  encoder_stage_bf16_kernel<HAS_V, STATS><<<grid, TC_NT, TC_SMEM, s>>>(
+  encoder_stage_bf16_kernel<HAS_V><<<grid, TC_NT, TC_SMEM, s>>>(
       u, a1, b1, v, a2, b2, w, y, ssum, sssq, h, B, H, W, relu_u);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------- bf16 adjoint conv
+// A zero-SAME 3x3 64 -> 64 conv without prologue or statistics (the VJP's
+// adjoint; header note). Tile: 8 output rows x 30 columns of one sample. Its
+// input box, 10 rows x 32 columns x 64 channels from (x0 - 1, y0 - 1), lands
+// by TMA as 320 pixel rows of 128 bytes, so the wgmma column n = 32 r + c
+// (c = 0..31, the last two columns of each row wasted) of tap (dy, dx) reads
+// box pixel n + 32 dy + dx: each tap is one constant byte offset of B's
+// start, and N = 256 columns are the tile's 8 rows.
+constexpr int AD_TH = 8;                       // output rows per tile
+constexpr int AD_TW = 30;                      // output columns per tile
+constexpr int AD_BW = AD_TW + 2;               // box columns: the row pitch in pixels
+constexpr int AD_BH = AD_TH + 2;               // box rows
+constexpr int AD_N = AD_TH * AD_BW;            // 256: wgmma N
+constexpr int AD_PIX = C * 2;                  // 128 bytes a pixel: one 128-byte swizzle row
+constexpr int AD_STAGES = 3;                   // input ring
+constexpr int AD_STAGE_BYTES = AD_BH * AD_BW * AD_PIX;  // 40 KB
+constexpr int AD_W_BYTES = 9 * C * AD_PIX;     // 72 KB of taps
+constexpr int AD_OUT_BYTES = AD_N * AD_PIX;    // 32 KB of output staging
+constexpr int AD_CONSUMERS = 128;              // one warpgroup
+constexpr int AD_THREADS = AD_CONSUMERS + 32;  // and one producer warp
+// 1 KB of alignment slack, the taps, the ring, the staging, 2 x stages
+// mbarriers. wgmma reads up to 2 pixels past a stage: into the next stage
+// or the staging area, for the discarded columns only
+constexpr int AD_SMEM =
+    1024 + AD_W_BYTES + AD_STAGES * AD_STAGE_BYTES + AD_OUT_BYTES + 16 * AD_STAGES;
+constexpr int kEncodeError = 100000;
+static_assert(AD_N == 256, "one m64n256k16 per tap and 16 input channels");
+static_assert(AD_SMEM <= 232448, "one block per SM");
+
+// shared-memory matrix descriptor: 128-byte swizzle, 8-row groups 1024 bytes
+// apart (K-major rows of 128 bytes; the leading offset is unused)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// d (64 x 256, fp32) += a (64 x 16) * b (16 x 256); both operands bf16 in
+// shared memory, read by descriptor, K-major; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void acc_fence(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync_consumers() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(AD_CONSUMERS) : "memory");
+}
+
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void stsm_x4_trans(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                              uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__global__ void __launch_bounds__(AD_THREADS, 1)
+encoder_stage_adjoint_kernel(const __grid_constant__ CUtensorMap gmap,
+                             const __grid_constant__ CUtensorMap ymap,
+                             const bf16* __restrict__ taps, int B, int H, int W) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle atom is 1024 bytes
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t w_s = base;
+  const uint32_t in_s = w_s + AD_W_BYTES;
+  const uint32_t out_s = in_s + AD_STAGES * AD_STAGE_BYTES;
+  const uint32_t full = out_s + AD_OUT_BYTES;  // full[s] at full + 8 s
+  const uint32_t empty = full + 8 * AD_STAGES;
+  const int tid = threadIdx.x;
+  const int tiles_x = (W + AD_TW - 1) / AD_TW;
+  const int per_sample = tiles_x * ((H + AD_TH - 1) / AD_TH);
+  const int tiles = B * per_sample;  // < 2^31: checked by the launcher
+
+  // the taps, already in their swizzled order, stay for every tile
+  for (int i = tid; i < AD_W_BYTES / 16; i += AD_THREADS)
+    reinterpret_cast<uint4*>(sm)[i] = reinterpret_cast<const uint4*>(taps)[i];
+  if (tid == 0) {
+    for (int s = 0; s < AD_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, AD_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_async_shared();  // the taps' generic stores, before wgmma reads them
+  __syncthreads();
+
+  if (tid >= AD_CONSUMERS) {  // producer: one lane keeps the ring's loads in flight
+    if (tid == AD_CONSUMERS) {
+      const uint64_t map = reinterpret_cast<uint64_t>(&gmap);
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+        const int s = it % AD_STAGES;
+        mbar_wait(empty + 8 * s, ((it / AD_STAGES) & 1) ^ 1);
+        const int b = t / per_sample;
+        const int r = t - b * per_sample;
+        const int y0 = (r / tiles_x) * AD_TH;
+        const int x0 = (r % tiles_x) * AD_TW;
+        mbar_expect_tx(full + 8 * s, AD_STAGE_BYTES);
+        // the box starts at (x0 - 1, y0 - 1); TMA fills what lies outside
+        // the sample with zeros: the SAME padding
+        asm volatile(
+            "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+            "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(in_s + s * AD_STAGE_BYTES),
+            "l"(map), "r"(full + 8 * s), "r"(0), "r"(x0 - 1), "r"(y0 - 1), "r"(b)
+            : "memory");
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: 36 wgmma a tile, then the epilogue
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const uint64_t ymap_addr = reinterpret_cast<uint64_t>(&ymap);
+  const uint64_t desc_w = wgmma_desc(w_s);
+  float d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+  // stmatrix: lane l gives row l % 8 of matrix l / 8 = (channel half
+  // m & 1, pixel block m >> 1); rows are pixels, 8 channels of 16 bytes each
+  const int sm_m = lane >> 3;
+  const int sm_row = lane & 7;
+  const uint32_t sm_chunk = (uint32_t)(((2 * warp + (sm_m & 1)) ^ sm_row) << 4);
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+    const int s = it % AD_STAGES;
+    const int b = t / per_sample;
+    const int r = t - b * per_sample;
+    const int y0 = (r / tiles_x) * AD_TH;
+    const int x0 = (r % tiles_x) * AD_TW;
+    mbar_wait(full + 8 * s, (it / AD_STAGES) & 1);
+    const uint64_t desc_in = wgmma_desc(in_s + s * AD_STAGE_BYTES);
+    acc_fence(d);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int kc = 0; kc < C / 16; ++kc)
+        wgmma_256(d, desc_w + ((tap * C * AD_PIX + kc * 32) >> 4),
+                  desc_in + ((((tap / 3) * AD_BW + tap % 3) * AD_PIX + kc * 32) >> 4), tap | kc);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    acc_fence(d);
+    mbar_arrive(empty + 8 * s);  // this thread is done with the stage
+
+    // epilogue: d[4j + 2i + e] is (channel 16 warp + 8 i + lane / 4, pixel
+    // 8 j + 2 (lane % 4) + e); stmatrix.trans writes it pixel-major, bf16,
+    // in the 128-byte swizzle the TMA store reads
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    named_sync_consumers();  // the last tile's stores have read the staging
+#pragma unroll
+    for (int j = 0; j < AD_N / 8; j += 2) {
+      const uint32_t px = (uint32_t)(8 * (j + (sm_m >> 1)) + sm_row);
+      stsm_x4_trans(out_s + px * AD_PIX + sm_chunk, pack_bf16(d[4 * j], d[4 * j + 1]),
+                    pack_bf16(d[4 * j + 2], d[4 * j + 3]), pack_bf16(d[4 * j + 4], d[4 * j + 5]),
+                    pack_bf16(d[4 * j + 6], d[4 * j + 7]));
+    }
+    fence_async_shared();
+    named_sync_consumers();
+    if (tid == 0) {
+      // one store a row of 30 pixels; TMA clips the ragged right and bottom
+#pragma unroll 1
+      for (int row = 0; row < AD_TH && y0 + row < H; ++row)
+        asm volatile(
+            "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group [%0, {%2, %3, %4, %5}], "
+            "[%1];\n" ::"l"(ymap_addr),
+            "r"(out_s + row * AD_BW * AD_PIX), "r"(0), "r"(x0), "r"(y0 + row), "r"(b)
+            : "memory");
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled, a driver-API function, through the runtime's
+// driver entry point (the libraries link no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 (B, H, W, 64) tensor as a 4-d map (C, W, H, B), 128-byte swizzle
+int encode_nhwc(CUtensorMap* map, const bf16* p, int B, int H, int W, int box_w, int box_h) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)AD_PIX, (cuuint64_t)AD_PIX * W,
+                                 (cuuint64_t)AD_PIX * W * H};
+  const cuuint32_t box[4] = {(cuuint32_t)C, (cuuint32_t)box_w, (cuuint32_t)box_h, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(p), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
+}
+
+int launch_adjoint(const bf16* g, const bf16* taps, bf16* y, int B, int H, int W,
+                   cudaStream_t s) {
+  if (B < 1 || H < 1 || W < 1 || ((reinterpret_cast<uintptr_t>(g) |
+                                   reinterpret_cast<uintptr_t>(y) |
+                                   reinterpret_cast<uintptr_t>(taps)) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles =
+      (long long)B * ((H + AD_TH - 1) / AD_TH) * ((W + AD_TW - 1) / AD_TW);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap gmap, ymap;
+  int e = encode_nhwc(&gmap, g, B, H, W, AD_BW, AD_BH);
+  if (e == 0) e = encode_nhwc(&ymap, y, B, H, W, AD_TW, 1);
+  if (e != 0) return e;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      encoder_stage_adjoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, AD_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  int dev = 0, sms = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce == cudaSuccess) ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (ce != cudaSuccess) return (int)ce;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  encoder_stage_adjoint_kernel<<<grid, AD_THREADS, AD_SMEM, s>>>(gmap, ymap, taps, B, H, W);
   return (int)cudaGetLastError();
 }
 
@@ -501,9 +851,10 @@ int launch_bf16(const bf16* u, const float* a1, const float* b1, const bf16* v, 
 
 // u, v, y, h: (B, H, W, 64) contiguous, fp32 or bf16 (is_bf16); v and h may
 // be null. a*, b*: (B, 64) fp32. w: (3, 3, 64, 64) HWIO in the activation
-// dtype. ssum, sssq: (B, 64) fp32, zeroed by the caller, or both null to
-// skip the statistics (the VJP's adjoint conv). Launches on `stream` and
-// returns cudaGetLastError() (0 = ok).
+// dtype. ssum, sssq: (B, 64) fp32, zeroed by the caller; null for both
+// skips the statistics, which only the fp32 kernel does (the fp32 VJP's
+// adjoint conv; the bf16 one is encoder_stage_adjoint_launch). Launches on
+// `stream` and returns cudaGetLastError() (0 = ok).
 extern "C" int encoder_stage_launch(const void* u, const float* a1, const float* b1,
                                     const void* v, const float* a2, const float* b2,
                                     const void* w, void* y, float* ssum, float* sssq, void* h,
@@ -511,7 +862,7 @@ extern "C" int encoder_stage_launch(const void* u, const float* a1, const float*
                                     void* stream) {
   const bool stats = ssum != nullptr;
   if (channels != C || B < 1 || B > 65535 || H < 1 || W < 1 || stats != (sssq != nullptr) ||
-      (!stats && v != nullptr))
+      (!stats && (v != nullptr || is_bf16)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
@@ -520,12 +871,9 @@ extern "C" int encoder_stage_launch(const void* u, const float* a1, const float*
     const bf16* wb = static_cast<const bf16*>(w);
     bf16* yb = static_cast<bf16*>(y);
     bf16* hb = static_cast<bf16*>(h);
-    if (v != nullptr)
-      return launch_bf16<true, true>(ub, a1, b1, vb, a2, b2, wb, yb, ssum, sssq, hb, B, H, W,
-                                     relu_u, s);
-    return stats ? launch_bf16<false, true>(ub, a1, b1, vb, a2, b2, wb, yb, ssum, sssq, hb, B, H,
+    return v != nullptr ? launch_bf16<true>(ub, a1, b1, vb, a2, b2, wb, yb, ssum, sssq, hb, B, H,
                                             W, relu_u, s)
-                 : launch_bf16<false, false>(ub, a1, b1, vb, a2, b2, wb, yb, ssum, sssq, hb, B,
+                        : launch_bf16<false>(ub, a1, b1, vb, a2, b2, wb, yb, ssum, sssq, hb, B,
                                              H, W, relu_u, s);
   }
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
@@ -541,4 +889,17 @@ extern "C" int encoder_stage_launch(const void* u, const float* a1, const float*
                                                         static_cast<float*>(y), ssum, sssq,
                                                         static_cast<float*>(h), H, W, relu_u);
   return (int)cudaGetLastError();
+}
+
+// The bf16 adjoint conv: y = conv3x3(g, taps), zero SAME padding, no bias.
+// g, y: (B, H, W, 64) bf16, contiguous, 16-byte aligned. taps: the 9 x 64 x
+// 64 adjoint taps as ops/cuda/encoder_conv.py::_pack_adjoint_taps lays them
+// out (per tap, output-channel rows of 64 input channels, 16-byte chunks
+// swizzled as the shared memory they are copied to). Launches on `stream`;
+// returns 0, a CUDA error code, or kEncodeError + the CUresult of a failed
+// tensor-map encode.
+extern "C" int encoder_stage_adjoint_launch(const void* g, const void* taps, void* y, int B,
+                                            int H, int W, void* stream) {
+  return launch_adjoint(static_cast<const bf16*>(g), static_cast<const bf16*>(taps),
+                        static_cast<bf16*>(y), B, H, W, static_cast<cudaStream_t>(stream));
 }

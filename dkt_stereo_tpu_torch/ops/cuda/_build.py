@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C launch function and is compiled
 by nvcc, at first use, into ``build/kernels/lib<name>-<hash>.so`` at the
-root of the checkout, then loaded with ``ctypes``. The hash covers the
-source and the flags, so an edited source is rebuilt. Sources build in
+root of the checkout, then loaded with ``ctypes``; ptxas's report of its
+kernels (registers, spills) is kept beside it. The hash covers the source
+and the flags, so an edited source is rebuilt. Sources build in
 parallel, one nvcc process each. Nothing here runs at import time: the
 CPU tests import every module on machines without nvcc.
 """
@@ -26,6 +27,7 @@ KERNELS = ("corr_alt", "corr_lookup", "corr_lookup_bwd", "encoder_stage", "geo_l
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # each kernel's registers, spills and static shared memory
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -70,9 +72,15 @@ def build(names=KERNELS) -> list[Path]:
                 failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{err}")
             else:
                 os.replace(tmp, path)
+                ptxas_path(path).write_text(err)
         if failures:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return [p for _, p in targets]
+
+
+def ptxas_path(library: Path) -> Path:
+    """Where ptxas's report of a built library is kept."""
+    return library.with_suffix(".ptxas.txt")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -11,9 +11,11 @@ returns statistics per logical channel.
 only for CPU tensors; for CUDA tensors it launches the kernel or raises.
 Under grad mode, with an input that requires grad, it runs through
 :class:`EncoderStage`, whose backward (:func:`encoder_stage_bwd`) runs the
-adjoint conv as one more launch of the same kernel on flipped,
-IO-transposed taps, as the JAX VJP does (``_stage_ad_bwd``). Otherwise it
-launches exactly as at inference, and writes no ``h`` residual.
+adjoint conv on flipped, IO-transposed taps, as the JAX VJP does
+(``_stage_ad_bwd``): in bf16 one launch of the adjoint kernel (wgmma fed by
+TMA, taps packed by :func:`_pack_adjoint_taps`), in fp32 one more launch of
+the stage kernel with the identity affine. Otherwise it launches exactly as
+at inference, and writes no ``h`` residual.
 """
 
 from __future__ import annotations
@@ -78,12 +80,17 @@ def encoder_stage_plain(u, a1, b1, w, v=None, a2=None, b2=None, emit_h=False, re
     return out + (h,) if emit_h else out
 
 
-def _lib():
-    lib = _build.load("encoder_stage")
-    fn = lib.encoder_stage_launch
+def _lib(name="encoder_stage_launch"):
+    """``encoder_stage_launch``: u, a1, b1, v, a2, b2, w, y, sum, sumsq, h,
+    B, H, W, channels, relu_u, bf16 flag, stream. ``encoder_stage_adjoint_launch``:
+    g, packed taps, y, B, H, W, stream."""
+    fn = getattr(_build.load("encoder_stage"), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        if name == "encoder_stage_launch":
+            fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        else:
+            fn.argtypes = [p, p, p, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -99,7 +106,8 @@ def _check(name, t, shape, dtype, device):
 def _launch(counter, u, a1, b1, w, v, a2, b2, emit_h, relu_u, stats=True):
     """Check the arguments, launch the kernel once on the current stream and
     add one to ``counter.launches``. Returns ``(y, sum, sumsq[, h])``; with
-    ``stats`` False the kernel skips the statistics and both are None."""
+    ``stats`` False (fp32 only) the kernel skips the statistics and both are
+    None."""
     if u.device.type != "cuda":
         raise ValueError(f"encoder_stage: unsupported device {u.device}")
     if u.dtype not in (torch.float32, torch.bfloat16):
@@ -172,6 +180,54 @@ def _flip_transpose(w):
     return w.detach().flip(2, 3).transpose(0, 1)
 
 
+_TAP_INDEX: dict = {}
+
+
+def _adjoint_tap_index(device):
+    """For each element of the packed adjoint taps, its flat index in the
+    OIHW weight (cached per device): packed[t, co, p, e] is
+    flip_transpose(w)[co, ci, ky, kx] = w[ci, co, 2 - ky, 2 - kx] with
+    t = 3 ky + kx and ci = 8 (p ^ (co % 8)) + e."""
+    idx = _TAP_INDEX.get(device)
+    if idx is None:
+        C = CHANNELS
+        t, co, p, e = torch.meshgrid(torch.arange(9), torch.arange(C), torch.arange(C // 8),
+                                     torch.arange(8), indexing="ij")
+        ci = (p ^ (co % 8)) * 8 + e
+        idx = (((ci * C + co) * 3 + 2 - t // 3) * 3 + 2 - t % 3).reshape(-1).to(device)
+        _TAP_INDEX[device] = idx
+    return idx
+
+
+def _pack_adjoint_taps(w):
+    """The adjoint taps of OIHW ``w`` as the bf16 adjoint kernel copies them
+    into shared memory: (9, 64, 8, 8) bf16, tap-major (ky * 3 + kx), one row
+    of 64 input channels per output channel (the K-major A operand of
+    wgmma, 128 bytes a row), with the 16-byte chunk c of row ``co`` stored
+    at chunk ``c ^ (co % 8)``: the 128-byte swizzle the kernel's descriptors
+    read. One gather and one cast."""
+    C = CHANNELS
+    flat = w.detach().reshape(-1).index_select(0, _adjoint_tap_index(w.device))
+    return flat.to(torch.bfloat16).view(9, C, C // 8, 8)
+
+
+def tma_operand_check(name, shape, stride, data_ptr):
+    """Raise unless a tensor of this shape, element stride and address can
+    be a bf16 (B, H, W, 64) operand of the adjoint kernel's TMA maps: dense
+    NHWC and a 16-byte-aligned base (byte strides are then multiples of
+    128). The launcher refuses more tiles than an int counts."""
+    if len(shape) != 4 or shape[-1] != CHANNELS or min(shape) < 1:
+        raise ValueError(f"encoder_stage_adjoint: {name} must be (B, H, W, {CHANNELS}), got "
+                         f"{tuple(shape)}")
+    B, H, W, C = shape
+    if tuple(stride) != (H * W * C, W * C, C, 1):
+        raise ValueError(f"encoder_stage_adjoint: {name} must be contiguous, got strides "
+                         f"{tuple(stride)} for shape {tuple(shape)}")
+    if data_ptr % 16:
+        raise ValueError(f"encoder_stage_adjoint: {name} must be 16-byte aligned for TMA, got "
+                         f"address {data_ptr:#x}")
+
+
 def encoder_stage_adjoint_plain(g, w):
     """Plain version of :func:`encoder_stage_adjoint`: the plain stage with
     the identity affine, no ReLU and the adjoint taps."""
@@ -181,14 +237,32 @@ def encoder_stage_adjoint_plain(g, w):
 
 def encoder_stage_adjoint(g, w):
     """The adjoint of a stage's zero-SAME 3x3 conv with OIHW weights ``w``,
-    applied to g (B, H, W, 64) in the activation dtype: one launch of the K2
-    kernel with the identity affine, no ReLU, no v, the flipped,
-    IO-transposed taps and no statistics, as JAX's VJP calls
-    ``encoder_stage`` (``encoder_conv.py:411-422``). The result is rounded to
-    g's dtype. Counts in ``encoder_stage_bwd.launches``."""
-    ones, zeros = _identity(g)
-    return _launch(encoder_stage_bwd, g, ones, zeros, _flip_transpose(w), None, None, None,
-                   False, False, stats=False)[0]
+    applied to g (B, H, W, 64) on the card in the activation dtype: the
+    flipped, IO-transposed taps, no affine, ReLU, v or statistics, as JAX's
+    VJP calls ``encoder_stage`` (``encoder_conv.py:411-422``). bf16 is one
+    launch of the adjoint kernel; fp32 one launch of the stage kernel with
+    the identity affine. The result is rounded to g's dtype. Counts in
+    ``encoder_stage_bwd.launches``."""
+    if g.device.type != "cuda":
+        raise ValueError(f"encoder_stage_adjoint: unsupported device {g.device}")
+    if g.dtype != torch.bfloat16:
+        ones, zeros = _identity(g)
+        return _launch(encoder_stage_bwd, g, ones, zeros, _flip_transpose(w), None, None, None,
+                       False, False, stats=False)[0]
+    if tuple(w.shape) != (CHANNELS, CHANNELS, 3, 3) or w.device != g.device:
+        raise ValueError(f"encoder_stage_adjoint: w must be ({CHANNELS}, {CHANNELS}, 3, 3) on "
+                         f"{g.device}, got {tuple(w.shape)} on {w.device}")
+    tma_operand_check("g", g.shape, g.stride(), g.data_ptr())
+    y = torch.empty_like(g)
+    taps = _pack_adjoint_taps(w)
+    B, H, W, _ = g.shape
+    fn = _lib("encoder_stage_adjoint_launch")
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = fn(g.data_ptr(), taps.data_ptr(), y.data_ptr(), B, H, W, stream)
+    _build.check_launch(err, "encoder_stage_adjoint")
+    encoder_stage_bwd.launches += 1
+    return y
 
 
 def _stage_bwd(adjoint, u, a1, b1, w, y, h, gy, gs, gss, v=None, a2=None, b2=None,
@@ -246,9 +320,9 @@ def encoder_stage_bwd(u, a1, b1, w, y, h, gy, gs, gss, v=None, a2=None, b2=None,
     from the forward's inputs, its outputs ``y`` and ``h`` (always kept by
     :class:`EncoderStage`), and the cotangents of y, sum, sumsq and, with
     the emitted h, of h. Returns the gradients of (u, a1, b1, w, v, a2, b2),
-    None where ``needs`` says so. The adjoint conv is one launch of the K2
-    kernel (:func:`encoder_stage_adjoint`); the rest is PyTorch, as it is
-    XLA in JAX."""
+    None where ``needs`` says so. The adjoint conv is one kernel launch
+    (:func:`encoder_stage_adjoint`); the rest is PyTorch, as it is XLA in
+    JAX."""
     return _stage_bwd(encoder_stage_adjoint, u, a1, b1, w, y, h, gy, gs, gss, v, a2, b2,
                       gh_out, relu_u, needs)
 

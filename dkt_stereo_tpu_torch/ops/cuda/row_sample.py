@@ -26,8 +26,9 @@ from dkt_stereo_tpu_torch.ops.cuda import _build
 from dkt_stereo_tpu_torch.ops.sampler import sample_row_1d
 
 MAX_LEVELS = 4
-# the backward stages a pixel's levels * K taps in 48 KB of shared memory,
-# 16 bytes each
+# the backward stages a pixel's levels * K taps in shared memory, 16 bytes
+# each and 8 more a sample for the counting sort; beyond this a block of
+# one pixel would not fit
 MAX_TAPS = 3072
 
 __all__ = ["GaussianRowSample", "gaussian_row_sample", "gaussian_row_sample_bwd",

@@ -172,11 +172,14 @@ def _fake_nvcc(tmp_path, monkeypatch, script):
 
 def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
     """A library is built once per source text: an edited source gets a new
-    library, an unchanged one is not rebuilt."""
+    library, an unchanged one is not rebuilt. ptxas's report (nvcc's stderr)
+    is kept beside it."""
     src = _fake_nvcc(tmp_path, monkeypatch,
-                     'while [ "$1" != "-o" ]; do shift; done; echo built >> "$2"\n')
+                     'while [ "$1" != "-o" ]; do shift; done; echo built >> "$2"\n'
+                     'echo "ptxas info    : Used 7 registers" >&2\n')
     (first,) = _build.build(["k"])
     assert first.read_text() == "built\n"
+    assert _build.ptxas_path(first).read_text() == "ptxas info    : Used 7 registers\n"
     assert _build.build(["k"]) == [first] and first.read_text() == "built\n"
     src.write_text("// v2\n")
     (second,) = _build.build(["k"])
