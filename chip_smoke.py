@@ -9,12 +9,18 @@ out-of-tolerance result raises and exits non-zero:
 
   1. device: the card's name and power limit; builds the kernels from
      dkt_stereo_tpu_torch/csrc with nvcc (in parallel), times the build and
-     prints each kernel's registers and spills as ptxas reported them;
+     prints each kernel's registers, spills and static shared memory as
+     ptxas reported them, and the dynamic shared memory of K2's forward and
+     K3 blocks;
   2. K1 (corr lookup) vs its plain version at the main path's shapes, bf16
      and fp32 pyramids, coordinates far out of range included;
-  3. K2 (encoder stage) vs its plain version at (2, 736, 1280, 64) bf16 and
-     at a ragged (3, 37, 45, 64), both stage variants, with cuDNN's conv of
-     the same shape as yardstick;
+  3. K2 (encoder stage) vs its plain version, every variant (plain, v,
+     emit_h, relu_u off, and all three together) with positive biases, so
+     that a halo the prologue did not zero fails at every border pixel, at
+     a ragged (3, 37, 45, 64) and at (2, 13, 61, 64), whose tiles straddle
+     samples; at (2, 736, 1280, 64) bf16 every variant, the plain stage and
+     the one with v and emit_h timed with their bounds, with cuDNN's conv
+     of the same shape as yardstick;
   4. full-model parity, kernels vs plain path (the plain path is the CPU's),
      fp32 with TF32 off, 1x256x512, 2 iterations;
   5. the main path: configs/raft_stereo/pallas.json, bf16, 1x736x1280,
@@ -74,10 +80,13 @@ out-of-tolerance result raises and exits non-zero:
      untraced idle share;
  16. K3 (the correlation lookup without a volume) vs its plain version at
      the full-resolution path's 1x496x720 (D 256, widths 720/360/180/90)
-     and at a ragged 2x7x37 (widths 37/18/9/4), bf16 and fp32 features,
-     coordinates far out of range, negative and NaN included (NaN gives
-     zeros), with the materialized route (fused pyramid + K1) at the same
-     shapes as yardstick;
+     and at a ragged 2x7x37 (widths 37/18/9/4), bf16 and fp32 features:
+     random coordinates, far out of range, negative and NaN included (NaN
+     gives zeros; bands of many pieces), a frame's coordinates, and nearly
+     constant ones (every band one piece); at 2x5x150 depths 3 and 20 (no
+     TMA) and 5 levels with radius 12; timed at random and at frame
+     coordinates, each beside its bound, with the materialized route
+     (fused pyramid + K1) at the same shapes as yardstick;
  17. K3's VJP (the recompute backward of CorrLookupAlt) vs autograd of the
      plain version on the card, at 2x40x90, fp32 and bf16;
  18. parity of RAFT with alt_cuda (K3, card) and with alt (plain, card) vs
@@ -85,11 +94,12 @@ out-of-tolerance result raises and exits non-zero:
  19. the full-resolution path: configs/raft_stereo/alt_pallas.json as
      shipped (bf16, alt_cuda, pallas_encoder), B=1, 1984x2880, 32
      iterations, through make_forward_fn/_run_one: K2 vs its plain version
-     once at this shape, 1 warm-up and 5 timed frames with exact launch
+     at this shape, the plain stage and the one with v and emit_h, each
+     timed beside its bound, 1 warm-up and 5 timed frames with exact launch
      counts (32 K3 and 4 K2 a frame), peak memory, the corr section's
      persistent bytes against the volume pyramid, a profile of one frame
-     (chiprun_out/chip_smoke_alt_profile.txt), and one pallas.json
-     (reg_cuda) frame at the same size;
+     (chiprun_out/chip_smoke_alt_profile.txt) with K3's and K2's time a
+     launch, and one pallas.json (reg_cuda) frame at the same size;
  20. K5 (PCVNet's Gaussian row sampling, every level in one launch) vs its
      plain version at base.json's 1/4 grid of 736x1280 (1x184x320, widths
      320/80/20), at fast.json's 1/8 grid (1x92x160, widths 160/80/40) and
@@ -248,12 +258,31 @@ def ptxas_line(libs):
     for lib in libs:
         for line in _build.ptxas_path(lib).read_text().splitlines():
             if m := re.search(r"Compiling entry function '(\w+)'", line):
-                rows.append([_kernel_name(m.group(1)), "?", "?"])
+                rows.append([_kernel_name(m.group(1)), "?", "?", "0"])
             elif rows and (m := re.search(r"(\d+) bytes spill stores", line)):
                 rows[-1][2] = m.group(1)
             elif rows and (m := re.search(r"Used (\d+) registers", line)):
                 rows[-1][1] = m.group(1)
-    return " | ".join(f"{n} {r} registers, {s} B spilled" for n, r, s in rows)
+                if m := re.search(r"(\d+) bytes smem", line):
+                    rows[-1][3] = m.group(1)
+    return " | ".join(f"{n} {r} registers, {s} B spilled, {sm} B static shared memory"
+                      for n, r, s, sm in rows)
+
+
+def smem_line():
+    """The dynamic shared memory of the redesigned kernels' blocks, as
+    their launchers compute it."""
+    from dkt_stereo_tpu_torch.ops.cuda import _build
+    from dkt_stereo_tpu_torch.ops.cuda.corr_alt import smem_bytes
+
+    fwd = _build.load("encoder_stage").encoder_stage_fwd_smem_bytes
+    k3 = _build.load("corr_alt").corr_alt_smem_bytes
+    k3_bytes = k3(ALT_D, 1, 4)
+    check(k3_bytes == smem_bytes(ALT_D, True, 4), "K3's shared-memory plan differs from the "
+          "wrapper's mirror")
+    return (f"encoder_stage_fwd_kernel {fwd(0)} B (3 u stages), with v {fwd(1)} B (2 u + 1 v "
+            f"stages) | corr_alt_kernel at D {ALT_D} bf16 r 4 {k3_bytes} B, fp32 "
+            f"{k3(ALT_D, 0, 4)} B")
 
 
 def gpu_line():
@@ -307,76 +336,105 @@ def phase_k1(torch):
                 library_ms=None, max_abs_err=max_err)
 
 
+def k2_bound(B, H, W, v_and_h):
+    """(bound ms, bound_by) of one bf16 stage: u read and y written once
+    (and v read, h written), the taps, the affines and the statistics; the
+    conv's multiply-adds at the bf16 tensor-core rate."""
+    C = 64
+    act = B * H * W * C * 2
+    nbytes = 2 * act + C * C * 9 * 2 + 4 * B * C * 4
+    if v_and_h:
+        nbytes += 2 * act + 2 * B * C * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * B * H * W * C * C * 9 / PEAK_FLOPS["bfloat16"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k2_inputs(torch, g, B, H, W):
+    """u, a1, b1 and the v stream's kwargs in bf16. Both biases are
+    positive: the prologue maps u = 0 outside the image to relu(b1) > 0,
+    so a kernel that did not zero h there fails at every border pixel."""
+    C = 64
+    u, v = (torch.randn((B, H, W, C), generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    a1, a2 = (0.5 + torch.rand((B, C), generator=g, device="cuda") for _ in range(2))
+    b1, b2 = (0.05 + 0.2 * torch.rand((B, C), generator=g, device="cuda") for _ in range(2))
+    return u, a1, b1, dict(v=v, a2=a2, b2=b2)
+
+
+def k2_errors(torch, name, args, kw):
+    """Relative max-abs error of each output against the plain version
+    (over the largest |value|), and the absolute max-abs error of y/h; the
+    plain conv in full fp32."""
+    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage, encoder_stage_plain
+
+    got = encoder_stage(*args, **kw)
+    torch.backends.cudnn.allow_tf32 = False
+    want = encoder_stage_plain(*args, **kw)
+    torch.backends.cudnn.allow_tf32 = True
+    # y and h are bf16 roundings of fp32 values summed in another order:
+    # a rounding boundary can flip one bf16 ulp (2^-8 relative); the
+    # statistics are fp32 sums over up to 5.7M pixels
+    rel, abs_err = {}, 0.0
+    for k, gt, wt in zip(("y", "sum", "sumsq", "h"), got, want):
+        diff = float((gt.float() - wt.float()).abs().max())
+        rel[k] = diff / float(wt.float().abs().max())
+        if k in ("y", "h"):
+            abs_err = max(abs_err, diff)
+    tol = {"y": 2**-7, "h": 2**-7, "sum": 1e-4, "sumsq": 1e-4}
+    for k, e in rel.items():
+        check(e <= tol[k], f"K2 {name} {k} relative error {e} > {tol[k]}")
+    return rel, abs_err
+
+
+def _fmt_rel(rel):
+    return " ".join(f"{k} {e:.2e}" for k, e in rel.items())
+
+
 def phase_k2(torch):
     import torch.nn.functional as F
 
     from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage, encoder_stage_plain
 
     C = 64
-    dt = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(2)
-
-    def inputs(B, H, W):
-        u, v = (torch.randn((B, H, W, C), generator=g, device="cuda").to(dt) for _ in range(2))
-        a1, a2 = (0.5 + torch.rand((B, C), generator=g, device="cuda") for _ in range(2))
-        b1, b2 = (0.1 * torch.randn((B, C), generator=g, device="cuda") for _ in range(2))
-        return u, a1, b1, dict(v=v, a2=a2, b2=b2, emit_h=True)
-
-    def errors(name, args, kw):
-        """Relative max-abs error of each output against the plain version
-        (over the largest |value|), and the absolute max-abs error of y/h."""
-        got = encoder_stage(*args, **kw)
-        want = encoder_stage_plain(*args, **kw)
-        # y and h are bf16 roundings of fp32 values summed in another order:
-        # a rounding boundary can flip one bf16 ulp (2^-8 relative); the
-        # statistics are fp32 sums over up to 1.9M pixels
-        rel, abs_err = {}, 0.0
-        for k, gt, wt in zip(("y", "sum", "sumsq", "h"), got, want):
-            diff = float((gt.float() - wt.float()).abs().max())
-            rel[k] = diff / float(wt.float().abs().max())
-            if k in ("y", "h"):
-                abs_err = max(abs_err, diff)
-        tol = {"y": 2**-7, "h": 2**-7, "sum": 1e-4, "sumsq": 1e-4}
-        for k, e in rel.items():
-            check(e <= tol[k], f"K2 {name} {k} relative error {e} > {tol[k]}")
-        return rel, abs_err
-
-    def fmt(rel):
-        return " ".join(f"{k} {e:.2e}" for k, e in rel.items())
-
     w = torch.randn((C, C, 3, 3), generator=g, device="cuda") * (2.0 / (9 * C)) ** 0.5
-    # ragged edges: tiles that overhang the image on the right and bottom
-    u, a1, b1, res_kw = inputs(3, 37, 45)
-    for name, kw in (("plain", {}), ("residual+emit_h", res_kw)):
-        rel, _ = errors(f"ragged {name}", (u, a1, b1, w), kw)
-        print(f"K2 encoder_stage [{name}] (3,37,45,64) bf16, ragged tiles: rel max_abs {fmt(rel)}")
+    # every variant at ragged edges (tiles that overhang the image on the
+    # right and bottom) and at tiles that straddle samples (3 x 2 tiles a
+    # sample, 6 tiles for 132 blocks), with positive biases
+    for shape in ((3, 37, 45), (2, 13, 61)):
+        u, a1, b1, vkw = k2_inputs(torch, g, *shape)
+        for name, kw in (("plain", {}), ("v", vkw), ("emit_h", dict(emit_h=True)),
+                         ("relu_u off", dict(relu_u=False)),
+                         ("v+emit_h+relu_u off", dict(vkw, emit_h=True, relu_u=False))):
+            rel, _ = k2_errors(torch, f"{shape} {name}", (u, a1, b1, w), kw)
+            print(f"K2 encoder_stage [{name}] {(*shape, C)} bf16, positive biases: rel max_abs "
+                  f"{_fmt_rel(rel)}")
 
     B, H, W = 2, 736, 1280
-    u, a1, b1, res_kw = inputs(B, H, W)
-    variants = {"plain": dict(), "residual+emit_h": res_kw}
+    u, a1, b1, vkw = k2_inputs(torch, g, B, H, W)
+    variants = {"plain": dict(), "residual+emit_h": dict(vkw, emit_h=True),
+                "emit_h": dict(emit_h=True), "relu_u off": dict(relu_u=False)}
     results = {}
     for name, kw in variants.items():
-        rel, abs_err = errors(name, (u, a1, b1, w), kw)
+        rel, abs_err = k2_errors(torch, name, (u, a1, b1, w), kw)
+        if name not in ("plain", "residual+emit_h"):
+            print(f"K2 encoder_stage [{name}] (2,736,1280,64) bf16: rel max_abs {_fmt_rel(rel)}")
+            continue
         ms = cuda_ms(torch, lambda: encoder_stage(u, a1, b1, w, **kw), 10)
         plain_ms = cuda_ms(torch, lambda: encoder_stage_plain(u, a1, b1, w, **kw), 3)
-        nbytes = 2 * u.numel() * u.element_size() + w.numel() * 2 + 4 * B * C * 4
-        if "v" in kw:
-            nbytes += 2 * u.numel() * u.element_size() + 2 * B * C * 4
-        flops = 2.0 * B * H * W * C * C * 9
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        results[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                             bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_ms, bound_by = k2_bound(B, H, W, "v" in kw)
+        results[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                              max_abs_err=abs_err, rel=rel)
     # cuDNN's conv of the same shape alone, as a yardstick the port never calls
     x = u.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
-    wl = w.to(dt).contiguous(memory_format=torch.channels_last)
+    wl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     lib_ms = cuda_ms(torch, lambda: F.conv2d(x, wl, padding=1), 10)
     for name, r in results.items():
         r["library_ms"] = lib_ms
-        print(f"K2 encoder_stage [{name}] (2,736,1280,64) bf16: rel max_abs {fmt(r.pop('rel'))} "
-              f"| max_abs {r['max_abs_err']:.3e} | kernel_ms {r['ms']:.3f} "
-              f"plain_ms {r['plain_ms']:.3f} library_ms {lib_ms:.3f} (cuDNN conv2d alone) "
+        print(f"K2 encoder_stage [{name}] (2,736,1280,64) bf16: rel max_abs {_fmt_rel(r.pop('rel'))} "
+              f"| max_abs {r['max_abs_err']:.3e} | kernel_ms {r['ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.3f} library_ms {lib_ms:.4f} (cuDNN conv2d alone) "
               f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
     return results
 
@@ -1432,18 +1490,28 @@ ALT_D = 256  # fnet width
 ALT_FRAMES = 5
 
 
-def _alt_inputs(torch, gen, B, H, W, dt, L=4):
-    """fmap1, fmap2 and its pooled pyramid (B, H, W, 256) in ``dt``, and
+def _alt_inputs(torch, gen, B, H, W, dt, L=4, D=ALT_D):
+    """fmap1, fmap2 and its pooled pyramid (B, H, W, D) in ``dt``, and
     coordinates in [-10, W+10] with far out-of-range, negative and NaN
     entries; returns a mask of the finite pixels too."""
     from dkt_stereo_tpu_torch.ops.corr import fmap_pyramid
 
-    f1, f2 = (torch.randn((B, H, W, ALT_D), generator=gen, device="cuda").to(dt)
+    f1, f2 = (torch.randn((B, H, W, D), generator=gen, device="cuda").to(dt)
               for _ in range(2))
     coords = torch.rand((B, H, W, 1), generator=gen, device="cuda") * (W + 20) - 10
     coords.view(-1)[:9] = torch.tensor([-1e9, 1e9, 3e7, -0.5, -1.0, 0.0, 17.0, W - 1.0,
                                         float("nan")])
     return f1, f2, fmap_pyramid(f2, L), coords, torch.isfinite(coords[..., 0])
+
+
+def frame_coords(torch, B, H, W):
+    """The coordinates of a frame on the 1/4 grid: x - d with d = 16 +
+    160 y/H + 8 sin(2 pi x/90), 16-184 px, Middlebury-F's disparity range at
+    1/4 resolution."""
+    y = torch.arange(H, device="cuda", dtype=torch.float32)[:, None]
+    x = torch.arange(W, device="cuda", dtype=torch.float32)[None, :]
+    d = 16 + 160 * y / H + 8 * torch.sin(2 * np.pi * x / 90)
+    return (x - d).expand(B, H, W)[..., None].contiguous()
 
 
 def alt_bound(torch, f1, pyr, coords, r):
@@ -1474,47 +1542,76 @@ def alt_bound(torch, f1, pyr, coords, r):
 
 def phase_k3(torch):
     """K3 vs its plain version at the full-resolution path's shapes and at
-    ragged ones, and the materialized route at the same shapes."""
+    ragged ones, at random coordinates (bands wider than a piece), at a
+    frame's coordinates and at nearly constant ones (a band of one piece),
+    at depths 3 and 20 and at 5 levels with radius 12; times at random and
+    frame coordinates, and the materialized route."""
     from dkt_stereo_tpu_torch.ops.corr import corr_pyramid_fused
     from dkt_stereo_tpu_torch.ops.cuda.corr_alt import corr_lookup_alt, corr_lookup_alt_plain
     from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's fp32 products
-    r, L = 4, 4
     gen = torch.Generator(device="cuda").manual_seed(14)
     res = {}
-    for shape in ((2, 7, 37), ALT_SHAPE):
-        for dt in (torch.float32, torch.bfloat16):
-            f1, f2, pyr, coords, finite = _alt_inputs(torch, gen, *shape, dt, L)
-            got = corr_lookup_alt(f1, pyr, coords, r)
-            want = corr_lookup_alt_plain(f1, pyr, coords, r)
-            check(got.shape == (*shape, L * (2 * r + 1)), f"K3 output shape {tuple(got.shape)}")
-            check(bool((got[~finite] == 0).all()), "K3: a NaN coordinate did not give zeros")
-            err = float((got[finite] - want[finite]).abs().max())
-            # fp32 sums of the same products in another order; the kernel
-            # shares one fractional weight per (pixel, level), which equals
-            # the plain version's per-tap weights at positions < 1024
-            tol = 1e-4 * float(want[finite].abs().max())
-            check(err <= tol, f"K3 {shape} {dt} max-abs {err} > {tol}")
-            res[(shape, dt)] = (err, tol)
-            del got, want
+
+    def hold(label, f1, pyr, coords, finite, r):
+        L = len(pyr)
+        got = corr_lookup_alt(f1, pyr, coords, r)
+        want = corr_lookup_alt_plain(f1, pyr, coords, r)
+        check(got.shape == (*coords.shape[:3], L * (2 * r + 1)),
+              f"K3 {label}: output shape {tuple(got.shape)}")
+        check(bool((got[~finite] == 0).all()), f"K3 {label}: a NaN coordinate did not give zeros")
+        err = float((got[finite] - want[finite]).abs().max())
+        # fp32 sums of the same products in another order; the kernel
+        # shares one fractional weight per (pixel, level), where the plain
+        # version rounds each tap position x/2^i + k - r on its own: a
+        # weight moves by up to one fp32 ulp of the position (6e-5 at
+        # 512-1024)
+        tol = 1e-4 * float(want[finite].abs().max())
+        check(err <= tol, f"K3 {label} max-abs {err} > {tol}")
+        res[label] = (err, tol)
+
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        for shape in ((2, 7, 37), ALT_SHAPE):
+            f1, f2, pyr, coords, finite = _alt_inputs(torch, gen, *shape, dt)
+            hold(f"{'x'.join(map(str, shape))} {name} random", f1, pyr, coords, finite, 4)
+        # the same features at a frame's coordinates, and at nearly constant
+        # ones: every block's band is one piece at every level
+        for kind, c in (("frame", frame_coords(torch, *ALT_SHAPE)),
+                        ("narrow", 200.0 + 0.05 * coords.nan_to_num(0.0).clamp(-10, 730))):
+            hold(f"{'x'.join(map(str, ALT_SHAPE))} {name} {kind}", f1, pyr, c,
+                 torch.ones(c.shape[:3], dtype=torch.bool, device="cuda"), 4)
+        del f1, f2, pyr, coords, finite
+        # beyond the first kernel's caps: depths that are not a multiple of
+        # 8 (no bulk copies in bf16) and 5 levels with radius 12
+        for D, L, r in ((3, 4, 4), (20, 4, 4), (ALT_D, 5, 12)):
+            f1, _, pyr, coords, finite = _alt_inputs(torch, gen, 2, 5, 150, dt, L, D)
+            hold(f"2x5x150 {name} D {D} L {L} r {r}", f1, pyr, coords, finite, r)
+
+    r, L = 4, 4
+    f1, f2, pyr, coords, _ = _alt_inputs(torch, gen, *ALT_SHAPE, torch.bfloat16)
     ms = cuda_ms(torch, lambda: corr_lookup_alt(f1, pyr, coords, r), 50)
     plain_ms = cuda_ms(torch, lambda: corr_lookup_alt_plain(f1, pyr, coords, r), 2)
+    fc = frame_coords(torch, *ALT_SHAPE)
+    frame_ms = cuda_ms(torch, lambda: corr_lookup_alt(f1, pyr, fc, r), 50)
+    frame_bound, frame_by, frame_mb, _ = alt_bound(torch, f1, pyr, fc, r)
     # the materialized route for the same lookup: the fused volume pyramid
     # (cuBLAS, fp32 products, stored bf16) and one K1 launch
     reg_ms = cuda_ms(torch, lambda: corr_lookup(
         corr_pyramid_fused(f1, f2, L, out_dtype=f1.dtype), coords, r), 5)
     bound_ms, bound_by, mb, f32_ms = alt_bound(torch, f1, pyr, coords, r)
-    errs = " ".join(f"{s[0]}x{s[1]}x{s[2]} {str(d).split('.')[-1]} {e:.3e} (tol {t:.2e})"
-                    for (s, d), (e, t) in res.items())
+    errs = " ".join(f"{k} {e:.3e} (tol {t:.2e})" for k, (e, t) in res.items())
     print(f"K3 corr_lookup_alt: max_abs {errs} (tol 1e-4 x max|plain|; NaN coordinate -> "
-          f"zeros) | bf16 {ALT_SHAPE} D {ALT_D} widths {[v.shape[2] for v in pyr]}: kernel_ms "
-          f"{ms:.4f} plain_ms {plain_ms:.3f} library_ms none (no single PyTorch call computes "
-          f"the four-level lookup without a volume) reg_route_ms {reg_ms:.3f} (fused pyramid + "
-          f"K1) bound_ms {bound_ms:.4f} ({bound_by}, {mb:.2f} MB; products on the fp32 cores "
-          f"{f32_ms:.4f} ms)")
+          f"zeros) | bf16 {ALT_SHAPE} D {ALT_D} widths {[v.shape[2] for v in pyr]}: random "
+          f"coordinates kernel_ms {ms:.4f} plain_ms {plain_ms:.3f} bound_ms {bound_ms:.4f} "
+          f"({bound_by}, {mb:.2f} MB; products on the fp32 cores {f32_ms:.4f} ms) | frame "
+          f"coordinates kernel_ms {frame_ms:.4f} bound_ms {frame_bound:.4f} ({frame_by}, "
+          f"{frame_mb:.2f} MB) | library_ms none (no single PyTorch call computes the "
+          f"four-level lookup without a volume) reg_route_ms {reg_ms:.3f} (fused pyramid + K1)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, reg_route_ms=reg_ms, max_abs_err=max(e for e, _ in res.values()))
+                library_ms=None, reg_route_ms=reg_ms, frame_ms=frame_ms,
+                frame_bound_ms=frame_bound, max_abs_err=max(e for e, _ in res.values()))
 
 
 def phase_k3_vjp(torch):
@@ -1584,30 +1681,29 @@ def phase_alt_parity(torch, config):
 
 
 def phase_k2_fullres(torch):
-    """K2 vs its plain version once at the full-resolution fnet's shape,
-    one stage without the residual input."""
-    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage, encoder_stage_plain
+    """K2 vs its plain version at the full-resolution fnet's shape, the
+    plain stage and the one with v and emit_h, each timed beside its
+    bound."""
+    from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage
 
     B, (H, W), C = 2, ALT_IMAGE, 64
     gen = torch.Generator(device="cuda").manual_seed(17)
-    u = torch.randn((B, H, W, C), generator=gen, device="cuda").to(torch.bfloat16)
-    a1 = 0.5 + torch.rand((B, C), generator=gen, device="cuda")
-    b1 = 0.1 * torch.randn((B, C), generator=gen, device="cuda")
+    u, a1, b1, vkw = k2_inputs(torch, gen, B, H, W)
     w = torch.randn((C, C, 3, 3), generator=gen, device="cuda") * (2.0 / (9 * C)) ** 0.5
-    got = encoder_stage(u, a1, b1, w)
-    torch.backends.cudnn.allow_tf32 = False  # the plain conv in full fp32
-    want = encoder_stage_plain(u, a1, b1, w)
-    torch.backends.cudnn.allow_tf32 = True
-    rel = {}
-    for k, gt, wt in zip(("y", "sum", "sumsq"), got, want):
-        rel[k] = float((gt.float() - wt.float()).abs().max()) / float(wt.float().abs().max())
-    # as phase 3: one bf16 flip in y, fp32 statistics over 5.7M pixels a sample
-    tol = {"y": 2**-7, "sum": 1e-4, "sumsq": 1e-4}
-    for k, e in rel.items():
-        check(e <= tol[k], f"K2 at {(B, H, W, C)}: {k} relative error {e} > {tol[k]}")
+    out = []
+    for name, kw in (("plain", {}), ("v+emit_h", dict(vkw, emit_h=True))):
+        # as phase 3: one bf16 flip in y, fp32 statistics over 5.7M pixels a sample
+        rel, _ = k2_errors(torch, f"{(B, H, W, C)} {name}", (u, a1, b1, w), kw)
+        torch.cuda.empty_cache()
+        ms = cuda_ms(torch, lambda: encoder_stage(u, a1, b1, w, **kw), 5)
+        bound_ms, bound_by = k2_bound(B, H, W, "v" in kw)
+        out.append(f"[{name}] rel max_abs {_fmt_rel(rel)} kernel_ms {ms:.4f} bound_ms "
+                   f"{bound_ms:.4f} ({bound_by})")
     print(f"K2 encoder_stage at the full-resolution fnet's {(B, H, W, C)} bf16 "
-          f"({u.numel() / 1e6:.0f} M elements), one stage: rel max_abs "
-          + " ".join(f"{k} {e:.2e}" for k, e in rel.items()) + " (tol y 2^-7, statistics 1e-4)")
+          f"({u.numel() / 1e6:.0f} M elements): " + " | ".join(out)
+          + " (tol y, h 2^-7, statistics 1e-4)")
+    del u, vkw
+    torch.cuda.empty_cache()
 
 
 def phase_alt_main(torch, config, reg_config, card):
@@ -1665,9 +1761,13 @@ def phase_alt_main(torch, config, reg_config, card):
         return time.perf_counter() - t0
 
     wall, busy, lines, buckets = device_profile(torch, whole_frame, "chip_smoke_alt_profile.txt")
+    import re
+
+    per_launch = " ".join(f"{k} {float(t) / int(n):.4f} ms" for k, t, n in
+                          re.findall(r"(K3|K2) ([\d.]+) ms/(\d+)", buckets) if int(n))
     print(f"profile of one alt frame, image copies included (profiler on): wall {wall:.2f} ms, "
-          f"kernels and copies {busy:.2f} ms, device idle share {1 - busy / wall:.3f}; by "
-          f"bucket: {buckets}; top kernels:")
+          f"kernels and copies {busy:.2f} ms, device idle share {1 - busy / wall:.3f}; a "
+          f"launch: {per_launch}; by bucket: {buckets}; top kernels:")
     for line in lines[:12]:
         print("  " + line[:160])
     del model, forward
@@ -2375,6 +2475,7 @@ def main():
     libs = _build.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {[p.name for p in libs]}")
     print(f"ptxas: {ptxas_line(libs)}")
+    print(f"dynamic shared memory a block: {smem_line()}")
 
     k1 = phase_k1(torch)
     k2 = phase_k2(torch)

@@ -27,36 +27,48 @@ import torch
 from dkt_stereo_tpu_torch.ops.corr import corr_lookup_alt as corr_lookup_alt_plain
 from dkt_stereo_tpu_torch.ops.cuda import _build
 
-MAX_LEVELS = 4
-MAX_RADIUS = 8
+MAX_LEVELS = 8
 MAX_DIM = 512
+# csrc/corr_alt.cu's shared-memory plan (make_plan), mirrored so that the
+# argument checks run without the library
+_BUFS, _MAX_PIECE, _PIECE_BYTES, _MAX_SMEM = 2, 48, 24576, 232448
 
-__all__ = ["CorrLookupAlt", "corr_lookup_alt", "corr_lookup_alt_plain"]
-
-
-def _launcher():
-    fn = _build.load("corr_alt").corr_alt_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, ctypes.c_longlong, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return fn
+__all__ = ["CorrLookupAlt", "check_args", "corr_lookup_alt", "corr_lookup_alt_plain",
+           "smem_bytes"]
 
 
-def _launch(fmap1: torch.Tensor, levels, coords_x: torch.Tensor, radius: int) -> torch.Tensor:
+def smem_bytes(dim: int, bf16: bool, radius: int) -> int:
+    """Dynamic shared memory of one K3 block: the fmap1 tile of its pixels
+    (96 in bf16, 64 in fp32) and a ring of band pieces, in slabs of 128
+    bytes of channels, and the (pixel, column) product table."""
+    pixels = 96 if bf16 else 64
+    slabs = -(-dim // (64 if bf16 else 32))
+    nc = min(_MAX_PIECE, max(16, _PIECE_BYTES // (slabs * 128) // 16 * 16))
+    head = 256 + 4 * pixels + 4 * pixels * (2 * radius + 2)
+    return head + 1024 + (pixels + _BUFS * nc) * slabs * 128
+
+
+def check_args(fmap1: torch.Tensor, levels, coords_x: torch.Tensor, radius: int) -> None:
+    """Raise unless the kernel takes these arguments. Reads only shapes,
+    dtypes, devices, strides and addresses, so it runs on ``meta``
+    tensors."""
     name = "corr_lookup_alt"
     L = len(levels)
     if not 1 <= L <= MAX_LEVELS:
         raise ValueError(f"{name}: 1..{MAX_LEVELS} levels, got {L}")
-    if not 0 <= radius <= MAX_RADIUS:
-        raise ValueError(f"{name}: radius 0..{MAX_RADIUS}, got {radius}")
     if fmap1.dim() != 4:
         raise ValueError(f"{name}: fmap1 must be (B, H, W1, D), got {tuple(fmap1.shape)}")
     B, H, W1, D = fmap1.shape
-    if D % 8 or not 8 <= D <= MAX_DIM:
-        raise ValueError(f"{name}: D must be a multiple of 8 in [8, {MAX_DIM}], got {D}")
+    if not 1 <= D <= MAX_DIM:
+        raise ValueError(f"{name}: D must be in [1, {MAX_DIM}], got {D}")
     if fmap1.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: fmap1 must be fp32 or bf16, got {fmap1.dtype}")
+    if radius < 0:
+        raise ValueError(f"{name}: radius must be >= 0, got {radius}")
+    need = smem_bytes(D, fmap1.dtype == torch.bfloat16, radius)
+    if need > _MAX_SMEM:
+        raise ValueError(f"{name}: radius {radius} at D {D} {fmap1.dtype} needs {need} bytes of "
+                         f"shared memory a block, more than {_MAX_SMEM}")
     dev = fmap1.device
     if (coords_x.device != dev or coords_x.dtype != torch.float32
             or tuple(coords_x.shape) != (B, H, W1, 1) or not coords_x.is_contiguous()):
@@ -75,16 +87,31 @@ def _launch(fmap1: torch.Tensor, levels, coords_x: torch.Tensor, radius: int) ->
             raise ValueError(f"{name}: level shape {tuple(v.shape)} does not match fmap1 "
                              f"{tuple(fmap1.shape)}")
 
+
+def _launcher():
+    fn = _build.load("corr_alt").corr_alt_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, i, p, p, p, ctypes.c_longlong, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(fmap1: torch.Tensor, levels, coords_x: torch.Tensor, radius: int) -> torch.Tensor:
+    check_args(fmap1, levels, coords_x, radius)
+    B, H, W1, D = fmap1.shape
+    L = len(levels)
     taps = 2 * radius + 1
+    dev = fmap1.device
     out = torch.empty((B, H, W1, L * taps), dtype=torch.float32, device=dev)
-    ptrs = [v.data_ptr() for v in levels] + [None] * (MAX_LEVELS - L)
-    widths = [v.shape[2] for v in levels] + [0] * (MAX_LEVELS - L)
+    ptrs = (ctypes.c_void_p * L)(*[v.data_ptr() for v in levels])
+    widths = (ctypes.c_int * L)(*[v.shape[2] for v in levels])
     fn = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*ptrs, *widths, L, fmap1.data_ptr(), coords_x.data_ptr(), out.data_ptr(),
-                 B * H * W1, W1, D, radius, int(fmap1.dtype == torch.bfloat16), stream)
-    _build.check_launch(err, name)
+        err = fn(ptrs, widths, L, fmap1.data_ptr(), coords_x.data_ptr(), out.data_ptr(),
+                 B * H, W1, D, radius, int(fmap1.dtype == torch.bfloat16), stream)
+    _build.check_launch(err, "corr_lookup_alt")
     corr_lookup_alt.launches += 1
     return out
 

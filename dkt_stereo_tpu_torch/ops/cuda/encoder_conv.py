@@ -12,10 +12,10 @@ only for CPU tensors; for CUDA tensors it launches the kernel or raises.
 Under grad mode, with an input that requires grad, it runs through
 :class:`EncoderStage`, whose backward (:func:`encoder_stage_bwd`) runs the
 adjoint conv on flipped, IO-transposed taps, as the JAX VJP does
-(``_stage_ad_bwd``): in bf16 one launch of the adjoint kernel (wgmma fed by
-TMA, taps packed by :func:`_pack_adjoint_taps`), in fp32 one more launch of
-the stage kernel with the identity affine. Otherwise it launches exactly as
-at inference, and writes no ``h`` residual.
+(``_stage_ad_bwd``): in bf16 one launch of the adjoint kernel, in fp32 one
+more launch of the stage kernel with the identity affine. Otherwise it
+launches exactly as at inference, and writes no ``h`` residual. Both bf16
+kernels are wgmma fed by TMA, with taps packed by :func:`_pack_taps`.
 """
 
 from __future__ import annotations
@@ -126,7 +126,13 @@ def _launch(counter, u, a1, b1, w, v, a2, b2, emit_h, relu_u, stats=True):
         _check("a2", a2, (B, C), f32, dev)
         _check("b2", b2, (B, C), f32, dev)
 
-    w_hwio = w.detach().to(u.dtype).permute(2, 3, 1, 0).contiguous()
+    if u.dtype == torch.bfloat16:
+        for name, t in (("u", u), ("v", v)):
+            if t is not None:
+                tma_operand_check(name, t.shape, t.stride(), t.data_ptr())
+        taps = _pack_taps(w)
+    else:
+        taps = w.detach().float().permute(2, 3, 1, 0).contiguous()  # HWIO
     y = torch.empty_like(u)
     ssum = torch.zeros((B, C), dtype=f32, device=dev) if stats else None
     sssq = torch.zeros((B, C), dtype=f32, device=dev) if stats else None
@@ -138,7 +144,7 @@ def _launch(counter, u, a1, b1, w, v, a2, b2, emit_h, relu_u, stats=True):
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptr(u), ptr(a1), ptr(b1), ptr(v), ptr(a2), ptr(b2), ptr(w_hwio), ptr(y),
+        err = fn(ptr(u), ptr(a1), ptr(b1), ptr(v), ptr(a2), ptr(b2), ptr(taps), ptr(y),
                  ptr(ssum), ptr(sssq), ptr(h), B, H, W, C, int(relu_u),
                  int(u.dtype == torch.bfloat16), stream)
     _build.check_launch(err, "encoder_stage")
@@ -183,49 +189,55 @@ def _flip_transpose(w):
 _TAP_INDEX: dict = {}
 
 
-def _adjoint_tap_index(device):
-    """For each element of the packed adjoint taps, its flat index in the
-    OIHW weight (cached per device): packed[t, co, p, e] is
-    flip_transpose(w)[co, ci, ky, kx] = w[ci, co, 2 - ky, 2 - kx] with
-    t = 3 ky + kx and ci = 8 (p ^ (co % 8)) + e."""
-    idx = _TAP_INDEX.get(device)
+def _tap_index(device, adjoint):
+    """For each element of the packed taps, its flat index in the OIHW
+    weight (cached per device and orientation): packed[t, co, p, e] is
+    w[co, ci, ky, kx] for the forward and flip_transpose(w)[co, ci, ky, kx]
+    = w[ci, co, 2 - ky, 2 - kx] for the adjoint, with t = 3 ky + kx and
+    ci = 8 (p ^ (co % 8)) + e."""
+    idx = _TAP_INDEX.get((device, adjoint))
     if idx is None:
         C = CHANNELS
         t, co, p, e = torch.meshgrid(torch.arange(9), torch.arange(C), torch.arange(C // 8),
                                      torch.arange(8), indexing="ij")
         ci = (p ^ (co % 8)) * 8 + e
-        idx = (((ci * C + co) * 3 + 2 - t // 3) * 3 + 2 - t % 3).reshape(-1).to(device)
-        _TAP_INDEX[device] = idx
+        ky, kx = t // 3, t % 3
+        if adjoint:
+            idx = ((ci * C + co) * 3 + 2 - ky) * 3 + 2 - kx
+        else:
+            idx = ((co * C + ci) * 3 + ky) * 3 + kx
+        idx = idx.reshape(-1).to(device)
+        _TAP_INDEX[(device, adjoint)] = idx
     return idx
 
 
-def _pack_adjoint_taps(w):
-    """The adjoint taps of OIHW ``w`` as the bf16 adjoint kernel copies them
-    into shared memory: (9, 64, 8, 8) bf16, tap-major (ky * 3 + kx), one row
-    of 64 input channels per output channel (the K-major A operand of
-    wgmma, 128 bytes a row), with the 16-byte chunk c of row ``co`` stored
-    at chunk ``c ^ (co % 8)``: the 128-byte swizzle the kernel's descriptors
-    read. One gather and one cast."""
+def _pack_taps(w, adjoint=False):
+    """The taps of OIHW ``w`` (flipped and IO-transposed with ``adjoint``)
+    as the bf16 kernels copy them into shared memory: (9, 64, 8, 8) bf16,
+    tap-major (ky * 3 + kx), one row of 64 input channels per output
+    channel (the K-major A operand of wgmma, 128 bytes a row), with the
+    16-byte chunk c of row ``co`` stored at chunk ``c ^ (co % 8)``: the
+    128-byte swizzle the kernels' descriptors read. One gather and one
+    cast."""
     C = CHANNELS
-    flat = w.detach().reshape(-1).index_select(0, _adjoint_tap_index(w.device))
+    flat = w.detach().reshape(-1).index_select(0, _tap_index(w.device, adjoint))
     return flat.to(torch.bfloat16).view(9, C, C // 8, 8)
 
 
-def tma_operand_check(name, shape, stride, data_ptr):
+def tma_operand_check(name, shape, stride, data_ptr, op="encoder_stage"):
     """Raise unless a tensor of this shape, element stride and address can
-    be a bf16 (B, H, W, 64) operand of the adjoint kernel's TMA maps: dense
+    be a bf16 (B, H, W, 64) operand of the bf16 kernels' TMA maps: dense
     NHWC and a 16-byte-aligned base (byte strides are then multiples of
-    128). The launcher refuses more tiles than an int counts."""
+    128). The launchers refuse more tiles than an int counts."""
     if len(shape) != 4 or shape[-1] != CHANNELS or min(shape) < 1:
-        raise ValueError(f"encoder_stage_adjoint: {name} must be (B, H, W, {CHANNELS}), got "
-                         f"{tuple(shape)}")
+        raise ValueError(f"{op}: {name} must be (B, H, W, {CHANNELS}), got {tuple(shape)}")
     B, H, W, C = shape
     if tuple(stride) != (H * W * C, W * C, C, 1):
-        raise ValueError(f"encoder_stage_adjoint: {name} must be contiguous, got strides "
-                         f"{tuple(stride)} for shape {tuple(shape)}")
+        raise ValueError(f"{op}: {name} must be contiguous, got strides {tuple(stride)} for "
+                         f"shape {tuple(shape)}")
     if data_ptr % 16:
-        raise ValueError(f"encoder_stage_adjoint: {name} must be 16-byte aligned for TMA, got "
-                         f"address {data_ptr:#x}")
+        raise ValueError(f"{op}: {name} must be 16-byte aligned for TMA, got address "
+                         f"{data_ptr:#x}")
 
 
 def encoder_stage_adjoint_plain(g, w):
@@ -252,9 +264,9 @@ def encoder_stage_adjoint(g, w):
     if tuple(w.shape) != (CHANNELS, CHANNELS, 3, 3) or w.device != g.device:
         raise ValueError(f"encoder_stage_adjoint: w must be ({CHANNELS}, {CHANNELS}, 3, 3) on "
                          f"{g.device}, got {tuple(w.shape)} on {w.device}")
-    tma_operand_check("g", g.shape, g.stride(), g.data_ptr())
+    tma_operand_check("g", g.shape, g.stride(), g.data_ptr(), "encoder_stage_adjoint")
     y = torch.empty_like(g)
-    taps = _pack_adjoint_taps(w)
+    taps = _pack_taps(w, adjoint=True)
     B, H, W, _ = g.shape
     fn = _lib("encoder_stage_adjoint_launch")
     with torch.cuda.device(g.device):

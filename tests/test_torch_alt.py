@@ -76,6 +76,8 @@ def _jax_lookups(f1, f2, coords):
     ("bfloat16", (2, 1, 37, 256)),
     ("float32", (1, 1, 517, 32)),   # W1 > 512: JAX's chunked path (_pick_cols)
     ("bfloat16", (1, 1, 517, 32)),
+    ("float32", (2, 1, 37, 3)),     # depths K3 once refused: not a multiple of 8
+    ("bfloat16", (2, 1, 37, 20)),
 ])
 def test_corr_lookup_alt_matches_jax(rng, dtype, shape):
     """The plain twin vs JAX XLA and Pallas (interpret), fp32 sums over the
@@ -282,3 +284,74 @@ def test_alt_cuda_train_gradients_match_jax(jax_variables):
         assert err <= 5e-3 * float(jgrads[k].norm()) + 1e-7 * total, (k, err)
     fnet = [k for k in named if k.startswith("fnet.") and k.endswith("weight")]
     assert len(fnet) > 10 and all(float(named[k].grad.norm()) > 0 for k in fnet)
+
+
+def _meta(shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _alt_args(B=2, H=3, W=37, D=3, L=4, dtype=torch.bfloat16):
+    return (_meta((B, H, W, D), dtype), [_meta((B, H, max(W >> i, 1), D), dtype) for i in range(L)],
+            _meta((B, H, W, 1), torch.float32))
+
+
+@pytest.mark.parametrize("D, L, radius, dtype", [
+    (3, 4, 4, torch.bfloat16),     # no bulk copies: plain loads in the kernel
+    (20, 5, 12, torch.float32),    # beyond the first kernel's 4 levels and radius 8
+    (20, 5, 12, torch.bfloat16),
+    (256, 8, 16, torch.float32),   # the most levels and the widest fp32 tiles
+    (512, 4, 4, torch.bfloat16),
+    (512, 8, 16, torch.float32),   # the widest tiles: fp32 blocks take fewer pixels
+])
+def test_corr_alt_check_args_accepts(D, L, radius, dtype):
+    """The kernel's argument checks (run on meta tensors: shapes, dtypes
+    and devices only) take any depth from 1 to 512, up to 8 levels and a
+    radius of at least 16; the shared memory they need fits a block."""
+    f1, levels, coords = _alt_args(D=D, L=L, dtype=dtype)
+    corr_alt.check_args(f1, levels, coords, radius)
+    assert corr_alt.smem_bytes(D, dtype == torch.bfloat16, radius) <= 232448
+
+
+@pytest.mark.parametrize("case, match", [
+    ("levels", "1..8 levels"),
+    ("depth", r"D must be in \[1, 512\]"),
+    ("dtype", "fp32 or bf16"),
+    ("radius", "radius must be >= 0"),
+    ("smem", "shared memory"),
+    ("coords shape", "coords_x must be"),
+    ("coords dtype", "coords_x must be"),
+    ("coords device", "coords_x must be"),
+    ("level dtype", "every level must be"),
+    ("level device", "every level must be"),
+    ("level shape", "level shape"),
+    ("fmap1 rank", r"\(B, H, W1, D\)"),
+])
+def test_corr_alt_check_args_refuses(case, match):
+    f1, levels, coords = _alt_args()
+    radius = 4
+    if case == "levels":
+        levels = levels * 3
+    elif case == "depth":
+        f1, levels, coords = _alt_args(D=513)
+    elif case == "dtype":
+        f1, levels, coords = _alt_args(dtype=torch.float16)
+    elif case == "radius":
+        radius = -1
+    elif case == "smem":
+        radius = 4000
+    elif case == "coords shape":
+        coords = _meta((2, 3, 36, 1), torch.float32)
+    elif case == "coords dtype":
+        coords = _meta((2, 3, 37, 1), torch.bfloat16)
+    elif case == "coords device":
+        coords = torch.zeros((2, 3, 37, 1))
+    elif case == "level dtype":
+        levels[1] = _meta(levels[1].shape, torch.float32)
+    elif case == "level device":
+        levels[2] = torch.zeros(levels[2].shape, dtype=torch.bfloat16)
+    elif case == "level shape":
+        levels[0] = _meta((2, 3, 37, 4))
+    elif case == "fmap1 rank":
+        f1 = _meta((3, 37, 3))
+    with pytest.raises(ValueError, match=match):
+        corr_alt.check_args(f1, levels, coords, radius)
