@@ -11,9 +11,19 @@ out-of-tolerance result raises and exits non-zero:
      dkt_stereo_tpu_torch/csrc with nvcc (in parallel), times the build and
      prints each kernel's registers, spills and static shared memory as
      ptxas reported them, and the dynamic shared memory of K2's forward and
-     K3 blocks;
-  2. K1 (corr lookup) vs its plain version at the main path's shapes, bf16
-     and fp32 pyramids, coordinates far out of range included;
+     K3 blocks, and of K1's forward and backward blocks (checked against the
+     wrapper's plan);
+  2. K1 (corr lookup) vs its plain version, the output's dtype and strides
+     those of plain.permute(0, 3, 1, 2).to(dt), bf16 within one bf16 step of
+     the plain value rounded once: at the frame's 1x184x320 (W2
+     320/160/80/40), the training step's 8x80x180 (180/90/45/22) and a
+     ragged 2x7x37 (37/18/9/4), every pairing of fp32 and bf16 levels and
+     outputs at the ragged shape, 5 levels with radius 12; coordinates far
+     out of range and NaN (NaN outputs where the plain version has them);
+     device times (a CUDA graph of launches) beside the host's time a call,
+     the bound, the bytes the windows' 32-byte sectors move, the plain
+     version and F.grid_sample over the four levels, at the frame and the
+     step;
   3. K2 (encoder stage) vs its plain version, every variant (plain, v,
      emit_h, relu_u off, and all three together) with positive biases, so
      that a halo the prologue did not zero fails at every border pixel, at
@@ -28,9 +38,13 @@ out-of-tolerance result raises and exits non-zero:
      counting the kernel launches of the timed frames;
   6. a per-kernel profile of one main-path frame (torch.profiler);
   7. K1's backward (corr lookup bwd) vs its plain version at the training
-     shapes (8x80x180, W2 180/90/45/22), bf16 and fp32 pyramids, and the
-     adjoint check <K1(v), g> = <v, K1^T(g)> against the forward kernel,
-     and the time autograd spends summing the per-iteration d/dpyramid;
+     step, the frame and the ragged shape of phase 2 and at 5 levels with
+     radius 12, bf16 and fp32 gradients and levels, NaN coordinates (NaN
+     rows where the plain version has them), two launches bit for bit, and
+     the adjoint check <K1(v), g> = <v, K1^T(g)> against the forward
+     kernel; device times at the step and the frame beside the bound, the
+     plain version and grid_sample's backward, and the time autograd spends
+     summing the per-iteration d/dpyramid;
      K2's VJP (EncoderStage's backward: the adjoint conv as one launch of
      its own wgmma + TMA kernel in bf16, of the fp32 stage kernel without
      statistics in fp32, the rest PyTorch) vs its plain twin, all seven
@@ -48,12 +62,14 @@ out-of-tolerance result raises and exits non-zero:
      reg_cuda, remat_iters), B=8, 320x720, 16 student and 32 teacher
      iterations, through create_dkt_state/make_dkt_train_step on seeded
      synthetic batches: 1 warm-up and 5 timed steps with the time of each
-     part, exact K1 launch counts, a profile of one step and an estimate
-     of the untraced idle share;
+     part, exact K1 launch counts, the gradients K1's backward had to copy
+     to dense (0 with cuDNN's channels-last gradients), a profile of one
+     step and an estimate of the untraced idle share;
  10. K4 (IGEV geo lookup) vs its plain version at the IGEV main path's
      shapes (1x184x320, geo D 48/24 x 8 channels, corr W2 320/160), bf16 and
      fp32 pyramids, disparities far out of range, negative, above D and NaN
-     included;
+     included; device times (a CUDA graph) at this frame and at the IGEV
+     training step's 8x80x184 beside their bounds;
  11. K4's backward (the dgeo and the dcorr kernel) vs its plain version at
      the IGEV training shapes (8x80x184, geo D 48/24 x 8, corr W2 184/92),
      bf16 and fp32 pyramids, the same hostile disparities (NaN gives
@@ -106,8 +122,9 @@ out-of-tolerance result raises and exits non-zero:
      at a ragged 2x7x37 (widths 37/9/2), bf16 and fp32 volumes, positions
      of a random mixture plus negative, past-the-row, far out of range,
      exact-integer and NaN ones (NaN gives zeros), with grid_sample over
-     the three levels as yardstick; K5's autograd Function launching the
-     backward;
+     the three levels as yardstick; device times (a CUDA graph) at the frame
+     and at the PCV training step's 8x80x180 beside their bounds; K5's
+     autograd Function launching the backward;
  21. PCVNet parity: base.json and fast.json in fp32, TF32 off, 1x256x512,
      2 iterations, exactly 2 K5 launches each; K5 vs the plain lookup with
      the rest of the model on the card, and kernels (card) vs plain path
@@ -167,6 +184,7 @@ result.
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import subprocess
 import sys
@@ -225,8 +243,11 @@ def kernel_counts():
 
 
 def zero_counts():
+    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup_bwd
+
     for f in _wrappers():
         f.launches = 0
+    corr_lookup_bwd.g_copies = 0
 
 
 def _diff(after, before):
@@ -280,9 +301,24 @@ def smem_line():
     k3_bytes = k3(ALT_D, 1, 4)
     check(k3_bytes == smem_bytes(ALT_D, True, 4), "K3's shared-memory plan differs from the "
           "wrapper's mirror")
+    # K1's plans: the launchers' byte counts against the wrappers' mirrors
+    from dkt_stereo_tpu_torch.ops.cuda import corr_lookup as k1
+
+    k1f = _build.load("corr_lookup").corr_lookup_smem_bytes
+    k1b = _build.load("corr_lookup_bwd").corr_lookup_bwd_smem_bytes
+    k1f.restype = k1b.restype = ctypes.c_longlong
+    k1_rows = []
+    for L, r, vb, ob in ((4, 4, 1, 1), (4, 4, 0, 0), (4, 4, 0, 1), (5, 12, 1, 1), (5, 12, 0, 0),
+                         (4, 60, 0, 0)):
+        pf, fbytes = k1.fwd_plan(L, r, 2 if vb else 4, 2 if ob else 4)
+        pb, bbytes = k1.bwd_plan(L, r)
+        check(k1f(L, r, vb, ob, pf) == fbytes and k1b(L, r, pb) == bbytes,
+              f"K1's shared-memory plan at L {L} r {r} differs from the wrapper's mirror")
+        k1_rows.append(f"L {L} r {r} {'bf16' if vb else 'fp32'}->{'bf16' if ob else 'fp32'} "
+                       f"fwd {pf} pixels {fbytes} B, bwd {pb} pixels {bbytes} B")
     return (f"encoder_stage_fwd_kernel {fwd(0)} B (3 u stages), with v {fwd(1)} B (2 u + 1 v "
             f"stages) | corr_alt_kernel at D {ALT_D} bf16 r 4 {k3_bytes} B, fp32 "
-            f"{k3(ALT_D, 0, 4)} B")
+            f"{k3(ALT_D, 0, 4)} B | K1 " + "; ".join(k1_rows))
 
 
 def gpu_line():
@@ -293,47 +329,209 @@ def gpu_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def phase_k1(torch):
-    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup, corr_lookup_plain
+def graph_ms(torch, fn, n, reps=3):
+    """Device time of one call of ``fn``: ``n`` calls captured in one CUDA
+    graph, replayed ``reps`` times between two events, so that the host's
+    time per call (checks, allocation, the launch) is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (n * reps)
 
-    B, H, W1, r, L = 1, 184, 320, 4, 4
-    g = torch.Generator(device="cuda").manual_seed(1)
-    coords = torch.rand((B, H, W1, 1), generator=g, device="cuda") * (W1 + 40) - 20
-    flat = coords.view(-1)
-    flat[:8] = torch.tensor([-1e9, 1e9, 3e7, -0.5, -1.0, 0.0, 17.0, W1 - 1.0])
-    res = {}
-    for dt in (torch.float32, torch.bfloat16):
-        pyr = [torch.randn((B, H, W1, W1 >> i), generator=g, device="cuda").to(dt) for i in range(L)]
-        got = corr_lookup(pyr, coords, r)
-        want = corr_lookup_plain(pyr, coords, r)
-        err = float((got - want).abs().max())
-        vmax = max(float(v.abs().max()) for v in pyr)
-        # the kernel shares one fractional weight across the taps of a
-        # (pixel, level); the plain version rounds each tap position on its
-        # own: at positions < 512 that moves a weight by <= 2^-15, so the
-        # difference stays below 1e-4 of the volume's scale
-        tol = 1e-4 * vmax
-        check(err <= tol, f"K1 {dt} max-abs {err} > {tol}")
-        res[str(dt).split(".")[-1]] = (pyr, err)
-    pyr, err = res["bfloat16"]
-    max_err = max(e for _, e in res.values())
-    ms = cuda_ms(torch, lambda: corr_lookup(pyr, coords, r), 200)
-    plain_ms = cuda_ms(torch, lambda: corr_lookup_plain(pyr, coords, r), 20)
-    # bytes this run's data needs: in-range taps read once, coords, output
+
+def bf16_steps(torch, got, want):
+    """The largest |got - want rounded to bf16|, in bf16 steps at |want|."""
+    _, ex = torch.frexp(want.abs().clamp_min(2.0**-126))  # |want| in [2^(ex-1), 2^ex)
+    step = torch.ldexp(torch.ones_like(want), ex - 8)
+    return float(((got.float() - want.to(torch.bfloat16).float()).abs() / step).max())
+
+
+K1_FRAME = (1, 184, 320)  # 1/4 grid of the 736x1280 main path
+K1_FRAME_W2 = (320, 160, 80, 40)
+K1_RAGGED = (2, 7, 37)
+K1_RAGGED_W2 = (37, 18, 9, 4)
+BF16, F32 = "bfloat16", "float32"
+
+
+def k1_inputs(torch, gen, shape, widths, vol_dtype):
+    """Seeded levels and coordinates in [-20, W1 + 20], with far out of
+    range, negative, integer and last-column coordinates and three NaN."""
+    B, H, W1 = shape
+    coords = torch.rand((B, H, W1, 1), generator=gen, device="cuda") * (W1 + 40) - 20
+    coords.view(-1)[:11] = torch.tensor([-1e9, 1e9, 3e7, -0.5, -1.0, 0.0, 17.0, W1 - 1.0]
+                                        + [float("nan")] * 3)
+    pyr = [torch.randn((B, H, W1, w), generator=gen, device="cuda").to(vol_dtype)
+           for w in widths]
+    return pyr, coords
+
+
+def k1_fwd_bytes(torch, pyr, coords, r, dtype):
+    """Bytes the forward must move for these inputs: the in-range values of
+    each (pixel, level) window read once (a NaN coordinate reads nothing),
+    the coordinates, the output in ``dtype`` written once."""
+    c = coords[~torch.isnan(coords)]
     taps_read = 0
     for i, v in enumerate(pyr):
-        x0 = torch.floor(coords.clamp(-1e6, 1e6) / 2**i - r)
-        idx = x0 + torch.arange(2 * r + 2, device="cuda")
-        taps_read += int(((idx >= 0) & (idx < v.shape[-1])).sum()) * v.element_size()
-    out_bytes = B * H * W1 * L * (2 * r + 1) * 4
-    nbytes = taps_read + coords.numel() * 4 + out_bytes
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"K1 corr_lookup: max_abs fp32 {res['float32'][1]:.3e} bf16 {res['bfloat16'][1]:.3e} | "
-          f"bf16 pyramid {tuple(pyr[0].shape)}..{tuple(pyr[-1].shape)}: kernel_ms {ms:.4f} "
-          f"plain_ms {plain_ms:.4f} library_ms none (no single PyTorch call computes the "
-          f"four-level lookup) bound_ms {bound_ms:.4f} ({nbytes / 1e6:.2f} MB)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                library_ms=None, max_abs_err=max_err)
+        w2 = v.shape[-1]
+        x0 = torch.floor((c / 2**i).clamp(-(r + 2), w2 + r + 1) - r)
+        idx = x0[:, None] + torch.arange(2 * r + 2, device="cuda")
+        taps_read += int(((idx >= 0) & (idx < w2)).sum()) * v.element_size()
+    out_bytes = coords.numel() * len(pyr) * (2 * r + 1) * dtype.itemsize
+    return taps_read + coords.numel() * 4 + out_bytes
+
+
+def k1_sector_bytes(torch, pyr, coords, r):
+    """The windows' reads in whole 32-byte sectors, the least the L2 can
+    fetch from device memory (windows of neighbouring rows share some)."""
+    c = coords[~torch.isnan(coords)]
+    pix = torch.arange(coords.numel(), device="cuda")[~torch.isnan(coords.view(-1))]
+    total = 0
+    for i, v in enumerate(pyr):
+        w2, es = v.shape[-1], v.element_size()
+        xs = (c / 2**i).clamp(-(r + 2), w2 + r + 1)
+        lo = torch.floor(xs - r).clamp_min(0).long()
+        hi = (torch.floor(xs + r) + 1).clamp_max(w2 - 1).long()
+        ok = lo <= hi
+        first = (pix[ok] * w2 + lo[ok]) * es // 32
+        last = (pix[ok] * w2 + hi[ok]) * es // 32
+        n = int((last - first).max()) + 1
+        sectors = first[:, None] + torch.arange(n, device="cuda")
+        total += int(torch.unique(sectors[sectors <= last[:, None]]).numel()) * 32
+    return total
+
+
+def k1_library(torch, pyr, coords, r):
+    """The yardstick: one ``F.grid_sample`` a level on fp32 copies of the
+    levels, (N, 1, 1, W2) with an (N, 1, 2r+1, 2) grid, upstream
+    RAFT-Stereo's ``bilinear_sampler`` form of this lookup; fp32, because a
+    bf16 grid cannot hold the positions. Returns the forward, the levels
+    and the grids."""
+    import torch.nn.functional as F
+
+    n = coords.numel()
+    dx = torch.arange(-r, r + 1, dtype=torch.float32, device="cuda")
+    lib_in = [v.float().reshape(n, 1, 1, v.shape[-1]) for v in pyr]
+    grids = []
+    for i, v in enumerate(lib_in):
+        x = (coords.reshape(n, 1) / 2**i + dx).reshape(n, 1, 2 * r + 1, 1)
+        x = 2 * x / (v.shape[-1] - 1) - 1
+        grids.append(torch.cat([x, torch.zeros_like(x)], dim=-1))
+
+    def forward():
+        return [F.grid_sample(v, g, mode="bilinear", padding_mode="zeros", align_corners=True)
+                for v, g in zip(lib_in, grids)]
+
+    return forward, lib_in, grids
+
+
+def phase_k1(torch):
+    """K1 vs its plain version: every level count, dtype pair and shape
+    below, the output's dtype and strides those of
+    ``plain.permute(0, 3, 1, 2).to(dt)``; device times (a CUDA graph) at the
+    frame and the training step beside their bounds, the plain version and
+    grid_sample."""
+    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup, corr_lookup_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    res = {}
+
+    def hold(label, pyr, coords, r, dt):
+        got = corr_lookup(pyr, coords, r, dt)
+        plain = corr_lookup_plain(pyr, coords, r).permute(0, 3, 1, 2)
+        want = plain.to(dt)
+        check(got.dtype == dt and got.shape == want.shape and got.stride() == want.stride(),
+              f"K1 {label}: {got.dtype} {tuple(got.shape)} strides {got.stride()}, want "
+              f"{want.dtype} {tuple(want.shape)} {want.stride()}")
+        nan = torch.isnan(plain)
+        check(torch.equal(torch.isnan(got), nan), f"K1 {label}: NaN differs from the plain twin")
+        check(int(nan.sum()) == 3 * plain.shape[1], f"K1 {label}: {int(nan.sum())} NaN outputs")
+        err = float((got.float()[~nan] - want.float()[~nan]).abs().max())
+        if dt == torch.float32:
+            # the kernel rounds as the plain version does, tap by tap; 1e-4
+            # of the volume's scale is the JAX package's bound between its
+            # Pallas and materialized lookups (tests/test_pallas_corr.py:105)
+            tol, steps = 1e-4 * max(float(v.abs().max()) for v in pyr), 0.0
+            check(err <= tol, f"K1 {label} max-abs {err} > {tol}")
+        else:
+            # bf16: the plain fp32 value rounded once, within one bf16 step
+            tol, steps = 0.0, bf16_steps(torch, got[~nan], plain[~nan])
+            check(steps <= 1, f"K1 {label}: {steps} bf16 steps from the plain value rounded once")
+        res[label] = (err, tol, steps, bool(torch.equal(got[~nan], want[~nan])))
+
+    for shape, widths, pairs in (
+            (K1_RAGGED, K1_RAGGED_W2, ((F32, F32), (BF16, BF16), (F32, BF16), (BF16, F32))),
+            (K1_FRAME, K1_FRAME_W2, ((F32, F32), (BF16, BF16), (F32, BF16))),
+            (TRAIN_SHAPE, TRAIN_W2, ((F32, F32), (BF16, BF16)))):
+        for vol, out in pairs:
+            pyr, coords = k1_inputs(torch, gen, shape, widths, getattr(torch, vol))
+            hold(f"{'x'.join(map(str, shape))} {vol}->{out}", pyr, coords, 4,
+                 getattr(torch, out))
+    # beyond RAFT's 4 levels and radius 4: 5 levels, radius 12
+    for vol, out in ((F32, F32), (BF16, BF16)):
+        pyr, coords = k1_inputs(torch, gen, (2, 16, 180), (180, 90, 45, 22, 11),
+                                getattr(torch, vol))
+        hold(f"2x16x180 L 5 r 12 {vol}->{out}", pyr, coords, 12, getattr(torch, out))
+
+    r = 4
+    times = {}
+    for name, shape, widths in (("frame", K1_FRAME, K1_FRAME_W2), ("step", TRAIN_SHAPE, TRAIN_W2)):
+        pyr, coords = k1_inputs(torch, gen, shape, widths, torch.bfloat16)
+        bf = torch.bfloat16
+
+        def run():
+            return corr_lookup(pyr, coords, r, bf)
+
+        def plain():
+            return corr_lookup_plain(pyr, coords, r).permute(0, 3, 1, 2).to(bf)
+
+        library, lib_in, grids = k1_library(torch, pyr, coords, r)
+        lib = torch.cat([o.view(*shape, 2 * r + 1) for o in library()], dim=-1)
+        ok = ~torch.isnan(coords[..., 0])
+        lib_err = float((lib[ok] - corr_lookup_plain(pyr, coords, r)[ok]).abs().max())
+        nbytes = k1_fwd_bytes(torch, pyr, coords, r, bf)
+        out_bytes = coords.numel() * len(pyr) * (2 * r + 1) * 2
+        sector_bytes = k1_sector_bytes(torch, pyr, coords, r) + coords.numel() * 4 + out_bytes
+        times[name] = dict(sector_ms=sector_bytes / HBM_BYTES_PER_S * 1e3,
+                           sector_mb=sector_bytes / 1e6,
+                           
+            ms=graph_ms(torch, run, 50), kernel_ms=cuda_ms(torch, run, 200),
+            plain_ms=graph_ms(torch, plain, 5), library_ms=graph_ms(torch, library, 20),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, mb=nbytes / 1e6, lib_err=lib_err)
+        del pyr, coords, lib_in, grids, lib
+    errs = " | ".join(f"{k} {e:.2e} (" + (f"{s:.0f} bf16 steps, tol 1" if "->bf" in k else
+                                             f"tol {t:.1e}") + f"{', bit-equal' if eq else ''})"
+                      for k, (e, t, s, eq) in res.items())
+    print(f"K1 corr_lookup: max_abs vs plain.permute(0, 3, 1, 2).to(dt) {errs}; NaN "
+          f"coordinates NaN in all their outputs as in the plain version")
+    for name, t in times.items():
+        shape = K1_FRAME if name == "frame" else TRAIN_SHAPE
+        print(f"K1 corr_lookup at the {name}, bf16 -> bf16 {shape}: device ms {t['ms']:.4f} "
+              f"(one CUDA graph of 50 launches) | kernel_ms {t['kernel_ms']:.4f} (200 calls "
+              f"back to back: the host's time a call) | plain_ms {t['plain_ms']:.4f} | "
+              f"library_ms {t['library_ms']:.4f} (grid_sample over the four levels, fp32; "
+              f"max_abs vs plain {t['lib_err']:.2e}) | bound_ms {t['bound_ms']:.4f} (bytes, "
+              f"{t['mb']:.2f} MB), {t['bound_ms'] / t['ms']:.0%} of it | the same reads in "
+              f"32-byte sectors: {t['sector_mb']:.2f} MB, {t['sector_ms']:.4f} ms, "
+              f"{t['sector_ms'] / t['ms']:.0%} of the kernel's time")
+    f = times["frame"]
+    return dict(ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"], bound_by="bytes",
+                library_ms=f["library_ms"], max_abs_err=max(e for e, *_ in res.values()),
+                step={k: times["step"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
 
 
 def k2_bound(B, H, W, v_and_h):
@@ -583,79 +781,152 @@ TRAIN_SHAPE = (8, 80, 180)  # 1/4 resolution of the 8x320x720 training crops
 TRAIN_W2 = (180, 90, 45, 22)
 
 
+def k1_bwd_bytes(torch, coords, widths, r, g_dtype, vol_dtype):
+    """Bytes the backward must move for these inputs: every d/dvolume entry
+    written once (zeros included), the g taps that land on at least one
+    in-range entry (all of a NaN coordinate's), the coordinates."""
+    taps = 2 * r + 1
+    out_bytes = coords.numel() * sum(widths) * vol_dtype.itemsize
+    nan = torch.isnan(coords)
+    c = coords.nan_to_num(0.0)
+    k = torch.arange(taps, device="cuda")
+    g_read = 0
+    for i, w2 in enumerate(widths):
+        x0 = torch.floor((c / 2**i).clamp(-(r + 2), w2 + r + 1) - r) + k
+        read = ((x0 >= 0) & (x0 < w2)) | ((x0 + 1 >= 0) & (x0 + 1 < w2)) | nan
+        g_read += int(read.sum()) * g_dtype.itemsize
+    return out_bytes + g_read + coords.numel() * 4
+
+
 def phase_k1_bwd(torch):
-    """K1 backward vs its plain version at the training shapes, and the
-    adjoint check against the forward kernel."""
+    """K1 backward vs its plain version at the training step, the frame, a
+    ragged shape and 5 levels with radius 12, NaN coordinates included; two
+    launches bit for bit; the adjoint check against the forward kernel;
+    device times beside the bound, the plain version and grid_sample's
+    backward."""
     from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import (
         corr_lookup, corr_lookup_bwd, corr_lookup_bwd_plain)
 
-    B, H, W1 = TRAIN_SHAPE
-    r = 4
-    taps = 2 * r + 1
     gen = torch.Generator(device="cuda").manual_seed(4)
-    coords = torch.rand((B, H, W1, 1), generator=gen, device="cuda") * (W1 + 40) - 20
-    coords.view(-1)[:8] = torch.tensor([-1e9, 1e9, 3e7, -0.5, -1.0, 0.0, 17.0, W1 - 1.0])
-    g = torch.randn((B, H, W1, len(TRAIN_W2) * taps), generator=gen, device="cuda")
     res = {}
-    for dt in (torch.float32, torch.bfloat16):
-        meta = [((B, H, W1, w2), dt) for w2 in TRAIN_W2]
+
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    def hold(label, shape, widths, r, g_dt, vol_dt):
+        _, coords = k1_inputs(torch, gen, shape, (), vol_dt)
+        g = torch.randn((*shape, len(widths) * (2 * r + 1)), generator=gen,
+                        device="cuda").to(g_dt)
+        meta = [((*shape, w2), vol_dt) for w2 in widths]
         got = corr_lookup_bwd(meta, coords, g, r)
+        again = corr_lookup_bwd(meta, coords, g, r)
         want = corr_lookup_bwd_plain(meta, coords, g, r)
-        check([d.dtype for d in got] == [dt] * 4, f"K1 bwd output dtypes {[d.dtype for d in got]}")
-        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
-        if dt == torch.float32:
-            # the kernel shares one fractional weight per (pixel, level); the
-            # plain version rounds each tap position (< 256 here) on its
-            # own: <= 2 * 2^-17 of |g| per entry
-            tol = 1e-4 * float(g.abs().max())
+        check([d.dtype for d in got] == [vol_dt] * len(widths),
+              f"K1 bwd {label}: output dtypes {[d.dtype for d in got]}")
+        check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)),
+              f"K1 bwd {label}: two launches differ")
+        nan_pix = torch.isnan(coords[..., 0])
+        errs = []
+        for a, b in zip(got, want):
+            nan = torch.isnan(b)
+            check(torch.equal(torch.isnan(a), nan) and bool(nan[nan_pix].all()),
+                  f"K1 bwd {label}: NaN rows differ from the plain twin's")
+            errs.append(float((a.float()[~nan] - b.float()[~nan]).abs().max()))
+        if vol_dt == torch.float32:
+            # the kernel and the plain version weight each tap from the
+            # same rounded position; their fp32 sums differ in the last bits
+            tol = 1e-4 * float(g.float().abs().max())
         else:
             # one bf16 rounding of fp32 sums that may differ in their last
             # bits: one bf16 step (2^-8) can flip
-            tol = 2**-7 * max(float(b.float().abs().max()) for b in want)
-        check(err <= tol, f"K1 bwd {dt} max-abs {err} > {tol}")
-        res[dt] = err
-        del got, want
+            tol = 2**-7 * max(float(b.float()[~torch.isnan(b)].abs().max()) for b in want)
+        check(max(errs) <= tol, f"K1 bwd {label} max-abs {max(errs)} > {tol}")
+        res[label] = (max(errs), tol)
 
-    # adjoint: <K1(v), g> == <v, K1^T(g)>, both kernels, fp64 sums
-    pyr = [torch.randn((B, H, W1, w2), generator=gen, device="cuda") for w2 in TRAIN_W2]
+    for shape, widths, pairs in (
+            (TRAIN_SHAPE, TRAIN_W2, ((F32, F32), (BF16, BF16), (F32, BF16))),
+            (K1_FRAME, K1_FRAME_W2, ((F32, F32), (BF16, BF16))),
+            (K1_RAGGED, K1_RAGGED_W2, ((F32, F32), (BF16, BF16), (F32, BF16), (BF16, F32)))):
+        for g_dt, vol_dt in pairs:
+            hold(f"{'x'.join(map(str, shape))} g {g_dt} vol {vol_dt}", shape, widths, 4,
+                 getattr(torch, g_dt), getattr(torch, vol_dt))
+    for dt in (F32, BF16):
+        hold(f"2x16x180 L 5 r 12 {dt}", (2, 16, 180), (180, 90, 45, 22, 11), 12,
+             getattr(torch, dt), getattr(torch, dt))
+
+    # adjoint: <K1(v), g> == <v, K1^T(g)>, both kernels, fp32, fp64 sums
+    # (finite coordinates: a NaN one makes both sides NaN)
+    r = 4
+    pyr, coords = k1_inputs(torch, gen, TRAIN_SHAPE, TRAIN_W2, torch.float32)
+    coords = coords.nan_to_num(7.5)
+    g = torch.randn((*TRAIN_SHAPE, len(TRAIN_W2) * (2 * r + 1)), generator=gen, device="cuda")
     with torch.no_grad():
         out = corr_lookup(pyr, coords, r)
     dv = corr_lookup_bwd([(v.shape, v.dtype) for v in pyr], coords, g, r)
-    lhs = float((out.double() * g.double()).sum())
+    lhs = float((out.permute(0, 2, 3, 1).double() * g.double()).sum())
     rhs = float(sum((v.double() * d.double()).sum() for v, d in zip(pyr, dv)))
     adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
     check(adj <= 1e-5, f"K1 adjoint check: relative {adj} > 1e-5")
     del pyr, out, dv
 
-    meta = [((B, H, W1, w2), torch.bfloat16) for w2 in TRAIN_W2]
-    ms = cuda_ms(torch, lambda: corr_lookup_bwd(meta, coords, g, r), 100)
-    plain_ms = cuda_ms(torch, lambda: corr_lookup_bwd_plain(meta, coords, g, r), 3)
-    # what autograd adds per iteration: summing one iteration's four dense
-    # d/dvolume tensors into the running d/dpyramid (15 such sums per step)
-    acc = corr_lookup_bwd(meta, coords, g, r)
-    new = corr_lookup_bwd(meta, coords, g, r)
-    accum_ms = cuda_ms(torch, lambda: [a.add_(b) for a, b in zip(acc, new)], 20)
-    del acc, new
-    # bytes this run needs: every dvol entry written once (zeros included),
-    # the g taps that land on at least one in-range entry, the coords
-    out_bytes = sum(B * H * W1 * w2 * 2 for w2 in TRAIN_W2)
-    g_read = 0
-    k = torch.arange(taps, device="cuda")
-    for i, w2 in enumerate(TRAIN_W2):
-        p0 = (coords / 2**i - r).clamp(-(taps + 2), w2 + 1)
-        x0 = torch.floor(p0) + k
-        g_read += int((((x0 >= 0) & (x0 < w2)) | ((x0 + 1 >= 0) & (x0 + 1 < w2))).sum()) * 4
-    nbytes = out_bytes + g_read + coords.numel() * 4
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"K1 corr_lookup_bwd: max_abs fp32 {res[torch.float32]:.3e} (tol 1e-4*max|g|) bf16 "
-          f"{res[torch.bfloat16]:.3e} (tol 2^-7*max|dvol|) | adjoint rel {adj:.2e} (tol 1e-5) | "
-          f"bf16 pyramid {TRAIN_SHAPE} W2 {TRAIN_W2}: kernel_ms {ms:.4f} plain_ms {plain_ms:.3f} "
-          f"library_ms none (no single PyTorch call computes the four-level transposed lookup) "
-          f"bound_ms {bound_ms:.4f} ({nbytes / 1e6:.2f} MB: {out_bytes / 1e6:.2f} written) | "
-          f"autograd's sum of one iteration's d/dpyramid into the running one: {accum_ms:.4f} ms "
-          f"(x15 per step: {15 * accum_ms:.3f} ms)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=None,
-                max_abs_err=max(res.values()))
+    times = {}
+    bf = torch.bfloat16
+    for name, shape, widths in (("step", TRAIN_SHAPE, TRAIN_W2), ("frame", K1_FRAME, K1_FRAME_W2)):
+        pyr, coords = k1_inputs(torch, gen, shape, widths, bf)
+        g = torch.randn((*shape, len(widths) * (2 * r + 1)), generator=gen, device="cuda").to(bf)
+        meta = [(v.shape, v.dtype) for v in pyr]
+
+        def run():
+            return corr_lookup_bwd(meta, coords, g, r)
+
+        def plain():
+            return corr_lookup_bwd_plain(meta, coords, g, r)
+
+        # the yardstick: grid_sample's backward for the volumes, one call a
+        # level, on phase 2's fp32 copies, its d/dvolume in fp32
+        _, lib_in, grids = k1_library(torch, pyr, coords.nan_to_num(0.0), r)
+        gouts = [t.reshape(-1, 1, 1, 2 * r + 1).float().contiguous()
+                 for t in g.split(2 * r + 1, dim=-1)]
+
+        def library():
+            return [torch.ops.aten.grid_sampler_2d_backward(
+                go, v, gr, 0, 0, True, [True, False])[0]
+                for go, v, gr in zip(gouts, lib_in, grids)]
+
+        nbytes = k1_bwd_bytes(torch, coords, widths, r, bf, bf)
+        times[name] = dict(
+            ms=graph_ms(torch, run, 20), kernel_ms=cuda_ms(torch, run, 100),
+            plain_ms=graph_ms(torch, plain, 2, 1), library_ms=graph_ms(torch, library, 5),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, mb=nbytes / 1e6,
+            written=coords.numel() * sum(widths) * 2 / 1e6)
+        if name == "step":
+            # what autograd adds per iteration: summing one iteration's four
+            # dense d/dvolume tensors into the running d/dpyramid (15 such
+            # sums per step)
+            acc, new = run(), run()
+            times[name]["accum_ms"] = cuda_ms(torch, lambda: [a.add_(b) for a, b in zip(acc, new)],
+                                              20)
+            del acc, new
+        del pyr, coords, g, lib_in, grids, gouts
+    errs = " | ".join(f"{k} {e:.2e} (tol {t:.1e})" for k, (e, t) in res.items())
+    print(f"K1 corr_lookup_bwd: max_abs vs plain {errs} (tol 1e-4 x max|g| fp32 levels, "
+          f"2^-7 x max|dvol| bf16); NaN rows as in the plain version; two launches bit for bit "
+          f"| adjoint rel {adj:.2e} (tol 1e-5)")
+    for name, t in times.items():
+        shape, widths = (TRAIN_SHAPE, TRAIN_W2) if name == "step" else (K1_FRAME, K1_FRAME_W2)
+        accum = (f" | autograd's sum of one iteration's d/dpyramid into the running one: "
+                 f"{t['accum_ms']:.4f} ms (x15 per step: {15 * t['accum_ms']:.3f} ms)"
+                 if "accum_ms" in t else "")
+        print(f"K1 corr_lookup_bwd at the {name}, g bf16, levels bf16 {shape} W2 {widths}: "
+              f"device ms {t['ms']:.4f} (one CUDA graph of 20 launches) | kernel_ms "
+              f"{t['kernel_ms']:.4f} (100 calls back to back) | plain_ms {t['plain_ms']:.3f} | "
+              f"library_ms {t['library_ms']:.4f} (grid_sample's backward for the volumes, fp32, "
+              f"one call a level) | bound_ms {t['bound_ms']:.4f} (bytes, {t['mb']:.2f} MB: "
+              f"{t['written']:.2f} written), {t['bound_ms'] / t['ms']:.0%} of it{accum}")
+    st = times["step"]
+    return dict(ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"], bound_by="bytes",
+                library_ms=st["library_ms"], max_abs_err=max(e for e, _ in res.values()),
+                frame={k: times["frame"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
 
 
 K2_VJP_IMAGE = (16, 320, 720)  # the fnet's pair batch of the 8x320x720 training crops
@@ -1067,9 +1338,12 @@ def phase_train(torch, train_cfg, card):
     check(all(c == want for c in per_step), f"launches per step {per_step} != {want}")
     check_moved_and_frozen(torch, state, before, "RAFT")
 
+    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup_bwd
+
     print(f"training path (train.json, bf16, remat, B={B} {H}x{W}, {hyper.train_iters}/"
           f"{hyper.teacher_iters} iters, {TRAIN_STEPS} steps after 1 warm-up): "
-          f"{step_line(run)} | lr {metrics[-1]['learning_rate']:.3e} | {card}")
+          f"{step_line(run)} | lr {metrics[-1]['learning_rate']:.3e} | K1 gradients copied to "
+          f"dense before the backward kernel: {corr_lookup_bwd.g_copies} | {card}")
     profile_step(torch, state, step, gen, (B, H, W), run["ms"].mean(),
                  "chip_smoke_train_profile.txt", "training")
     del state, step
@@ -1079,6 +1353,24 @@ def phase_train(torch, train_cfg, card):
 
 IGEV_SHAPE = (1, 184, 320)  # 1/4 resolution of the 736x1280 main path
 IGEV_D = 48  # max_disp 192 / 4
+
+
+def k4_bytes(torch, geo, cor, disp, coords, r):
+    """(bytes, output bytes) one K4 launch must move for these inputs: the
+    in-range geo slots (C values each) and corr entries that the taps read,
+    disp and coords, the fp32 output."""
+    B, H, W1, _, C = geo[0].shape
+    taps = 2 * r + 1
+    taps_read = 0
+    j = torch.arange(taps + 1, device="cuda")
+    d = disp.clamp(-1e6, 1e6)
+    for i in range(len(geo)):
+        for x, n, per in ((d / 2**i, geo[i].shape[3], C),
+                          ((coords - d) / 2**i, cor[i].shape[3], 1)):
+            idx = torch.floor(x - r) + j
+            taps_read += int(((idx >= 0) & (idx < n)).sum()) * per * geo[i].element_size()
+    out_bytes = B * H * W1 * len(geo) * (C + 1) * taps * 4
+    return taps_read + 2 * disp.numel() * 4 + out_bytes, out_bytes
 
 
 def phase_k4(torch):
@@ -1118,18 +1410,27 @@ def phase_k4(torch):
     geo, cor, _ = res["bfloat16"]
     ms = cuda_ms(torch, lambda: geo_lookup(geo, cor, disp, coords, r), 200)
     plain_ms = cuda_ms(torch, lambda: geo_lookup_plain(geo, cor, disp, coords, r), 20)
-    # bytes this run's data needs: the in-range geo slots (C values each)
-    # and corr entries that the taps read, disp and coords, the output
-    taps_read = 0
-    j = torch.arange(taps + 1, device="cuda")
-    d = disp.clamp(-1e6, 1e6)
-    for i in range(L):
-        for x, n, per in ((d / 2**i, geo[i].shape[3], C), ((coords - d) / 2**i, cor[i].shape[3], 1)):
-            idx = torch.floor(x - r) + j
-            taps_read += int(((idx >= 0) & (idx < n)).sum()) * per * geo[i].element_size()
-    out_bytes = B * H * W1 * L * (C + 1) * taps * 4
-    nbytes = taps_read + 2 * disp.numel() * 4 + out_bytes
+    nbytes, out_bytes = k4_bytes(torch, geo, cor, disp, coords, r)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # device times (a CUDA graph): at this frame, and at the IGEV training
+    # step's 8x80x184 (geo D 48/24 x 8, corr W2 184/92)
+    dev_ms = graph_ms(torch, lambda: geo_lookup(geo, cor, disp, coords, r), 50)
+    sB, sH, sW = IGEV_TRAIN_SHAPE
+    sdisp = torch.rand((sB, sH, sW, 1), generator=gen, device="cuda") * (IGEV_D + 20) - 10
+    scoords = torch.arange(sW, dtype=torch.float32, device="cuda").view(1, 1, sW, 1)
+    scoords = scoords.expand(sB, sH, sW, 1).contiguous()
+    sgeo = [torch.randn((sB, sH, sW, IGEV_D >> i, C), generator=gen, device="cuda").to(
+        torch.bfloat16) for i in range(L)]
+    scor = [(4 * torch.randn((sB, sH, sW, sW >> i), generator=gen, device="cuda")).to(
+        torch.bfloat16) for i in range(L)]
+    step_dev = graph_ms(torch, lambda: geo_lookup(sgeo, scor, sdisp, scoords, r), 50)
+    step_bytes, _ = k4_bytes(torch, sgeo, scor, sdisp, scoords, r)
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"K4 geo_lookup device ms (one CUDA graph of 50 launches), bf16: frame {IGEV_SHAPE} "
+          f"{dev_ms:.4f} (bound {bound_ms:.4f}, {bound_ms / dev_ms:.0%}) | training step "
+          f"{IGEV_TRAIN_SHAPE} {step_dev:.4f} (bound {step_bound:.4f}, {step_bytes / 1e6:.2f} MB, "
+          f"{step_bound / step_dev:.0%})")
+    del sgeo, scor
 
 
     print(f"K4 geo_lookup: max_abs fp32 {res['float32'][2]:.3e} bf16 {res['bfloat16'][2]:.3e} "
@@ -1139,7 +1440,8 @@ def phase_k4(torch):
           f"the two-volume, two-level lookup) bound_ms {bound_ms:.4f} ({nbytes / 1e6:.2f} MB: "
           f"{out_bytes / 1e6:.2f} written)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                library_ms=None, max_abs_err=max(e for _, _, e in res.values()))
+                library_ms=None, max_abs_err=max(e for _, _, e in res.values()),
+                device_ms=dev_ms, step=dict(ms=step_dev, bound_ms=step_bound))
 
 
 # IGEV trains at 320x736, not the trainer's default 320x720: its hourglass
@@ -1906,6 +2208,18 @@ def phase_k5(torch):
         check(float((got_g - want_g).abs().max()) <= 1e-5 * float(want_g.abs().max()) + 1e-7,
               "K5 autograd gradients differ from the plain backward")
 
+    # device times (a CUDA graph): at the frame above, and at the PCV
+    # training step's 8x80x180 (widths 180/45/11)
+    frame_dev = graph_ms(torch, lambda: gaussian_row_sample(levels, pos, cf), 50)
+    slevels, spos, _ = _k5_inputs(torch, gen, TRAIN_SHAPE, cf, torch.bfloat16)
+    step_dev = graph_ms(torch, lambda: gaussian_row_sample(slevels, spos, cf), 50)
+    step_bound, step_mb = k5_bound(torch, slevels, spos, cf)
+    print(f"K5 gaussian_row_sample device ms (one CUDA graph of 50 launches), bf16: frame "
+          f"{PCV_SHAPE} {frame_dev:.4f} (bound {bound_ms:.4f}, {bound_ms / frame_dev:.0%}) | "
+          f"training step {TRAIN_SHAPE} widths {[v.shape[-1] for v in slevels]} {step_dev:.4f} "
+          f"(bound {step_bound:.4f}, {step_mb:.2f} MB, {step_bound / step_dev:.0%})")
+    del slevels, spos
+
     errs = " ".join(f"{s[0]}x{s[1]}x{s[2]} {str(d).split('.')[-1]} {e:.3e} (tol {t:.2e})"
                     for (s, d), (e, t) in res.items())
     print(f"K5 gaussian_row_sample: max_abs {errs} (tol 1e-4 x max|plain|; NaN position -> "
@@ -1915,7 +2229,8 @@ def phase_k5(torch):
           f"{mb:.2f} MB) | with inputs that require grad: 1 forward and 1 backward launch, "
           "gradients equal to the plain backward's")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                library_ms=lib_ms, max_abs_err=max(e for e, _ in res.values()))
+                library_ms=lib_ms, max_abs_err=max(e for e, _ in res.values()),
+                device_ms=frame_dev, step=dict(ms=step_dev, bound_ms=step_bound))
 
 
 def phase_pcv_parity(torch, configs):

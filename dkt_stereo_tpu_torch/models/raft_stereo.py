@@ -9,16 +9,19 @@ NCHW and refinement is a Python loop.
 
 Mixed precision follows the JAX package (and the reference's autocast): the
 normalised images are cast to bf16, encoders and GRUs run under bf16
-autocast, the fmaps are cast to ``corr_dtype`` before the pyramid, and the
-lookup, the coordinates and the convex upsampling stay fp32. Only the x
-component of the GRU's delta is kept, and the flow fed back to the motion
-encoder has a zero y channel.
+autocast, the fmaps are cast to ``corr_dtype`` before the pyramid, the
+lookup interpolates in fp32 and is rounded once to the compute dtype for the
+motion encoder (JAX's ``corr.astype(dt)``), and the coordinates and the
+convex upsampling stay fp32. Only the x component of the GRU's delta is
+kept, and the flow fed back to the motion encoder has a zero y channel.
 
 Correlation modes, in both modes of the model:
 
   - ``reg`` and ``reg_cuda`` build the volume pyramid once; on CUDA tensors
-    both look it up through the K1 kernel and differentiate it through K1's
-    backward (``ops/cuda/corr_lookup.py``).
+    both look it up through the K1 kernel, which writes the motion
+    encoder's input in the compute dtype, and differentiate it through K1's
+    backward, which reads its gradient in that dtype
+    (``ops/cuda/corr_lookup.py``).
   - ``alt_cuda`` keeps no volume: the pyramid is the right features pooled
     in the corr dtype (bf16 under mixed precision), and every iteration
     recomputes its taps from them and fmap1, through the K3 kernel on CUDA
@@ -151,12 +154,17 @@ class RAFTStereo(nn.Module):
         return torch.autocast(device.type, dtype=torch.bfloat16)
 
     def _lookup(self, fmap1, pyramid, coords1):
-        r = self.cfg.corr_radius
+        """The motion encoder's correlation input: (B, L*(2r+1), H, W) in the
+        compute dtype, channels last in memory. K1 writes it so itself; the
+        no-volume lookups' NHWC fp32 output is permuted and cast."""
+        r, dt = self.cfg.corr_radius, self.cfg.compute_dtype
         if self.cfg.corr_implementation == "alt_cuda":
-            return corr_lookup_alt(fmap1, pyramid, coords1, r)
-        if self.cfg.corr_implementation == "alt":
-            return corr_lookup_alt_plain(fmap1, pyramid, coords1, r)
-        return corr_lookup(pyramid, coords1, r)
+            corr = corr_lookup_alt(fmap1, pyramid, coords1, r)
+        elif self.cfg.corr_implementation == "alt":
+            corr = corr_lookup_alt_plain(fmap1, pyramid, coords1, r)
+        else:
+            return corr_lookup(pyramid, coords1, r, dt)
+        return corr.permute(0, 3, 1, 2).to(dt)
 
     def _iteration(self, net, inp, fmap1, pyramid, coords0, coords1, with_mask: bool,
                    upsample: bool):
@@ -181,7 +189,7 @@ class RAFTStereo(nn.Module):
                 net = self.update_block(net, inp, iter32=n == 3, iter16=True, iter08=False,
                                         update=False)
             net, mask, delta = self.update_block(
-                net, inp, corr.permute(0, 3, 1, 2).to(dt), flow2.to(dt),
+                net, inp, corr, flow2.to(dt),
                 iter32=n == 3, iter16=n >= 2, with_mask=with_mask,
             )
         # stereo: only the x component of the delta survives

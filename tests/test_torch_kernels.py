@@ -44,9 +44,12 @@ def test_corr_lookup_plain_matches_pallas(rng, dtype):
         corr_lookup_pallas(tuple(jnp.asarray(v, jdt) for v in pyr), jnp.asarray(coords), 4, True)
     )
     tdt = getattr(torch, dtype)
+    # the wrapper returns the motion encoder's NCHW view of a dense NHWC
+    # tensor, fp32 by default
     got = corr_lookup([_t(v).to(tdt) for v in pyr], _t(coords), 4)
-    assert got.dtype == torch.float32 and got.shape == want.shape == (1, 8, 32, 36)
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    assert got.dtype == torch.float32 and got.shape == (1, 36, 8, 32)
+    assert want.shape == (1, 8, 32, 36) and got.permute(0, 2, 3, 1).is_contiguous()
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=1e-5)
 
 
 def _jax_stage(u, a, b, w_hwio, v=None, a2=None, b2=None, emit_h=False, rb=8):

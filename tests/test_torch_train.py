@@ -237,15 +237,16 @@ def test_corr_lookup_bwd_plain_matches_pallas_vjp(k1_case):
 
 def test_corr_lookup_autograd_function_matches_pallas_vjp(k1_case):
     """Autograd through ``CorrLookup`` on CPU tensors (its plain forward and
-    backward) against the same VJP, with a strided incoming gradient as the
-    model's permute gives it; the coordinates get no gradient."""
+    backward) against the same VJP, with an NCHW-contiguous incoming
+    gradient, strided in the (B, H, W, C) layout the kernel reads; the
+    coordinates get no gradient."""
     dtype, (pyr, coords, g, want) = k1_case
     levels = [v.clone().requires_grad_(True) for v in pyr]
     coords = coords.clone().requires_grad_(True)
-    out = CorrLookup.apply(coords, 4, *levels)
-    assert out.dtype == torch.float32 and out.shape == (1, 4, 16, 36)
-    strided = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-    assert not strided.is_contiguous()
+    out = CorrLookup.apply(coords, 4, torch.float32, *levels)
+    assert out.dtype == torch.float32 and out.shape == (1, 36, 4, 16)
+    strided = g.permute(0, 3, 1, 2).contiguous()
+    assert not strided.permute(0, 2, 3, 1).is_contiguous()
     out.backward(strided)
     assert coords.grad is None
     assert [v.grad.dtype for v in levels] == [pyr[0].dtype] * 4
