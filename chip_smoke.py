@@ -11,8 +11,8 @@ out-of-tolerance result raises and exits non-zero:
      dkt_stereo_tpu_torch/csrc with nvcc (in parallel), times the build and
      prints each kernel's registers, spills and static shared memory as
      ptxas reported them, and the dynamic shared memory of K2's forward and
-     K3 blocks, and of K1's forward and backward blocks (checked against the
-     wrapper's plan);
+     K3 blocks, and of the K1 forward and backward, K4 forward and backward
+     and K5 forward blocks (each checked against the wrapper's plan);
   2. K1 (corr lookup) vs its plain version, the output's dtype and strides
      those of plain.permute(0, 3, 1, 2).to(dt), bf16 within one bf16 step of
      the plain value rounded once: at the frame's 1x184x320 (W2
@@ -66,15 +66,22 @@ out-of-tolerance result raises and exits non-zero:
      to dense (0 with cuDNN's channels-last gradients), a profile of one
      step and an estimate of the untraced idle share;
  10. K4 (IGEV geo lookup) vs its plain version at the IGEV main path's
-     shapes (1x184x320, geo D 48/24 x 8 channels, corr W2 320/160), bf16 and
-     fp32 pyramids, disparities far out of range, negative, above D and NaN
+     shapes (1x184x320, geo D 48/24 x 8 channels, corr W2 320/160) and past
+     the kernels' former caps (5 levels at radius 12), bf16 and fp32
+     pyramids, disparities far out of range, negative, above D and NaN
      included; device times (a CUDA graph) at this frame and at the IGEV
-     training step's 8x80x184 beside their bounds;
+     training step's 8x80x184 beside their bounds, the plain version and
+     upstream IGEV's grid_sample form (one call a volume and level); the
+     register window against the sliding window at radius 4, the latter
+     built from the kernel's source with the register path turned off,
+     in turns (register, sliding, register, sliding);
  11. K4's backward (the dgeo and the dcorr kernel) vs its plain version at
-     the IGEV training shapes (8x80x184, geo D 48/24 x 8, corr W2 184/92),
-     bf16 and fp32 pyramids, the same hostile disparities (NaN gives
-     zeros), the adjoint check <K4(v), g> = <v, K4^T(g)> against the
-     forward kernel, and the time autograd spends summing the
+     the IGEV training shapes (8x80x184, geo D 48/24 x 8, corr W2 184/92)
+     and at 5 levels with radius 12, bf16 and fp32 pyramids, the same
+     hostile disparities (NaN gives zeros), the adjoint check <K4(v), g> =
+     <v, K4^T(g)> against the forward kernel at both; device times (a CUDA
+     graph) beside the bound, the plain version and grid_sample's backward
+     for the volumes; and the time autograd spends summing the
      per-iteration d/dgeo in bf16;
  12. IGEV parity, kernels (card) vs plain path (CPU): fp32, corr_dtype
      float32, TF32 off, 1x256x512, 2 iterations;
@@ -116,15 +123,22 @@ out-of-tolerance result raises and exits non-zero:
      persistent bytes against the volume pyramid, a profile of one frame
      (chiprun_out/chip_smoke_alt_profile.txt) with K3's and K2's time a
      launch, and one pallas.json (reg_cuda) frame at the same size;
- 20. K5 (PCVNet's Gaussian row sampling, every level in one launch) vs its
-     plain version at base.json's 1/4 grid of 736x1280 (1x184x320, widths
-     320/80/20), at fast.json's 1/8 grid (1x92x160, widths 160/80/40) and
-     at a ragged 2x7x37 (widths 37/9/2), bf16 and fp32 volumes, positions
-     of a random mixture plus negative, past-the-row, far out of range,
-     exact-integer and NaN ones (NaN gives zeros), with grid_sample over
-     the three levels as yardstick; device times (a CUDA graph) at the frame
-     and at the PCV training step's 8x80x180 beside their bounds; K5's
-     autograd Function launching the backward;
+ 20. K5 (PCVNet's Gaussian row sampling, every level in one launch,
+     writing the motion encoder's folded input in the compute dtype) vs
+     fold_lookup(plain).to(dt), bit for bit, dtype, shape and strides
+     included, at base.json's 1/4 grid of 736x1280 (1x184x320, widths
+     320/80/20), fast.json's 1/8 grid (1x92x160, widths 160/80/40), the PCV
+     training step's 8x80x180 (180/45/11) and a ragged 2x7x37 (37/9/2), fp32
+     and bf16 volumes and outputs, positions of a
+     random mixture plus negative, past-the-row, far out of range,
+     exact-integer and NaN ones (NaN where the plain version has NaN);
+     device times (a CUDA graph) at the frame and the step beside their
+     bounds, the plain version, grid_sample over the three levels and a
+     device copy of the kernel's bytes; the motion encoder on the kernel's
+     channels-last output and on an NCHW copy of it (device time, kernels by
+     bucket); K5's autograd Function launching the backward, and copying an
+     NCHW gradient once; a step past the backward's limits refused before
+     its forward launches;
  21. PCVNet parity: base.json and fast.json in fp32, TF32 off, 1x256x512,
      2 iterations, exactly 2 K5 launches each; K5 vs the plain lookup with
      the rest of the model on the card, and kernels (card) vs plain path
@@ -136,14 +150,16 @@ out-of-tolerance result raises and exits non-zero:
      (chiprun_out/chip_smoke_pcv_profile.txt); then fast.json at the same
      size, 1 warm-up and 5 timed frames, 32 K5 a frame;
  23. K5's backward (csrc/row_sample_bwd.cu: dvol of every level and dpos in
-     one launch, a warp a pixel, taps binned by column) vs its plain
-     version at the PCV training grid (8x80x180, widths 180/45/11), the
-     inference grid (1x184x320) and a ragged 2x7x37,
-     bf16 and fp32 levels, the hostile positions of phase 20 (NaN gives no
-     contribution), two launches bit for bit, the adjoint check <K5(v), g>
-     = <v, K5^T(g)> against the forward kernel, the backward of grid_sample
-     over the three levels as yardstick, and the time autograd spends
-     summing the per-iteration dvol in bf16;
+     one launch, a warp a pixel, taps binned by column, g read folded and
+     in the compute dtype) vs its plain version at the PCV training grid
+     (8x80x180, widths 180/45/11), the inference grid (1x184x320) and a
+     ragged 2x7x37, bf16 and fp32 levels and gradients, the hostile
+     positions of phase 20 (NaN gives no contribution), two launches bit
+     for bit, the adjoint check <K5(v), g> = <v, K5^T(g)> against the
+     forward kernel, device times (a CUDA graph) beside the bound, the
+     plain version and grid_sample's backward over the three levels, the
+     unfold copy and fp32 cast that an unfolded gradient would need, and
+     the time autograd spends summing the per-iteration dvol in bf16;
  24. PCV DKT train-step parity: base.json in fp32, TF32 off, 1x64x128, 2
      student and 2 teacher iterations (exact counts: 6 K5, 2 K5 backward),
      kernels vs the plain lookup both on the card and card vs the CPU with
@@ -316,9 +332,37 @@ def smem_line():
               f"K1's shared-memory plan at L {L} r {r} differs from the wrapper's mirror")
         k1_rows.append(f"L {L} r {r} {'bf16' if vb else 'fp32'}->{'bf16' if ob else 'fp32'} "
                        f"fwd {pf} pixels {fbytes} B, bwd {pb} pixels {bbytes} B")
+    # K4's and K5's plans likewise
+    from dkt_stereo_tpu_torch.ops.cuda import geo_lookup as k4
+    from dkt_stereo_tpu_torch.ops.cuda import row_sample as k5
+
+    k4f = _build.load("geo_lookup").geo_lookup_smem_bytes
+    k4b = _build.load("geo_lookup_bwd").geo_lookup_bwd_smem_bytes
+    k5f = _build.load("row_sample").row_sample_smem_bytes
+    k4f.restype = k4b.restype = k5f.restype = ctypes.c_longlong
+    k4_rows = []
+    for L, r in ((2, 4), (5, 12)):
+        check(k4f(L, r) == k4.fwd_smem_bytes(L, r), f"K4's forward plan at L {L} r {r} differs")
+        row = f"L {L} r {r} fwd {k4.fwd_smem_bytes(L, r)} B"
+        for part, size in (("geo", 48), ("corr", 184)):
+            pixels, nbytes = k4.bwd_plan(L, r, 8, part, size, 2)
+            check(k4b(L, r, 8, int(part == "geo"), pixels, size, 1) == nbytes,
+                  f"K4's d{part} plan at L {L} r {r} differs from the wrapper's mirror")
+            row += f", d{part} (size {size}, bf16) {pixels} pixels {nbytes} B"
+        k4_rows.append(row)
+    k5_rows = []
+    for widths, vb, ob in (((180, 45, 11), 1, 1), ((320, 80, 20), 1, 1), ((320, 80, 20), 0, 0),
+                           ((160, 80, 40), 1, 1), ((37, 9, 2), 0, 1)):
+        pixels, nbytes = k5.fwd_plan(widths, PCV_G * PCV_S, PCV_G, 2 if vb else 4, 2 if ob else 4)
+        arr = (ctypes.c_int * len(widths))(*widths)
+        check(k5f(arr, len(widths), PCV_G * PCV_S, PCV_G, vb, ob, pixels) == nbytes,
+              f"K5's plan at widths {widths} differs from the wrapper's mirror")
+        k5_rows.append(f"widths {widths} {'bf16' if vb else 'fp32'}->{'bf16' if ob else 'fp32'}"
+                       f" {pixels} pixels {nbytes} B")
     return (f"encoder_stage_fwd_kernel {fwd(0)} B (3 u stages), with v {fwd(1)} B (2 u + 1 v "
             f"stages) | corr_alt_kernel at D {ALT_D} bf16 r 4 {k3_bytes} B, fp32 "
-            f"{k3(ALT_D, 0, 4)} B | K1 " + "; ".join(k1_rows))
+            f"{k3(ALT_D, 0, 4)} B | K1 " + "; ".join(k1_rows) + " | K4 (C 8) "
+            + "; ".join(k4_rows) + " | K5 (K 36) " + "; ".join(k5_rows))
 
 
 def gpu_line():
@@ -1353,6 +1397,32 @@ def phase_train(torch, train_cfg, card):
 
 IGEV_SHAPE = (1, 184, 320)  # 1/4 resolution of the 736x1280 main path
 IGEV_D = 48  # max_disp 192 / 4
+# IGEV trains at 320x736, not the trainer's default 320x720: its hourglass
+# halves the 1/4 grid three times and concatenates each upsampled level with
+# the one before, so the image must be a multiple of 32 (at 720 the 1/32
+# level is 22.5 wide, and the JAX model fails the same way). 736 is
+# upstream IGEV-Stereo's own training width.
+IGEV_TRAIN_IMAGE = (8, 320, 736)
+IGEV_TRAIN_SHAPE = (8, 80, 184)  # its 1/4 grid
+IGEV_TRAIN_D = (IGEV_D, IGEV_D // 2)  # geo pyramid depths
+IGEV_TRAIN_W2 = (IGEV_TRAIN_SHAPE[2], IGEV_TRAIN_SHAPE[2] // 2)  # init-corr pyramid widths
+# past the kernels' former caps of 4 levels and radius 8
+K4_WIDE = dict(shape=(2, 6, 96), depths=(48, 24, 12, 6, 3), widths=(96, 48, 24, 12, 6), r=12)
+
+
+def k4_inputs(torch, gen, shape, depths, widths, dt, C=8):
+    """Seeded geo and corr pyramids in ``dt`` and disparities over [-10, D +
+    10], with far out of range, negative, past-D and NaN ones; coords the
+    pixel's column."""
+    B, H, W1 = shape
+    disp = torch.rand((B, H, W1, 1), generator=gen, device="cuda") * (depths[0] + 20) - 10
+    disp.view(-1)[:9] = torch.tensor([-1e9, 1e9, -3.0, -0.5, 0.0, 17.0, depths[0] - 1.0,
+                                      depths[0] + 0.25, float("nan")])
+    coords = torch.arange(W1, dtype=torch.float32, device="cuda").view(1, 1, W1, 1)
+    coords = coords.expand(B, H, W1, 1).contiguous()
+    geo = [torch.randn((B, H, W1, d, C), generator=gen, device="cuda").to(dt) for d in depths]
+    cor = [(4 * torch.randn((B, H, W1, w), generator=gen, device="cuda")).to(dt) for w in widths]
+    return geo, cor, disp, coords
 
 
 def k4_bytes(torch, geo, cor, disp, coords, r):
@@ -1373,193 +1443,274 @@ def k4_bytes(torch, geo, cor, disp, coords, r):
     return taps_read + 2 * disp.numel() * 4 + out_bytes, out_bytes
 
 
+def k4_library(torch, geo, cor, disp, coords, r):
+    """The yardstick: upstream IGEV-Stereo's form of this lookup
+    (``Combined_Geo_Encoding_Volume`` through ``bilinear_sampler``), one
+    ``F.grid_sample`` a volume and level on fp32 copies, (N, C, 1, D_i) and
+    (N, 1, 1, W2_i) with (N, 1, 2r+1, 2) grids. Returns the forward (four
+    outputs at two levels, geo then corr a level), the inputs and the
+    grids."""
+    import torch.nn.functional as F
+
+    n, taps = disp.numel(), 2 * r + 1
+    dx = torch.arange(-r, r + 1, dtype=torch.float32, device="cuda")
+    lib_in, grids = [], []
+    for i, (gv, cv) in enumerate(zip(geo, cor)):
+        D, C = gv.shape[3], gv.shape[4]
+        lib_in += [gv.float().reshape(n, D, C).permute(0, 2, 1).reshape(n, C, 1, D).contiguous(),
+                   cv.float().reshape(n, 1, 1, cv.shape[3])]
+        for x, size in ((disp.reshape(n, 1) / 2**i + dx, D),
+                        ((coords - disp).reshape(n, 1) / 2**i + dx, cv.shape[3])):
+            x = (2 * x / (size - 1) - 1).reshape(n, 1, taps, 1)
+            grids.append(torch.cat([x, torch.zeros_like(x)], dim=-1))
+
+    def forward():
+        return [F.grid_sample(v, g, mode="bilinear", padding_mode="zeros", align_corners=True)
+                for v, g in zip(lib_in, grids)]
+
+    return forward, lib_in, grids
+
+
+def k4_wide_variant():
+    """K4's forward built from its source with the sliding two-value window
+    at every radius (the register window's test turned off), for an A/B of
+    the two windows at the shipped radius; the loaded library."""
+    from dkt_stereo_tpu_torch.ops.cuda import _build
+
+    src = (_build.CSRC / "geo_lookup.cu").read_text()
+    test = "const bool wide = radius > kMaxRadius;"
+    check(src.count(test) == 1, "K4's source has no single register-window test to turn off")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = _build.BUILD_DIR / "geo_lookup_wide_ab.cu"
+    cu.write_text(src.replace(test, "const bool wide = true;"))
+    so = _build.BUILD_DIR / "libgeo_lookup_wide_ab.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)], check=True,
+                   capture_output=True, timeout=600)
+    return ctypes.CDLL(str(so))
+
+
 def phase_k4(torch):
-    """K4 vs its plain version at the IGEV main path's shapes."""
+    """K4 vs its plain version at the IGEV main path's shapes and past the
+    former caps (5 levels, radius 12); device times (a CUDA graph) at the
+    frame and the training step beside their bounds, the plain version and
+    upstream's grid_sample form; the register window against the sliding
+    window at the shipped radius, alternated in one process."""
+    from dkt_stereo_tpu_torch.ops.cuda import _build
     from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import geo_lookup, geo_lookup_plain
 
-    B, H, W1 = IGEV_SHAPE
-    C, r, L = 8, 4, 2
+    C, r = 8, 4
     taps = 2 * r + 1
     gen = torch.Generator(device="cuda").manual_seed(8)
-    disp = torch.rand((B, H, W1, 1), generator=gen, device="cuda") * (IGEV_D + 20) - 10
-    disp.view(-1)[:9] = torch.tensor([-1e9, 1e9, -3.0, -0.5, 0.0, 17.0, IGEV_D - 1.0,
-                                      IGEV_D + 0.25, float("nan")])
-    coords = torch.arange(W1, dtype=torch.float32, device="cuda").view(1, 1, W1, 1)
-    coords = coords.expand(B, H, W1, 1).contiguous()
-    finite = torch.isfinite(disp[..., 0])
     res = {}
-    for dt in (torch.float32, torch.bfloat16):
-        geo = [torch.randn((B, H, W1, IGEV_D >> i, C), generator=gen, device="cuda").to(dt)
-               for i in range(L)]
-        cor = [(4 * torch.randn((B, H, W1, W1 >> i), generator=gen, device="cuda")).to(dt)
-               for i in range(L)]
-        got = geo_lookup(geo, cor, disp, coords, r)
-        want = geo_lookup_plain(geo, cor, disp, coords, r)
-        check(got.shape == (B, H, W1, L * (C + 1) * taps), f"K4 output shape {tuple(got.shape)}")
+    frame_w2 = (IGEV_SHAPE[2], IGEV_SHAPE[2] // 2)
+    cases = [(f"{'x'.join(map(str, IGEV_SHAPE))} {dt}", IGEV_SHAPE, IGEV_TRAIN_D, frame_w2, r, dt)
+             for dt in (F32, BF16)]
+    cases += [(f"{'x'.join(map(str, K4_WIDE['shape']))} L 5 r 12 {dt}", K4_WIDE["shape"],
+               K4_WIDE["depths"], K4_WIDE["widths"], K4_WIDE["r"], dt) for dt in (F32, BF16)]
+    for label, shape, depths, widths, rr, dt in cases:
+        geo, cor, disp, coords = k4_inputs(torch, gen, shape, depths, widths, getattr(torch, dt))
+        finite = torch.isfinite(disp[..., 0])
+        got = geo_lookup(geo, cor, disp, coords, rr)
+        want = geo_lookup_plain(geo, cor, disp, coords, rr)
+        check(got.shape == (*shape, len(depths) * (C + 1) * (2 * rr + 1)),
+              f"K4 {label} output shape {tuple(got.shape)}")
         # a NaN disparity gives zeros in the kernel (its position is clamped
         # to the far left), NaN in the plain version
-        check(bool((got[~finite] == 0).all()), "K4: a NaN disparity did not give zeros")
+        check(bool((got[~finite] == 0).all()), f"K4 {label}: a NaN disparity did not give zeros")
         err = float((got[finite] - want[finite]).abs().max())
-        vmax = max(float(v.abs().max()) for v in geo + cor)
         # the kernel shares one fractional weight across the taps of a
         # (pixel, level, channel); the plain version rounds each tap position
         # on its own: at positions < 512 that moves a weight by <= 2^-15
-        tol = 1e-4 * vmax
-        check(err <= tol, f"K4 {dt} max-abs {err} > {tol}")
-        res[str(dt).split(".")[-1]] = (geo, cor, err)
-    geo, cor, _ = res["bfloat16"]
-    ms = cuda_ms(torch, lambda: geo_lookup(geo, cor, disp, coords, r), 200)
-    plain_ms = cuda_ms(torch, lambda: geo_lookup_plain(geo, cor, disp, coords, r), 20)
-    nbytes, out_bytes = k4_bytes(torch, geo, cor, disp, coords, r)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    # device times (a CUDA graph): at this frame, and at the IGEV training
-    # step's 8x80x184 (geo D 48/24 x 8, corr W2 184/92)
-    dev_ms = graph_ms(torch, lambda: geo_lookup(geo, cor, disp, coords, r), 50)
-    sB, sH, sW = IGEV_TRAIN_SHAPE
-    sdisp = torch.rand((sB, sH, sW, 1), generator=gen, device="cuda") * (IGEV_D + 20) - 10
-    scoords = torch.arange(sW, dtype=torch.float32, device="cuda").view(1, 1, sW, 1)
-    scoords = scoords.expand(sB, sH, sW, 1).contiguous()
-    sgeo = [torch.randn((sB, sH, sW, IGEV_D >> i, C), generator=gen, device="cuda").to(
-        torch.bfloat16) for i in range(L)]
-    scor = [(4 * torch.randn((sB, sH, sW, sW >> i), generator=gen, device="cuda")).to(
-        torch.bfloat16) for i in range(L)]
-    step_dev = graph_ms(torch, lambda: geo_lookup(sgeo, scor, sdisp, scoords, r), 50)
-    step_bytes, _ = k4_bytes(torch, sgeo, scor, sdisp, scoords, r)
-    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"K4 geo_lookup device ms (one CUDA graph of 50 launches), bf16: frame {IGEV_SHAPE} "
-          f"{dev_ms:.4f} (bound {bound_ms:.4f}, {bound_ms / dev_ms:.0%}) | training step "
-          f"{IGEV_TRAIN_SHAPE} {step_dev:.4f} (bound {step_bound:.4f}, {step_bytes / 1e6:.2f} MB, "
-          f"{step_bound / step_dev:.0%})")
-    del sgeo, scor
+        tol = 1e-4 * max(float(v.abs().max()) for v in geo + cor)
+        check(err <= tol, f"K4 {label} max-abs {err} > {tol}")
+        res[label] = (err, tol)
+        del geo, cor, got, want
 
+    times = {}
+    bf = torch.bfloat16
+    shipped, wide = _build.load("geo_lookup"), k4_wide_variant()
 
-    print(f"K4 geo_lookup: max_abs fp32 {res['float32'][2]:.3e} bf16 {res['bfloat16'][2]:.3e} "
-          f"(tol 1e-4 x the volumes' scale; NaN disparity -> zeros) | bf16 pyramids geo "
-          f"{[tuple(v.shape) for v in geo]} corr {[tuple(v.shape) for v in cor]}: kernel_ms "
-          f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms none (no single PyTorch call computes "
-          f"the two-volume, two-level lookup) bound_ms {bound_ms:.4f} ({nbytes / 1e6:.2f} MB: "
-          f"{out_bytes / 1e6:.2f} written)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                library_ms=None, max_abs_err=max(e for _, _, e in res.values()),
-                device_ms=dev_ms, step=dict(ms=step_dev, bound_ms=step_bound))
+    def window_ab(run):
+        """(register, sliding, register, sliding) device ms and the two
+        outputs' max-abs difference."""
+        outs, ab = [], []
+        for lib in (shipped, wide, shipped, wide):
+            _build._loaded["geo_lookup"] = lib
+            try:
+                outs.append(run())
+                ab.append(graph_ms(torch, run, 50))
+            finally:
+                _build._loaded["geo_lookup"] = shipped
+        return ab, float((outs[0] - outs[1]).abs().max())
 
-
-# IGEV trains at 320x736, not the trainer's default 320x720: its hourglass
-# halves the 1/4 grid three times and concatenates each upsampled level with
-# the one before, so the image must be a multiple of 32 (at 720 the 1/32
-# level is 22.5 wide, and the JAX model fails the same way). 736 is
-# upstream IGEV-Stereo's own training width.
-IGEV_TRAIN_IMAGE = (8, 320, 736)
-IGEV_TRAIN_SHAPE = (8, 80, 184)  # its 1/4 grid
-IGEV_TRAIN_D = (IGEV_D, IGEV_D // 2)  # geo pyramid depths
-IGEV_TRAIN_W2 = (IGEV_TRAIN_SHAPE[2], IGEV_TRAIN_SHAPE[2] // 2)  # init-corr pyramid widths
+    for name, shape, widths in (("frame", IGEV_SHAPE, frame_w2),
+                                ("step", IGEV_TRAIN_SHAPE, IGEV_TRAIN_W2)):
+        geo, cor, disp, coords = k4_inputs(torch, gen, shape, IGEV_TRAIN_D, widths, bf)
+        finite = torch.isfinite(disp.view(-1))
+        ab, ab_err = window_ab(lambda: geo_lookup(geo, cor, disp, coords, r))
+        library, lib_in, grids = k4_library(torch, geo, cor, disp, coords, r)
+        n = disp.numel()
+        lib = torch.cat([o.reshape(n, -1) for o in library()], dim=-1)
+        want = geo_lookup_plain(geo, cor, disp, coords, r).reshape(n, -1)
+        nbytes, out_bytes = k4_bytes(torch, geo, cor, disp, coords, r)
+        times[name] = dict(
+            ms=graph_ms(torch, lambda: geo_lookup(geo, cor, disp, coords, r), 50),
+            plain_ms=graph_ms(torch, lambda: geo_lookup_plain(geo, cor, disp, coords, r), 2, 1),
+            library_ms=graph_ms(torch, library, 20), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            mb=nbytes / 1e6, written=out_bytes / 1e6,
+            lib_err=float((lib[finite] - want[finite]).abs().max()), ab=ab, ab_err=ab_err)
+        del geo, cor, lib_in, grids, lib, want
+    errs = " | ".join(f"{k} {e:.3e} (tol {t:.1e})" for k, (e, t) in res.items())
+    print(f"K4 geo_lookup: max_abs vs plain {errs} (tol 1e-4 x the volumes' scale; NaN "
+          f"disparity -> zeros)")
+    for name, t in times.items():
+        shape = IGEV_SHAPE if name == "frame" else IGEV_TRAIN_SHAPE
+        print(f"K4 geo_lookup at the {name}, bf16 {shape} geo D {IGEV_TRAIN_D} x {C}: device ms "
+              f"{t['ms']:.4f} (one CUDA graph of 50 launches) | plain_ms {t['plain_ms']:.3f} | "
+              f"library_ms {t['library_ms']:.4f} (grid_sample a volume and level, four calls, "
+              f"fp32, upstream IGEV's form; max_abs vs plain {t['lib_err']:.2e}) | bound_ms "
+              f"{t['bound_ms']:.4f} (bytes, {t['mb']:.2f} MB: {t['written']:.2f} written), "
+              f"{t['bound_ms'] / t['ms']:.0%} of it; the kernel {t['ms'] / t['library_ms']:.2f}x "
+              f"grid_sample's time | window A/B at r {r}, register / sliding / register / "
+              f"sliding: " + " / ".join(f"{x:.4f}" for x in t["ab"]) + " ms (CUDA graphs of 50; "
+              f"outputs differ by {t['ab_err']:.1e})")
+    f = times["frame"]
+    return dict(ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"], bound_by="bytes",
+                library_ms=f["library_ms"], max_abs_err=max(e for e, _ in res.values()),
+                step={k: times["step"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
 
 
 def phase_k4_bwd(torch):
     """K4's backward (dgeo and dcorr kernels) vs its plain version at the
-    IGEV training shapes, the adjoint check against the forward kernel, and
+    IGEV training shapes and past the former caps (5 levels, radius 12), the
+    adjoint check against the forward kernel at both; device times (a CUDA
+    graph) beside the bound, the plain version and grid_sample's backward;
     autograd's bf16 sum of one iteration's d/dgeo into the running one."""
     from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import (
         geo_lookup, geo_lookup_bwd_corr, geo_lookup_bwd_geo, geo_lookup_bwd_plain)
 
-    B, H, W1 = IGEV_TRAIN_SHAPE
-    C, r, L = 8, 4, 2
-    taps = 2 * r + 1
+    C, r = 8, 4
     gen = torch.Generator(device="cuda").manual_seed(11)
-    disp = torch.rand((B, H, W1, 1), generator=gen, device="cuda") * (IGEV_D + 20) - 10
-    disp.view(-1)[:9] = torch.tensor([-1e9, 1e9, -3.0, -0.5, 0.0, 17.0, IGEV_D - 1.0,
-                                      IGEV_D + 0.25, float("nan")])
-    coords = torch.arange(W1, dtype=torch.float32, device="cuda").view(1, 1, W1, 1)
-    coords = coords.expand(B, H, W1, 1).contiguous()
-    finite = torch.isfinite(disp[..., 0])
-    g = torch.randn((B, H, W1, L * (C + 1) * taps), generator=gen, device="cuda")
     parts = {"geo": geo_lookup_bwd_geo, "corr": geo_lookup_bwd_corr}
     res = {}
-    for dt in (torch.float32, torch.bfloat16):
-        geo_meta = [((B, H, W1, d, C), dt) for d in IGEV_TRAIN_D]
-        corr_meta = [((B, H, W1, w2), dt) for w2 in IGEV_TRAIN_W2]
-        plain = geo_lookup_bwd_plain(geo_meta, corr_meta, disp, coords, g, r)
-        for (part, fn), want in zip(parts.items(), plain):
-            got = fn(geo_meta, corr_meta, disp, coords, g, r)
-            check([d.dtype for d in got] == [dt] * L,
-                  f"K4 bwd {part} dtypes {[d.dtype for d in got]}")
-            check(all(tuple(a.shape) == tuple(b.shape) for a, b in zip(got, want)),
-                  f"K4 bwd {part} shapes")
-            # a NaN disparity gives zeros in the kernels (as in the forward
-            # kernel), NaN in the plain version
-            check(all(bool((d[~finite] == 0).all()) for d in got),
-                  f"K4 bwd {part}: a NaN disparity did not give zeros")
-            err = max(float((a[finite].float() - b[finite].float()).abs().max())
-                      for a, b in zip(got, want))
-            scale = max(float(b[finite].float().abs().max()) for b in want)
-            # fp32: the kernels share one fractional weight per (pixel,
-            # level); the plain version rounds each tap position on its own.
-            # bf16: one rounding of fp32 sums that may differ in their last
-            # bits: one bf16 step (2^-8) can flip
-            tol = (1e-4 if dt == torch.float32 else 2**-7) * scale
-            check(err <= tol, f"K4 bwd {part} {dt} max-abs {err} > {tol}")
-            res[(part, dt)] = err
-        del plain
+    adj = {}
+    for label, shape, depths, widths, rr in (
+            ("step", IGEV_TRAIN_SHAPE, IGEV_TRAIN_D, IGEV_TRAIN_W2, r),
+            ("L 5 r 12", K4_WIDE["shape"], K4_WIDE["depths"], K4_WIDE["widths"], K4_WIDE["r"])):
+        B, H, W1 = shape
+        L = len(depths)
+        _, _, disp, coords = k4_inputs(torch, gen, shape, depths[:1], widths[:1], torch.float32)
+        finite = torch.isfinite(disp[..., 0])
+        g = torch.randn((B, H, W1, L * (C + 1) * (2 * rr + 1)), generator=gen, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            geo_meta = [((B, H, W1, d, C), dt) for d in depths]
+            corr_meta = [((B, H, W1, w2), dt) for w2 in widths]
+            plain = geo_lookup_bwd_plain(geo_meta, corr_meta, disp, coords, g, rr)
+            for (part, fn), want in zip(parts.items(), plain):
+                got = fn(geo_meta, corr_meta, disp, coords, g, rr)
+                check([d.dtype for d in got] == [dt] * L,
+                      f"K4 bwd {part} {label} dtypes {[d.dtype for d in got]}")
+                check(all(tuple(a.shape) == tuple(b.shape) for a, b in zip(got, want)),
+                      f"K4 bwd {part} {label} shapes")
+                # a NaN disparity gives zeros in the kernels (as in the
+                # forward kernel), NaN in the plain version
+                check(all(bool((d[~finite] == 0).all()) for d in got),
+                      f"K4 bwd {part} {label}: a NaN disparity did not give zeros")
+                err = max(float((a[finite].float() - b[finite].float()).abs().max())
+                          for a, b in zip(got, want))
+                scale = max(float(b[finite].float().abs().max()) for b in want)
+                # fp32: the kernels share one fractional weight per (pixel,
+                # level); the plain version rounds each tap position on its
+                # own. bf16: one rounding of fp32 sums that may differ in
+                # their last bits: one bf16 step (2^-8) can flip
+                tol = (1e-4 if dt == torch.float32 else 2**-7) * scale
+                check(err <= tol, f"K4 bwd {part} {label} {dt} max-abs {err} > {tol}")
+                res[(part, label, str(dt).split(".")[-1])] = (err, tol)
+            del plain
 
-    # adjoint: <K4(v), g> == <v, K4^T(g)>, the forward and both backward
-    # kernels, fp32 pyramids, fp64 sums (NaN pixels: zeros on both sides)
-    geo = [torch.randn((B, H, W1, d, C), generator=gen, device="cuda") for d in IGEV_TRAIN_D]
-    cor = [4 * torch.randn((B, H, W1, w2), generator=gen, device="cuda") for w2 in IGEV_TRAIN_W2]
-    with torch.no_grad():
-        out = geo_lookup(geo, cor, disp, coords, r)
-    meta_g, meta_c = [(v.shape, v.dtype) for v in geo], [(v.shape, v.dtype) for v in cor]
-    grads = (geo_lookup_bwd_geo(meta_g, meta_c, disp, coords, g, r)
-             + geo_lookup_bwd_corr(meta_g, meta_c, disp, coords, g, r))
-    lhs = float((out.double() * g.double()).sum())
-    rhs = float(sum((v.double() * d.double()).sum() for v, d in zip(geo + cor, grads)))
-    adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
-    check(adj <= 1e-5, f"K4 adjoint check: relative {adj} > 1e-5")
-    del geo, cor, out, grads
+        # adjoint: <K4(v), g> == <v, K4^T(g)>, the forward and both backward
+        # kernels, fp32 pyramids, fp64 sums (NaN pixels: zeros on both sides)
+        geo, cor, _, _ = k4_inputs(torch, gen, shape, depths, widths, torch.float32)
+        with torch.no_grad():
+            out = geo_lookup(geo, cor, disp, coords, rr)
+        meta_g, meta_c = [(v.shape, v.dtype) for v in geo], [(v.shape, v.dtype) for v in cor]
+        grads = (geo_lookup_bwd_geo(meta_g, meta_c, disp, coords, g, rr)
+                 + geo_lookup_bwd_corr(meta_g, meta_c, disp, coords, g, rr))
+        lhs = float((out.double() * g.double()).sum())
+        rhs = float(sum((v.double() * d.double()).sum() for v, d in zip(geo + cor, grads)))
+        adj[label] = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+        check(adj[label] <= 1e-5, f"K4 adjoint check {label}: relative {adj[label]} > 1e-5")
+        del geo, cor, out, grads
 
+    B, H, W1 = IGEV_TRAIN_SHAPE
     bf = torch.bfloat16
-    geo_meta = [((B, H, W1, d, C), bf) for d in IGEV_TRAIN_D]
-    corr_meta = [((B, H, W1, w2), bf) for w2 in IGEV_TRAIN_W2]
+    geo, cor, disp, coords = k4_inputs(torch, gen, IGEV_TRAIN_SHAPE, IGEV_TRAIN_D, IGEV_TRAIN_W2,
+                                       bf)
+    finite = torch.isfinite(disp[..., 0])
+    g = torch.randn((B, H, W1, 2 * (C + 1) * (2 * r + 1)), generator=gen, device="cuda")
+    geo_meta, corr_meta = [(v.shape, bf) for v in geo], [(v.shape, bf) for v in cor]
     # what autograd adds per student iteration: summing one iteration's
     # bf16 d/dgeo into the running d/dpyramid (15 such sums a step)
     acc = geo_lookup_bwd_geo(geo_meta, corr_meta, disp, coords, g, r)
     new = geo_lookup_bwd_geo(geo_meta, corr_meta, disp, coords, g, r)
-    accum_ms = cuda_ms(torch, lambda: [a.add_(b) for a, b in zip(acc, new)], 20)
+    accum_ms = graph_ms(torch, lambda: [a.add_(b) for a, b in zip(acc, new)], 10)
     del acc, new
+    # the yardstick: grid_sample's backward for the volumes, one call a
+    # volume and level on phase 10's fp32 copies, its gradient in fp32
+    _, lib_in, grids = k4_library(torch, geo, cor, disp.nan_to_num(0.0), coords, r)
+    n, taps = disp.numel(), 2 * r + 1
+    gl = g.reshape(n, 2, C + 1, taps)
+    gouts = []
+    for i in range(2):
+        gouts += [gl[:, i, :C].reshape(n, C, 1, taps).contiguous(),
+                  gl[:, i, C:].reshape(n, 1, 1, taps).contiguous()]
     # bytes each kernel must move: every output element written once (zeros
     # included), the g taps that land on at least one in-range element, disp
     # (and coords for dcorr) read once
     k = torch.arange(taps, device="cuda")
     d = disp.clamp(-1e6, 1e6)
     results = {}
-    for part, fn in parts.items():
+    for pi, (part, fn) in enumerate(parts.items()):
         sizes = IGEV_TRAIN_D if part == "geo" else IGEV_TRAIN_W2
         per = C if part == "geo" else 1
-        out_bytes = sum(B * H * W1 * n * per * 2 for n in sizes)
+        out_bytes = sum(B * H * W1 * n_ * per * 2 for n_ in sizes)
         g_read = 0
-        for i, n in enumerate(sizes):
+        for i, n_ in enumerate(sizes):
             x = d / 2**i if part == "geo" else (coords - d) / 2**i
-            x0 = torch.floor((x - r).clamp(-(taps + 2), n + 1)) + k
-            hit = ((x0 >= 0) & (x0 < n)) | ((x0 + 1 >= 0) & (x0 + 1 < n))
+            x0 = torch.floor((x - r).clamp(-(taps + 2), n_ + 1)) + k
+            hit = ((x0 >= 0) & (x0 < n_)) | ((x0 + 1 >= 0) & (x0 + 1 < n_))
             g_read += int((hit & finite[..., None]).sum()) * per * 4
         nbytes = out_bytes + g_read + disp.numel() * 4 * (1 if part == "geo" else 2)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ms = cuda_ms(torch, lambda: fn(geo_meta, corr_meta, disp, coords, g, r), 100)
-        plain_ms = cuda_ms(torch, lambda: geo_lookup_bwd_plain(
-            geo_meta, corr_meta, disp, coords, g, r, need_geo=part == "geo",
-            need_corr=part == "corr"), 3)
-        results[part] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                             library_ms=None,
-                             max_abs_err=max(res[(part, t)] for t in (torch.float32, bf)))
-        print(f"K4 geo_lookup_bwd_{part}: max_abs fp32 {res[(part, torch.float32)]:.3e} (tol "
-              f"1e-4*max|dplain|) bf16 {res[(part, bf)]:.3e} (tol 2^-7*max|dplain|; NaN "
-              f"disparity -> zeros) | adjoint rel {adj:.2e} (tol 1e-5, both kernels) | bf16 "
-              f"{IGEV_TRAIN_SHAPE} {'D' if part == 'geo' else 'W2'} {sizes}: kernel_ms {ms:.4f} "
-              f"plain_ms {plain_ms:.3f} library_ms none (no single PyTorch call computes the "
-              f"transposed two-volume, two-level lookup) bound_ms {bound_ms:.4f} "
-              f"({nbytes / 1e6:.2f} MB: {out_bytes / 1e6:.2f} written, {g_read / 1e6:.2f} of g "
-              f"read)")
+        sel = [2 * i + pi for i in range(2)]
+
+        def library(sel=sel):
+            return [torch.ops.aten.grid_sampler_2d_backward(
+                gouts[j], lib_in[j], grids[j], 0, 0, True, [True, False])[0] for j in sel]
+
+        results[part] = dict(
+            ms=graph_ms(torch, lambda: fn(geo_meta, corr_meta, disp, coords, g, r), 20),
+            # the plain version differentiates with autograd: host-timed
+            plain_ms=cuda_ms(torch, lambda: geo_lookup_bwd_plain(
+                geo_meta, corr_meta, disp, coords, g, r, need_geo=part == "geo",
+                need_corr=part == "corr"), 3),
+            library_ms=graph_ms(torch, library, 5), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", max_abs_err=max(e for (p_, *_), (e, _) in res.items() if p_ == part))
+        t = results[part]
+        errs = " ".join(f"{lab} {dt_} {e:.3e} (tol {tl:.1e})"
+                        for (p_, lab, dt_), (e, tl) in res.items() if p_ == part)
+        print(f"K4 geo_lookup_bwd_{part}: max_abs vs plain {errs} (tol 1e-4*max|dplain| fp32, "
+              f"2^-7*max|dplain| bf16; NaN disparity -> zeros) | adjoint rel "
+              + " ".join(f"{k_} {v:.2e}" for k_, v in adj.items()) + " (tol 1e-5, both kernels) "
+              f"| bf16 {IGEV_TRAIN_SHAPE} {'D' if part == 'geo' else 'W2'} {sizes}: device ms "
+              f"{t['ms']:.4f} (one CUDA graph of 20 launches) | plain_ms {t['plain_ms']:.3f} | "
+              f"library_ms {t['library_ms']:.4f} (grid_sample's backward for the volumes, fp32, "
+              f"a call a level) | bound_ms {t['bound_ms']:.4f} ({nbytes / 1e6:.2f} MB: "
+              f"{out_bytes / 1e6:.2f} written, {g_read / 1e6:.2f} of g read), "
+              f"{t['bound_ms'] / t['ms']:.0%} of it")
+    results["geo"]["accum_ms"] = accum_ms
     print(f"autograd's bf16 sum of one iteration's d/dgeo into the running one: {accum_ms:.4f} "
-          f"ms (x15 per step: {15 * accum_ms:.3f} ms)")
+          f"ms (one CUDA graph; x15 per step: {15 * accum_ms:.3f} ms)")
+    del geo, cor, lib_in, grids, gouts
     return results
 
 
@@ -2120,117 +2271,227 @@ def _k5_inputs(torch, gen, shape, cf, dt):
     return levels, pos, torch.isfinite(pos).repeat(1, 1, 1, PCV_L)
 
 
-def k5_bound(torch, levels, pos, cf):
+def k5_bound(torch, levels, pos, cf, out_itemsize=2):
     """(bound ms, MB) of one K5 launch on these inputs: the positions and
-    the output once, and each in-range volume entry that some tap of its
-    row reads, once (NaN positions read nothing)."""
+    the output (in the compute dtype) once, and each in-range volume entry
+    that some tap of its row reads, once (non-finite positions read
+    nothing)."""
     B, H, W1, K = pos.shape
     n = B * H * W1
-    p = pos.clamp(-1e6, 1e6)
+    p = pos.nan_to_num(0.0, 1e6, -1e6).clamp(-1e6, 1e6)
     read = 0
     for i, v in enumerate(levels):
         w2 = v.shape[-1]
         x0 = torch.floor(p / cf**i)
         idx = torch.stack([x0, x0 + 1], dim=-1)
-        hit = (idx >= 0) & (idx < w2)
+        hit = (idx >= 0) & (idx < w2) & torch.isfinite(pos)[..., None]
         seen = torch.zeros((n, w2 + 1), dtype=torch.bool, device=pos.device)
         seen.scatter_(1, torch.where(hit, idx, float(w2)).long().view(n, -1), True)
         read += int(seen[:, :w2].sum()) * v.element_size()
-    nbytes = read + pos.numel() * 4 + n * len(levels) * K * 4
+    nbytes = read + pos.numel() * 4 + n * len(levels) * K * out_itemsize
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes / 1e6
 
 
-def phase_k5(torch):
-    """K5 vs its plain version at both PCV grids and a ragged shape, the
-    grid_sample yardstick, and K5's autograd Function launching the
-    backward."""
+def k5_library(torch, levels, pos, cf):
+    """The yardstick: one ``F.grid_sample`` a level on an (N, 1, 1, W2) fp32
+    copy with an (N, 1, K, 2) grid, the reference's own form of the lookup;
+    fp32, because a bf16 grid cannot hold the positions (8 bits of mantissa
+    at positions up to 340). Returns the forward, the inputs and the grids."""
     import torch.nn.functional as F
 
-    from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
-        gaussian_row_sample, gaussian_row_sample_bwd_plain, gaussian_row_sample_plain)
-
-    gen = torch.Generator(device="cuda").manual_seed(19)
-    res = {}
-    for shape, cf in (((2, 7, 37), 4), (PCV_FAST_SHAPE, 2), (PCV_SHAPE, 4)):
-        for dt in (torch.float32, torch.bfloat16):
-            levels, pos, finite = _k5_inputs(torch, gen, shape, cf, dt)
-            got = gaussian_row_sample(levels, pos, cf)
-            want = gaussian_row_sample_plain(levels, pos, cf)
-            check(got.shape == want.shape == (*shape, PCV_L * PCV_G * PCV_S),
-                  f"K5 output shape {tuple(got.shape)}")
-            # a NaN position gives zeros in the kernel (clamped left of the
-            # row), NaN in the plain version
-            check(bool((got[~finite] == 0).all()), "K5: a NaN position did not give zeros")
-            err = float((got[finite] - want[finite]).abs().max())
-            # the same two taps, weights and fp32 roundings as the plain
-            # version: equal on finite positions, bounded as K1 is
-            tol = 1e-4 * float(want[finite].abs().max())
-            check(err <= tol, f"K5 {shape} {dt} max-abs {err} > {tol}")
-            res[(shape, dt)] = (err, tol)
-    # the main path's launch: bf16 levels at 1x184x320, cf 4 (the last case)
-    ms = cuda_ms(torch, lambda: gaussian_row_sample(levels, pos, cf), 200)
-    plain_ms = cuda_ms(torch, lambda: gaussian_row_sample_plain(levels, pos, cf), 20)
-    # one grid_sample per level on an (N, 1, 1, W2) view with an (N, 1, K, 2)
-    # grid, the reference's own form of the lookup; fp32, because a bf16 grid
-    # cannot hold the positions (8 bits of mantissa at positions up to 340)
     B, H, W1, K = pos.shape
     n = B * H * W1
     lib_in = [v.float().reshape(n, 1, 1, v.shape[-1]) for v in levels]
     grids = []
     for i, v in enumerate(lib_in):
-        x = (pos / cf**i).reshape(n, 1, K, 1)
+        x = (pos.clamp(-1e6, 1e6) / cf**i).reshape(n, 1, K, 1)
         x = 2 * x / (v.shape[-1] - 1) - 1
         grids.append(torch.cat([x, torch.zeros_like(x)], dim=-1))
 
-    def library():
+    def forward():
         return [F.grid_sample(v, g, mode="bilinear", padding_mode="zeros", align_corners=True)
                 for v, g in zip(lib_in, grids)]
 
-    lib_ms = cuda_ms(torch, library, 50)
-    lib = torch.cat([o.view(B, H, W1, K) for o in library()], dim=-1)
-    lib_err = float((lib[finite] - want[finite]).abs().max())
-    bound_ms, mb = k5_bound(torch, levels, pos, cf)
+    return forward, lib_in, grids
+
+
+def _kernel_launches(torch, fn):
+    """Device kernels and copies of one call of ``fn`` by bucket, from the
+    profiler: {bucket: launches}."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    tot = {b: 0 for b, _ in BUCKETS}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            tot[next(b for b, pat in BUCKETS if re.search(pat, e.name))] += 1
+    return {b: n for b, n in tot.items() if n}
+
+
+def phase_k5(torch):
+    """K5 vs ``fold_lookup(plain).to(dt)`` at both PCV grids, the training
+    step's and a ragged shape, bit for bit; device times (a CUDA graph)
+    beside the bound, the plain version and grid_sample at the frame and the
+    step; the motion encoder on the kernel's output and on an NCHW copy;
+    K5's autograd Function launching the backward; the backward's limits
+    checked before the forward."""
+    from dkt_stereo_tpu_torch.nn.pcv import BasicMotionEncoderPCV
+    from dkt_stereo_tpu_torch.ops.cuda import row_sample as k5
+    from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
+        fold_lookup, gaussian_row_sample, gaussian_row_sample_bwd,
+        gaussian_row_sample_bwd_plain, gaussian_row_sample_folded_plain,
+        gaussian_row_sample_plain, unfold_lookup)
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    G = PCV_G
+    res = {}
+
+    def hold(label, levels, pos, cf, dt):
+        got = k5._launch_fwd(levels, pos, cf, G, dt)
+        plain = gaussian_row_sample_plain(levels, pos, cf)
+        want = fold_lookup(plain, PCV_L, G).to(dt)
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and got.stride() == want.stride(),
+              f"K5 {label}: {got.dtype} {tuple(got.shape)} strides {got.stride()}, want "
+              f"{want.dtype} {tuple(want.shape)} {want.stride()}")
+        nan = torch.isnan(want)
+        check(torch.equal(torch.isnan(got), nan), f"K5 {label}: NaN differs from the plain twin")
+        check(int(nan.sum()) == int((~torch.isfinite(pos)).sum()) * PCV_L,
+              f"K5 {label}: {int(nan.sum())} NaN outputs")
+        # the plain twin's fp32 operations tap by tap, rounded once: equal
+        err = float((got[~nan].float() - want[~nan].float()).abs().max())
+        check(err == 0.0, f"K5 {label}: max-abs {err} against fold(plain).to(dt)")
+        res[label] = err
+
+    for shape, cf, pairs in (((2, 7, 37), 4, ((F32, F32), (BF16, BF16), (F32, BF16), (BF16, F32))),
+                             (PCV_FAST_SHAPE, 2, ((F32, F32), (BF16, BF16))),
+                             (PCV_SHAPE, 4, ((F32, F32), (BF16, BF16), (F32, BF16))),
+                             (TRAIN_SHAPE, 4, ((F32, F32), (BF16, BF16)))):
+        for vol, out in pairs:
+            levels, pos, _ = _k5_inputs(torch, gen, shape, cf, getattr(torch, vol))
+            label = f"{'x'.join(map(str, shape))} {vol}->{out}"
+            hold(label, levels, pos, cf, getattr(torch, out))
+            del levels, pos
+
+    times = {}
+    bf = torch.bfloat16
+    for name, shape in (("frame", PCV_SHAPE), ("step", TRAIN_SHAPE)):
+        levels, pos, finite = _k5_inputs(torch, gen, shape, 4, bf)
+        library, lib_in, grids = k5_library(torch, levels, pos, 4)
+        B, H, W1, K = pos.shape
+        lib = torch.cat([o.view(B, H, W1, K) for o in library()], dim=-1)
+        plain = gaussian_row_sample_plain(levels, pos, 4)
+        bound_ms, mb = k5_bound(torch, levels, pos, 4)
+        # the bytes the kernel moves with its rows read whole, and a device
+        # copy moving as many (half read, half written): the card's rate
+        whole = (sum(v.numel() * v.element_size() for v in levels) + pos.numel() * 4
+                 + plain.numel() * 2)
+        src = torch.empty(whole // 4, dtype=bf, device="cuda")
+        dst = torch.empty_like(src)
+        times[name] = dict(
+            ms=graph_ms(torch, lambda: gaussian_row_sample(levels, pos, 4, G, bf), 50),
+            plain_ms=graph_ms(torch, lambda: gaussian_row_sample_folded_plain(
+                levels, pos, 4, G, bf), 5),
+            library_ms=graph_ms(torch, library, 20), bound_ms=bound_ms, mb=mb,
+            lib_err=float((lib[finite] - plain[finite]).abs().max()),
+            widths=[v.shape[-1] for v in levels], whole_mb=whole / 1e6,
+            copy_ms=graph_ms(torch, lambda: dst.copy_(src), 20))
+        del src, dst
+        if name == "step":
+            # the motion encoder on K5's channels-last output and on an NCHW
+            # copy of it, its corr convs' weights in the same layout, bf16
+            # autocast with fp32 weights as in the model
+            enc = BasicMotionEncoderPCV(G, PCV_S, PCV_L).cuda().eval()
+            mix = [torch.rand((B, G, H, W1), generator=gen, device="cuda").to(bf)
+                   for _ in range(3)]
+            probe = {}
+            corr_cl = gaussian_row_sample(levels, pos, 4, G, bf)
+            for cl in (True, False):
+                corr = corr_cl if cl else corr_cl.contiguous()
+                for conv in (enc.convc1, enc.convc2, enc.convc3):  # weights in the same layout
+                    conv.to(memory_format=torch.channels_last if cl else
+                            torch.contiguous_format)
+
+                def run(corr=corr):
+                    with torch.no_grad(), torch.autocast("cuda", torch.bfloat16,
+                                                         cache_enabled=False):
+                        return enc(mix[0], corr, mix[1], mix[2])
+
+                probe["channels-last" if cl else "NCHW"] = (graph_ms(torch, run, 10),
+                                                            _kernel_launches(torch, run))
+            times[name]["probe"] = probe
+            del enc, mix, corr, corr_cl
+        del levels, pos, lib_in, grids, lib, plain
 
     # with inputs that require grad, the autograd Function launches the
     # forward once and the backward once, and its gradients are the plain
-    # backward's
+    # backward's; a gradient in the other layout costs one counted copy
     small = [torch.randn((1, 2, 3, 8), device="cuda", requires_grad=True),
              torch.randn((1, 2, 3, 2), device="cuda", requires_grad=True)]
     p = (10 * torch.rand((1, 2, 3, 4), device="cuda") - 1).requires_grad_(True)
-    gs = torch.randn((1, 2, 3, 8), device="cuda")
+    gs = fold_lookup(torch.randn((1, 2, 3, 8), device="cuda"), 2, 2)
     counts = kernel_counts()
-    gaussian_row_sample(small, p, cf).backward(gs)
+    copies = gaussian_row_sample_bwd.g_copies
+    gaussian_row_sample(small, p, 4, 2).backward(gs)
     counts = _diff(kernel_counts(), counts)
-    check(counts["gaussian_row_sample"] == 1 and counts["gaussian_row_sample_bwd"] == 1,
-          f"K5 autograd launches {counts}")
-    dv, dp = gaussian_row_sample_bwd_plain([v.detach() for v in small], p.detach(), gs, cf)
+    check(counts["gaussian_row_sample"] == 1 and counts["gaussian_row_sample_bwd"] == 1
+          and gaussian_row_sample_bwd.g_copies == copies,
+          f"K5 autograd launches {counts}, g copies {gaussian_row_sample_bwd.g_copies - copies}")
+    dv, dp = gaussian_row_sample_bwd_plain([v.detach() for v in small], p.detach(),
+                                           unfold_lookup(gs, 2, 2), 4)
     for got_g, want_g in zip([*(v.grad for v in small), p.grad], [*dv, dp]):
         check(float((got_g - want_g).abs().max()) <= 1e-5 * float(want_g.abs().max()) + 1e-7,
               "K5 autograd gradients differ from the plain backward")
+    gaussian_row_sample(small, p, 4, 2).backward(gs.contiguous())
+    check(gaussian_row_sample_bwd.g_copies == copies + 1,
+          "K5: an NCHW gradient was not copied once to the folded layout")
+    # past the backward's parameter block, a call that needs a gradient is
+    # refused before its forward launches; without one the forward runs
+    five = [torch.randn((1, 2, 3, 8), device="cuda", requires_grad=True) for _ in range(5)]
+    counts = kernel_counts()
+    try:
+        gaussian_row_sample(five, p, 2, 2)
+        refused = False
+    except ValueError as e:
+        refused = "1..4 levels" in str(e)
+    check(refused and _diff(kernel_counts(), counts)["gaussian_row_sample"] == 0,
+          "K5: 5 levels that need a gradient were not refused before the forward")
+    with torch.no_grad():
+        check(gaussian_row_sample(five, p, 2, 2).shape == (2, 10, 2, 3),
+              "K5: 5 levels without a gradient did not run")
+    del five
 
-    # device times (a CUDA graph): at the frame above, and at the PCV
-    # training step's 8x80x180 (widths 180/45/11)
-    frame_dev = graph_ms(torch, lambda: gaussian_row_sample(levels, pos, cf), 50)
-    slevels, spos, _ = _k5_inputs(torch, gen, TRAIN_SHAPE, cf, torch.bfloat16)
-    step_dev = graph_ms(torch, lambda: gaussian_row_sample(slevels, spos, cf), 50)
-    step_bound, step_mb = k5_bound(torch, slevels, spos, cf)
-    print(f"K5 gaussian_row_sample device ms (one CUDA graph of 50 launches), bf16: frame "
-          f"{PCV_SHAPE} {frame_dev:.4f} (bound {bound_ms:.4f}, {bound_ms / frame_dev:.0%}) | "
-          f"training step {TRAIN_SHAPE} widths {[v.shape[-1] for v in slevels]} {step_dev:.4f} "
-          f"(bound {step_bound:.4f}, {step_mb:.2f} MB, {step_bound / step_dev:.0%})")
-    del slevels, spos
-
-    errs = " ".join(f"{s[0]}x{s[1]}x{s[2]} {str(d).split('.')[-1]} {e:.3e} (tol {t:.2e})"
-                    for (s, d), (e, t) in res.items())
-    print(f"K5 gaussian_row_sample: max_abs {errs} (tol 1e-4 x max|plain|; NaN position -> "
-          f"zeros) | bf16 {PCV_SHAPE} K {K} widths {[v.shape[-1] for v in levels]}: kernel_ms "
-          f"{ms:.4f} plain_ms {plain_ms:.3f} library_ms {lib_ms:.4f} (F.grid_sample over the "
-          f"three levels, fp32; max_abs vs plain {lib_err:.3e}) bound_ms {bound_ms:.4f} (bytes, "
-          f"{mb:.2f} MB) | with inputs that require grad: 1 forward and 1 backward launch, "
-          "gradients equal to the plain backward's")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                library_ms=lib_ms, max_abs_err=max(e for e, _ in res.values()),
-                device_ms=frame_dev, step=dict(ms=step_dev, bound_ms=step_bound))
+    print("K5 gaussian_row_sample: max_abs vs fold_lookup(plain).to(dt), output dtype, shape "
+          "and strides those of it, NaN where it has NaN: "
+          + " | ".join(f"{k} {e:.1e}" for k, e in res.items()) + " (tol 0: bit-equal) | with "
+          "inputs that require grad: 1 forward and 1 backward launch, gradients equal to the "
+          "plain backward's, an NCHW gradient copied once; 5 levels that need a gradient "
+          "refused before the forward, 5 without one run")
+    for name, t in times.items():
+        shape = PCV_SHAPE if name == "frame" else TRAIN_SHAPE
+        print(f"K5 gaussian_row_sample at the {name}, bf16 -> bf16 {shape} K {PCV_G * PCV_S} "
+              f"widths {t['widths']}: device ms {t['ms']:.4f} (one CUDA graph of 50 launches) | "
+              f"plain_ms {t['plain_ms']:.3f} | library_ms {t['library_ms']:.4f} (grid_sample over "
+              f"the three levels, fp32; max_abs vs plain {t['lib_err']:.2e}) | bound_ms "
+              f"{t['bound_ms']:.4f} (bytes, {t['mb']:.2f} MB), {t['bound_ms'] / t['ms']:.0%} of "
+              f"it; the kernel {t['ms'] / t['library_ms']:.2f}x grid_sample's time | with the "
+              f"rows read whole it moves {t['whole_mb']:.2f} MB; a device copy moving as many "
+              f"bytes takes {t['copy_ms']:.4f} ms")
+    print("the motion encoder (bf16 autocast) on K5's output at the step "
+          f"{TRAIN_SHAPE}: " + " | ".join(
+              f"{k} {ms:.4f} ms (one CUDA graph of 10 calls), kernels by bucket {n}"
+              for k, (ms, n) in times["step"]["probe"].items()))
+    f = times["frame"]
+    return dict(ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"], bound_by="bytes",
+                library_ms=f["library_ms"], max_abs_err=max(res.values()),
+                step={k: times["step"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                     "copy_ms")})
 
 
 def phase_pcv_parity(torch, configs):
@@ -2241,7 +2502,7 @@ def phase_pcv_parity(torch, configs):
     from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
     from dkt_stereo_tpu_torch.models.registry import create_model
     from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
-        gaussian_row_sample, gaussian_row_sample_plain)
+        gaussian_row_sample, gaussian_row_sample_folded_plain)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2258,7 +2519,7 @@ def phase_pcv_parity(torch, configs):
         k5 = gaussian_row_sample.launches - n
         check(k5 == iters, f"PCV {name} parity: {k5} K5 launches != {iters}")
         d_cpu, _ = _run_one(make_forward_fn(cpu, device="cpu"), img1, img2)
-        pcv.gaussian_row_sample = gaussian_row_sample_plain  # for the floor only
+        pcv.gaussian_row_sample = gaussian_row_sample_folded_plain  # for the floor only
         try:
             d_plain, _ = _run_one(make_forward_fn(gpu, device="cuda"), img1, img2)
         finally:
@@ -2348,40 +2609,49 @@ def phase_pcv_main(torch, config, fast_config, card):
     return launches, fast
 
 
-def k5_bwd_bound(torch, levels, pos, cf):
+def k5_bwd_bound(torch, levels, pos, cf, g_itemsize=2):
     """(bound ms, MB) of one K5 backward launch on these inputs: what the
     forward's bound counts (the positions, the taps these positions read,
-    and g in place of the output), plus every dvol element and dpos written
-    once."""
-    _, fwd_mb = k5_bound(torch, levels, pos, cf)
+    and g, in the compute dtype, in place of the output), plus every dvol
+    element and dpos written once."""
+    _, fwd_mb = k5_bound(torch, levels, pos, cf, g_itemsize)
     nbytes = fwd_mb * 1e6 + sum(v.numel() * v.element_size() for v in levels) + pos.numel() * 4
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes / 1e6
 
 
 def phase_k5_bwd(torch):
-    """K5's backward (dvol of every level and dpos in one launch) vs its
-    plain version at the training grid, the inference grid and a ragged
-    shape, bf16 and fp32 levels, with the hostile positions of phase 20;
-    the adjoint check against the forward kernel; two launches bit for
-    bit; the grid_sample backward as yardstick; and the time autograd
-    spends summing the per-iteration dvol into a bf16 pyramid's gradient."""
-    import torch.nn.functional as F
-
+    """K5's backward (dvol of every level and dpos in one launch, g read
+    folded and in the compute dtype) vs its plain version at the training
+    grid, the inference grid and a ragged shape, with the hostile positions
+    of phase 20; the adjoint check against the forward kernel; two launches
+    bit for bit; device times (a CUDA graph) beside the bound, the plain
+    version and grid_sample's backward; and the time autograd spends summing
+    the per-iteration dvol into a bf16 pyramid's gradient."""
     from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
-        gaussian_row_sample, gaussian_row_sample_bwd, gaussian_row_sample_bwd_plain)
+        fold_lookup, gaussian_row_sample, gaussian_row_sample_bwd,
+        gaussian_row_sample_bwd_plain, unfold_lookup)
 
     gen = torch.Generator(device="cuda").manual_seed(23)
-    cf = 4
+    cf, G, LK = 4, PCV_G, PCV_L * PCV_G * PCV_S
     res = {}
-    for shape in ((2, 7, 37), PCV_SHAPE, TRAIN_SHAPE):
-        for dt in (torch.float32, torch.bfloat16):
+
+    def folded_g(shape, dt):
+        return fold_lookup(torch.randn((*shape, LK), generator=gen, device="cuda"), PCV_L,
+                           G).to(dt)
+
+    for shape, pairs in (((2, 7, 37), ((F32, F32), (BF16, BF16), (F32, BF16))),
+                         (PCV_SHAPE, ((F32, F32), (BF16, BF16))),
+                         (TRAIN_SHAPE, ((F32, F32), (BF16, BF16)))):
+        for vol, gdt in pairs:
+            dt = getattr(torch, vol)
             levels, pos, _ = _k5_inputs(torch, gen, shape, cf, dt)
-            g = torch.randn((*shape, PCV_L * PCV_G * PCV_S), generator=gen, device="cuda")
-            dv, dp = gaussian_row_sample_bwd(levels, pos, g, cf)
-            dv2, dp2 = gaussian_row_sample_bwd(levels, pos, g, cf)
+            g = folded_g(shape, getattr(torch, gdt))
+            dv, dp = gaussian_row_sample_bwd(levels, pos, g, cf, G)
+            dv2, dp2 = gaussian_row_sample_bwd(levels, pos, g, cf, G)
             check(all(torch.equal(a, b) for a, b in zip([*dv, dp], [*dv2, dp2])),
-                  f"K5 bwd {shape} {dt}: two launches differ")
-            want_v, want_p = gaussian_row_sample_bwd_plain(levels, pos, g, cf)
+                  f"K5 bwd {shape} {vol} g {gdt}: two launches differ")
+            want_v, want_p = gaussian_row_sample_bwd_plain(levels, pos,
+                                                           unfold_lookup(g, PCV_L, G), cf)
             check([d.dtype for d in dv] == [dt] * PCV_L and dp.dtype == torch.float32,
                   f"K5 bwd output dtypes {[d.dtype for d in dv]} {dp.dtype}")
             errs = []
@@ -2390,75 +2660,83 @@ def phase_k5_bwd(torch):
                 # version (where its clamped taps point) and no contribution
                 # in the kernel; every kernel element is finite
                 fin = torch.isfinite(b)
-                check(bool(torch.isfinite(a).all()), f"K5 bwd {shape} {dt}: non-finite dvol")
+                check(bool(torch.isfinite(a).all()), f"K5 bwd {shape} {vol}: non-finite dvol")
                 err = float((a.float()[fin] - b.float()[fin]).abs().max())
                 # fp32: the same taps, weights and roundings summed in another
                 # order; bf16: one rounding of fp32 sums that may differ in
                 # their last bits, one bf16 step (2^-8) with margin
                 tol = (1e-4 if dt == torch.float32 else 2**-7) * float(b.float()[fin].abs().max())
-                check(err <= tol, f"K5 bwd dvol {shape} {dt} max-abs {err} > {tol}")
+                check(err <= tol, f"K5 bwd dvol {shape} {vol} g {gdt} max-abs {err} > {tol}")
                 errs.append((err, tol))
             err = float((dp - want_p).abs().max())
             tol = 1e-4 * float(want_p.abs().max())
-            check(err <= tol, f"K5 bwd dpos {shape} {dt} max-abs {err} > {tol}")
+            check(err <= tol, f"K5 bwd dpos {shape} {vol} g {gdt} max-abs {err} > {tol}")
             errs.append((err, tol))
-            res[(shape, dt)] = (max(e for e, _ in errs), errs)
+            res[(shape, vol, gdt)] = (max(e for e, _ in errs), errs)
             del dv, dp, dv2, dp2, want_v, want_p
 
-    # adjoint: <K5(v), g> == <v, K5^T(g)>, both kernels, fp64 sums, at the
-    # training grid with fp32 levels (NaN positions: zeros on both sides)
+    # adjoint: <K5(v), g> == <v, K5^T(g)>, both kernels, fp32, fp64 sums, at
+    # the training grid with finite positions (a NaN one makes the forward's
+    # side NaN)
     levels, pos, _ = _k5_inputs(torch, gen, TRAIN_SHAPE, cf, torch.float32)
-    g = torch.randn((*TRAIN_SHAPE, PCV_L * PCV_G * PCV_S), generator=gen, device="cuda")
+    pos = pos.nan_to_num(3.5)
+    g = folded_g(TRAIN_SHAPE, torch.float32)
     with torch.no_grad():
-        out = gaussian_row_sample(levels, pos, cf)
-    dv, _ = gaussian_row_sample_bwd(levels, pos, g, cf, need_pos=False)
+        out = gaussian_row_sample(levels, pos, cf, G)
+    dv, _ = gaussian_row_sample_bwd(levels, pos, g, cf, G, need_pos=False)
     lhs = float((out.double() * g.double()).sum())
     rhs = float(sum((v.double() * d.double()).sum() for v, d in zip(levels, dv)))
     adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
     check(adj <= 1e-5, f"K5 adjoint check: relative {adj} > 1e-5")
     del out, dv
 
-    # the training path's launch: bf16 levels at the training grid
-    levels, pos, _ = _k5_inputs(torch, gen, TRAIN_SHAPE, cf, torch.bfloat16)
-    ms = cuda_ms(torch, lambda: gaussian_row_sample_bwd(levels, pos, g, cf), 100)
-    plain_ms = cuda_ms(torch, lambda: gaussian_row_sample_bwd_plain(levels, pos, g, cf), 5)
+    # the training path's launch: bf16 levels and g at the training grid
+    bf = torch.bfloat16
+    levels, pos, _ = _k5_inputs(torch, gen, TRAIN_SHAPE, cf, bf)
+    g = folded_g(TRAIN_SHAPE, bf)
+    ms = graph_ms(torch, lambda: gaussian_row_sample_bwd(levels, pos, g, cf, G), 20)
+    gu = unfold_lookup(g, PCV_L, G)
+    # the glue that reading g folded and in bf16 removed: the fold's copy
+    # back to (B, H, W, L*K) and the cast to the fp32 an unfolded kernel read
+    glue_ms = graph_ms(torch, lambda: unfold_lookup(g, PCV_L, G).float(), 20)
+    plain_ms = graph_ms(torch, lambda: gaussian_row_sample_bwd_plain(levels, pos, gu, cf), 2, 1)
     bound_ms, mb = k5_bwd_bound(torch, levels, pos, cf)
     # what autograd adds per iteration: summing one iteration's three bf16
     # dvol tensors into the running gradient of the pyramid (15 such sums a
     # step at 16 iterations)
-    acc, _ = gaussian_row_sample_bwd(levels, pos, g, cf, need_pos=False)
-    new, _ = gaussian_row_sample_bwd(levels, pos, g, cf, need_pos=False)
-    accum_ms = cuda_ms(torch, lambda: [a.add_(b) for a, b in zip(acc, new)], 20)
+    acc, _ = gaussian_row_sample_bwd(levels, pos, g, cf, G, need_pos=False)
+    new, _ = gaussian_row_sample_bwd(levels, pos, g, cf, G, need_pos=False)
+    accum_ms = graph_ms(torch, lambda: [a.add_(b) for a, b in zip(acc, new)], 10)
     del acc, new
-    # the yardstick: the backward of one grid_sample per level (fp32, as
+    # the yardstick: grid_sample's backward, one call a level (fp32, as
     # phase 20's forward yardstick), with respect to the volumes and grids
+    _, lib_in, grids = k5_library(torch, levels, pos, cf)
     B, H, W1, K = pos.shape
     n = B * H * W1
-    lib_in = [v.float().reshape(n, 1, 1, v.shape[-1]).requires_grad_(True) for v in levels]
-    grids = []
-    for i, v in enumerate(lib_in):
-        x = (pos.clamp(-1e6, 1e6) / cf**i).reshape(n, 1, K, 1)
-        x = 2 * x / (v.shape[-1] - 1) - 1
-        grids.append(torch.cat([x, torch.zeros_like(x)], dim=-1).requires_grad_(True))
-    outs = [F.grid_sample(v, gr, mode="bilinear", padding_mode="zeros", align_corners=True)
-            for v, gr in zip(lib_in, grids)]
-    gouts = [gi.reshape(n, 1, 1, K).contiguous() for gi in g.split(K, dim=-1)]
-    lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(outs, lib_in + grids, gouts,
-                                                        retain_graph=True), 20)
-    del outs, lib_in, grids
+    gouts = [gi.reshape(n, 1, 1, K).float().contiguous() for gi in gu.split(K, dim=-1)]
+
+    def library():
+        return [torch.ops.aten.grid_sampler_2d_backward(go, v, gr, 0, 0, True, [True, True])
+                for go, v, gr in zip(gouts, lib_in, grids)]
+
+    lib_ms = graph_ms(torch, library, 5)
+    del lib_in, grids, gouts, gu
 
     errs = " | ".join(
-        f"{s[0]}x{s[1]}x{s[2]} {str(d).split('.')[-1]}: dvol per level "
+        f"{s[0]}x{s[1]}x{s[2]} {vol} g {gdt}: dvol per level "
         + " ".join(f"{e:.2e}" for e, _ in es[:-1]) + f", dpos {es[-1][0]:.2e} (tol "
         + " ".join(f"{t:.1e}" for _, t in es) + ")"
-        for (s, d), (_, es) in res.items())
+        for (s, vol, gdt), (_, es) in res.items())
     print(f"K5 gaussian_row_sample_bwd: max_abs {errs} (tol 1e-4 x max|dplain| fp32, 2^-7 x "
           f"max|dplain| bf16; NaN position -> no contribution; two launches bit-identical) | "
-          f"adjoint rel {adj:.2e} (tol 1e-5) | bf16 levels {TRAIN_SHAPE} K {K} widths "
-          f"{[v.shape[-1] for v in levels]}, dvol and dpos: kernel_ms {ms:.4f} plain_ms "
-          f"{plain_ms:.3f} library_ms {lib_ms:.4f} (backward of F.grid_sample over the three "
-          f"levels, fp32) bound_ms {bound_ms:.4f} (bytes, {mb:.2f} MB) | autograd's sum of one "
-          f"iteration's bf16 dvol into the running one: {accum_ms:.4f} ms (x15 per step: "
+          f"adjoint rel {adj:.2e} (tol 1e-5) | bf16 levels and folded g {TRAIN_SHAPE} K {K} "
+          f"widths {[v.shape[-1] for v in levels]}, dvol and dpos: device ms {ms:.4f} (one CUDA "
+          f"graph of 20 launches) | the unfold copy and fp32 cast an unfolded g would need: "
+          f"{glue_ms:.4f} ms (one CUDA graph of 20) | plain_ms {plain_ms:.3f} | library_ms "
+          f"{lib_ms:.4f} (backward "
+          f"of grid_sample over the three levels, fp32, volumes and grids) | bound_ms "
+          f"{bound_ms:.4f} (bytes, {mb:.2f} MB), {bound_ms / ms:.0%} of it | autograd's sum of "
+          f"one iteration's bf16 dvol into the running one: {accum_ms:.4f} ms (x15 per step: "
           f"{15 * accum_ms:.3f} ms)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
                 library_ms=lib_ms, max_abs_err=max(e for e, _ in res.values()))
@@ -2478,7 +2756,7 @@ def phase_pcv_train_parity(torch, config):
     from dkt_stereo_tpu_torch.losses.pcv import sequence_loss_pcvnet
     from dkt_stereo_tpu_torch.models.registry import create_model
     from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
-        gaussian_row_sample, gaussian_row_sample_plain)
+        gaussian_row_sample, gaussian_row_sample_folded_plain)
     from dkt_stereo_tpu_torch.train.dkt_step import (
         create_dkt_state, fande_draws, make_dkt_train_step)
     from dkt_stereo_tpu_torch.train.state import DKTHyperParams
@@ -2502,7 +2780,7 @@ def phase_pcv_train_parity(torch, config):
     gpu, m_gpu = step(gpu, on_card[0], draws=on_card[1])
     torch.cuda.synchronize()
     launches = _diff(kernel_counts(), before)
-    pcv.gaussian_row_sample = gaussian_row_sample_plain  # the plain lookup on the card
+    pcv.gaussian_row_sample = gaussian_row_sample_folded_plain  # the plain lookup on the card
     try:
         plain = create_dkt_state(cfg, hyper, params=params, device="cuda")
         plain, m_plain = step(plain, on_card[0], draws=on_card[1])
@@ -2565,8 +2843,8 @@ def phase_pcv_train_parity(torch, config):
     before = kernel_counts()
     kern = grads(gaussian_row_sample)
     launches4 = _diff(kernel_counts(), before)
-    plain4 = grads(gaussian_row_sample_plain)
-    cut = grads(lambda levels, pos, c: gaussian_row_sample(levels, pos.detach(), c))
+    plain4 = grads(gaussian_row_sample_folded_plain)
+    cut = grads(lambda levels, pos, *args: gaussian_row_sample(levels, pos.detach(), *args))
     torch.backends.cudnn.allow_tf32 = True
     check(launches4["gaussian_row_sample"] == 4 and launches4["gaussian_row_sample_bwd"] == 4,
           f"PCV 4-iteration launches {launches4}")

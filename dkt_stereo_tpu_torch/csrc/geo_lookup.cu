@@ -30,10 +30,15 @@
 // read the same D slots at neighbouring channels (16 B per slot in bf16).
 // All taps of one (pixel, level, part) share one fractional weight, so a
 // thread reads its 2r+2 consecutive values once and emits 2r+1 outputs.
-// The levels are separate tensors of different sizes, passed as pointers
-// and sizes and picked with selects (an indexed kernel parameter would be
-// copied to local memory): nothing is concatenated per call. Volumes are
-// read as bf16 or fp32; interpolation is fp32.
+// The levels are separate tensors of different sizes, passed in a
+// parameter block of up to kMaxLevels pointers and sizes that each block
+// copies into shared memory (a warp's threads read several levels):
+// nothing is concatenated per call. Volumes are read as bf16 or fp32;
+// interpolation is fp32. Radii up to kMaxRadius keep the 2r+2 values in
+// registers; larger ones (kWide) slide a two-value window along the row, the
+// same arithmetic; any radius whose staging fits shared memory. At the
+// shipped radius 4 the sliding window took 22-26 % longer on the H100
+// (chip_smoke.py phase 10's A/B), so both stay.
 //
 // The position is clamped before the integer conversion, so a disparity of
 // +-1e9 gives zeros. A NaN position is clamped to the far left
@@ -45,9 +50,11 @@
 
 namespace {
 
-constexpr int kMaxLevels = 4;
-constexpr int kMaxRadius = 8;
+constexpr int kMaxLevels = 32;
+constexpr int kMaxRadius = 8;  // the register window's radius
 constexpr int kMaxVals = 2 * kMaxRadius + 2;
+constexpr int kThreads = 256;
+constexpr long long kMaxSmem = 232448;  // a block's shared memory on the H100
 
 struct Levels {
   const void* geo[kMaxLevels];   // (npix, D_i, C)
@@ -56,26 +63,38 @@ struct Levels {
   int w2[kMaxLevels];
 };
 
+struct Level {
+  const void* geo;
+  const void* corr;
+  int depth, w2;
+};
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// a[i] for a level index only known at run time, without indexing the
-// kernel parameter (which would move it to local memory)
-template <typename A>
-__device__ __forceinline__ A pick(const A (&a)[kMaxLevels], int i) {
-  return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+// 2^-lvl, exact: x * 2^-lvl equals x / 2^lvl
+__device__ __forceinline__ float pow2_neg(int lvl) { return __int_as_float((127 - lvl) << 23); }
+
+// bytes of one block's shared memory: the levels' table, then the outputs
+__host__ __device__ inline long long smem_bytes(int levels, int radius) {
+  return (long long)levels * sizeof(Level) + (long long)kThreads * (2 * radius + 1) * 4;
 }
 
-template <typename T>
-__global__ void geo_lookup_kernel(Levels lv, int levels, int channels,
-                                  const float* __restrict__ disp,
-                                  const float* __restrict__ coords, float* __restrict__ out,
-                                  long long npix, int radius) {
-  extern __shared__ float stage[];  // blockDim.x * (2r+1) outputs
+template <typename T, bool kWide>
+__global__ void __launch_bounds__(kThreads)
+    geo_lookup_kernel(const __grid_constant__ Levels lv, int levels, int channels,
+                      const float* __restrict__ disp, const float* __restrict__ coords,
+                      float* __restrict__ out, long long npix, int radius) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Level* table = reinterpret_cast<Level*>(smem);
+  float* stage = reinterpret_cast<float*>(smem + levels * sizeof(Level));  // kThreads*(2r+1)
+  for (int i = threadIdx.x; i < levels; i += kThreads)
+    table[i] = Level{lv.geo[i], lv.corr[i], lv.depth[i], lv.w2[i]};
+  __syncthreads();
   const int parts = channels + 1;
   const int taps = 2 * radius + 1;
   const long long total = npix * levels * parts;
-  const long long first = blockIdx.x * (long long)blockDim.x;
+  const long long first = blockIdx.x * (long long)kThreads;
   const long long t = first + threadIdx.x;
 
   if (t < total) {
@@ -83,8 +102,9 @@ __global__ void geo_lookup_kernel(Levels lv, int levels, int channels,
     const int rem = (int)(t - pix * levels * parts);
     const int lvl = rem / parts;
     const int c = rem - lvl * parts;
+    const Level L = table[lvl];
     // x / 2^lvl is exact in fp32
-    const float scale = 1.0f / (float)(1 << lvl);
+    const float scale = pow2_neg(lvl);
     const float d = disp[pix];
 
     const T* src;
@@ -92,13 +112,13 @@ __global__ void geo_lookup_kernel(Levels lv, int levels, int channels,
     int n;
     float x;
     if (c < channels) {  // geo channel c, along disparity
-      n = pick(lv.depth, lvl);
-      src = static_cast<const T*>(pick(lv.geo, lvl)) + pix * (long long)n * channels + c;
+      n = L.depth;
+      src = static_cast<const T*>(L.geo) + pix * (long long)n * channels + c;
       stride = channels;
       x = d * scale;
     } else {  // init correlation, along the right image's width
-      n = pick(lv.w2, lvl);
-      src = static_cast<const T*>(pick(lv.corr, lvl)) + pix * (long long)n;
+      n = L.w2;
+      src = static_cast<const T*>(L.corr) + pix * (long long)n;
       stride = 1;
       x = (coords[pix] - d) * scale;
     }
@@ -111,53 +131,84 @@ __global__ void geo_lookup_kernel(Levels lv, int levels, int channels,
     const int x0 = (int)f0;
     const float w = p0 - f0;
 
-    float v[kMaxVals];
-#pragma unroll
-    for (int j = 0; j < kMaxVals; ++j) {
-      const int ix = x0 + j;
-      v[j] = (j <= taps && ix >= 0 && ix < n) ? to_f32(src[ix * stride]) : 0.0f;
-    }
     float* o = stage + threadIdx.x * taps;
+    if (!kWide) {
+      float v[kMaxVals];
 #pragma unroll
-    for (int k = 0; k < kMaxVals - 1; ++k) {
-      if (k < taps) o[k] = v[k] * (1.0f - w) + v[k + 1] * w;
+      for (int j = 0; j < kMaxVals; ++j) {
+        const int ix = x0 + j;
+        v[j] = (j <= taps && ix >= 0 && ix < n) ? to_f32(src[ix * stride]) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kMaxVals - 1; ++k) {
+        if (k < taps) o[k] = v[k] * (1.0f - w) + v[k + 1] * w;
+      }
+    } else {
+      float a = (x0 >= 0 && x0 < n) ? to_f32(src[x0 * stride]) : 0.0f;
+      for (int k = 0; k < taps; ++k) {
+        const int ix = x0 + k + 1;
+        const float b = (ix >= 0 && ix < n) ? to_f32(src[ix * stride]) : 0.0f;
+        o[k] = a * (1.0f - w) + b * w;
+        a = b;
+      }
     }
   }
   __syncthreads();
   // the block's outputs: out[first*taps ..], contiguous, stored coalesced
-  const long long mine = total - first < blockDim.x ? total - first : blockDim.x;
+  const long long mine = total - first < kThreads ? total - first : kThreads;
   const int count = (int)mine * taps;
   float* dst = out + first * taps;
-  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = stage[i];
+  for (int i = threadIdx.x; i < count; i += kThreads) dst[i] = stage[i];
+}
+
+template <typename T, bool kWide>
+int launch(const Levels& lv, int levels, int channels, const float* disp, const float* coords,
+           float* out, long long npix, int radius, cudaStream_t s) {
+  const long long bytes = smem_bytes(levels, radius);
+  auto kernel = geo_lookup_kernel<T, kWide>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long total = npix * levels * (channels + 1);
+  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
+  kernel<<<blocks, kThreads, bytes, s>>>(lv, levels, channels, disp, coords, out, npix, radius);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch on `stream`. Returns cudaGetLastError() after the launch (0 = ok).
-extern "C" int geo_lookup_launch(const void* geo0, const void* geo1, const void* geo2,
-                                 const void* geo3, const void* corr0, const void* corr1,
-                                 const void* corr2, const void* corr3, int d0, int d1, int d2,
-                                 int d3, int w2_0, int w2_1, int w2_2, int w2_3, int levels,
-                                 int channels, const float* disp, const float* coords,
-                                 float* out, long long npix, int radius, int is_bf16,
-                                 void* stream) {
-  if (levels < 1 || levels > kMaxLevels || radius < 0 || radius > kMaxRadius || npix < 1 ||
-      channels < 1)
+// Dynamic shared memory of one block (the wrapper's plan mirrors it).
+extern "C" long long geo_lookup_smem_bytes(int levels, int radius) {
+  return smem_bytes(levels, radius);
+}
+
+// Launch on `stream`: `geo`, `corr`, `depths` and `widths` hold one entry
+// per level. Returns cudaGetLastError() after the launch (0 = ok), or
+// cudaErrorInvalidValue for arguments it refuses.
+extern "C" int geo_lookup_launch(const void* const* geo, const void* const* corr,
+                                 const int* depths, const int* widths, int levels, int channels,
+                                 const float* disp, const float* coords, float* out,
+                                 long long npix, int radius, int is_bf16, void* stream) {
+  if (levels < 1 || levels > kMaxLevels || radius < 0 || npix < 1 || channels < 1 ||
+      smem_bytes(levels, radius) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  Levels lv = {{geo0, geo1, geo2, geo3},
-               {corr0, corr1, corr2, corr3},
-               {d0, d1, d2, d3},
-               {w2_0, w2_1, w2_2, w2_3}};
-  const int threads = 256;
-  const size_t smem = threads * (2 * radius + 1) * sizeof(float);  // <= 17 KB
-  const long long total = npix * levels * (channels + 1);
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  Levels lv = {};
+  for (int i = 0; i < levels; ++i) {
+    if (depths[i] < 1 || widths[i] < 1) return (int)cudaErrorInvalidValue;
+    lv.geo[i] = geo[i];
+    lv.corr[i] = corr[i];
+    lv.depth[i] = depths[i];
+    lv.w2[i] = widths[i];
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = radius > kMaxRadius;
   if (is_bf16)
-    geo_lookup_kernel<__nv_bfloat16><<<blocks, threads, smem, s>>>(lv, levels, channels, disp,
-                                                                   coords, out, npix, radius);
-  else
-    geo_lookup_kernel<float><<<blocks, threads, smem, s>>>(lv, levels, channels, disp, coords,
-                                                           out, npix, radius);
-  return (int)cudaGetLastError();
+    return wide ? launch<__nv_bfloat16, true>(lv, levels, channels, disp, coords, out, npix,
+                                              radius, s)
+                : launch<__nv_bfloat16, false>(lv, levels, channels, disp, coords, out, npix,
+                                               radius, s);
+  return wide ? launch<float, true>(lv, levels, channels, disp, coords, out, npix, radius, s)
+              : launch<float, false>(lv, levels, channels, disp, coords, out, npix, radius, s);
 }

@@ -7,8 +7,8 @@
 // _bwd_pos_kernel (:66, launched at :129), two pallas_calls per level. Here
 // one launch covers every level and both gradients.
 //
-// It is the exact transpose of the port's forward kernel csrc/row_sample.cu,
-// whose output for pixel p, level i and sample k is
+// On finite positions it is the exact transpose of the port's forward kernel
+// csrc/row_sample.cu, whose output for pixel p, level i and sample k is
 //   out[p, i*K + k] = v_i[x0] * (1 - w) + v_i[x0 + 1] * w,
 //   x = pos[p, k] / cf^i, x0 = floor(x), w = x - x0,
 // with taps outside the row read as 0. So
@@ -16,17 +16,24 @@
 //   dpos[p, k]   = sum_i (g*v_i[x0 + 1] - g*v_i[x0]) / cf^i,
 // the two-tap form at exact integers too (row_sample.py:10-18: the sign form
 // broke 29 of 2.1M positions on the TPU). The position is clamped to
-// [-2, w2 + 1] before the integer conversion, exactly as in the forward, so
-// huge, infinite or NaN positions give no dvol contribution and zero dpos
-// (the plain twin and the JAX kernel give NaN for a NaN position). The
+// [-2, w2 + 1] before the integer conversion, as the forward clamps finite
+// ones, so huge, infinite or NaN positions give no dvol contribution and
+// zero dpos (the forward, the plain twin and the JAX kernel give NaN for a
+// NaN position). The
 // products g*(1 - w), g*w and g*v are rounded on their own (__fmul_rn,
 // __fadd_rn: not contracted into fused multiply-adds), as the plain twin
 // rounds them.
 //
+// g arrives as autograd hands it back: the forward output's dtype (bf16
+// under mixed precision, converted to fp32 exactly) and folded layout, (B*G,
+// L*S, H, W) channels-last in memory (csrc/row_sample.cu); only the loads of
+// g know the layout. Tap t = l*K + g*S + s of pixel (b, hw) reads channel
+// l*S + s of image b*G + g.
+//
 // What bounds it on the H100: bytes. At the training shapes (8 x 80 x 180
 // pixels, K = 36, widths 180/45/11, bf16 levels) it writes 54.4 MB of dvol
 // and 16.6 MB of dpos and reads 16.6 MB of positions, 49.8 MB of g and the
-// rows' taps: ~0.047 ms at 3.35 TB/s. Its arithmetic must stay below that.
+// rows' taps: ~0.047 ms at 3.35 TB/s (24.9 MB less with a bf16 g). Its arithmetic must stay below that.
 // (The first port, one 128-thread block a pixel whose every dvol column
 // scanned all K taps of its level, took 0.405 ms there, as long as the
 // backward of F.grid_sample.)
@@ -78,19 +85,18 @@ struct Levels {
   int w2[kMaxLevels];
 };
 
-__host__ __device__ inline int align16(int n) { return (n + 15) & ~15; }
+inline int align16(int n) { return (n + 15) & ~15; }
 
 // Shared memory of one block, in bytes from the dynamic base: per warp the
 // taps (float4 x L*K) and the bins (float2 x (sum(w2) + L), rounded up to
-// 16 bytes); then the
-// block's staging area, level by level, each with 16 bytes to shift it to
-// its span's alignment.
+// 16 bytes); then the block's staging area, level by level, each with 16
+// bytes to shift it to its span's alignment. The host computes it and passes
+// it to the kernel, whose tap loop then finds a warp's area in one multiply.
 struct Layout {
   int bins, warp_bytes, level[kMaxLevels], total;
 };
 
-__host__ __device__ inline Layout layout(const int (&w2)[kMaxLevels], int levels, int K, int elem,
-                                         int pixels) {
+inline Layout layout(const int (&w2)[kMaxLevels], int levels, int K, int elem, int pixels) {
   Layout l;
   int ncols = 0;
 #pragma unroll
@@ -118,11 +124,11 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-template <typename T>
+template <typename T, typename TG>
 __global__ void __launch_bounds__(32 * kPixels)
-row_sample_bwd_kernel(Levels lv, int levels, const float* __restrict__ pos,
-                      const float* __restrict__ g, float* __restrict__ dpos, long long npix,
-                      int K, int log2_cf, int pixels) {
+row_sample_bwd_kernel(Levels lv, const Layout L, int levels, const float* __restrict__ pos,
+                      const TG* __restrict__ g, float* __restrict__ dpos, long long npix,
+                      int K, int log2_cf, int pixels, int G, int HW) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -141,7 +147,6 @@ row_sample_bwd_kernel(Levels lv, int levels, const float* __restrict__ pos,
     vol[i] = static_cast<const T*>(lv.vol[i]);
     dvol[i] = static_cast<T*>(lv.dvol[i]);
   }
-  const Layout L = layout(w2, levels, K, (int)sizeof(T), pixels);
   unsigned char* ws = smem + warp * L.warp_bytes;
   float4* taps = reinterpret_cast<float4*>(ws);
   float2* bins = reinterpret_cast<float2*>(ws + L.bins);
@@ -158,6 +163,14 @@ row_sample_bwd_kernel(Levels lv, int levels, const float* __restrict__ pos,
     stage[i] = reinterpret_cast<T*>(smem + L.level[i] + mis[i]);
   }
 
+  // g's folded layout: the pixel's first value, once a warp; then tap (gi,
+  // ch) sits gi * HW*LS + ch values on (32-bit offsets)
+  const int S = K / G, LS = levels * S;
+  const int pb = live ? (int)pix / HW : 0;
+  const long long bG = (long long)pb * G, hw = live ? pix - (long long)pb * HW : 0;
+  const TG* gpix = g + (bG * HW + hw) * LS;
+  const int gstride = HW * LS;
+
   const bool want_vol = lv.dvol[0] != nullptr;  // uniform over the grid
   const int nbins = ncols + levels;  // level i: bins cb[i] + i + (x0 + 1), x0 in [-1, w2 - 1]
   if (live) {
@@ -167,16 +180,20 @@ row_sample_bwd_kernel(Levels lv, int levels, const float* __restrict__ pos,
       __syncwarp();
     }
     const unsigned lt = (1u << lane) - 1u;
+    // tap t = lvl*K + gi*S + s of this lane, stepped by 32 a round without
+    // a division
+    int tl = lane / K, tg = (lane - tl * K) / S, ts = lane - tl * K - tg * S;
     for (int t0 = 0; t0 < LK; t0 += 32) {
       const int t = t0 + lane;
       int bin = -1;
       if (t < LK) {
-        const int lvl = (t >= K) + (t >= 2 * K) + (t >= 3 * K);
+        const int lvl = tl;
         const int wl = pick(w2, lvl);
         const float sc = pick(scale, lvl);
-        const float gv = g[pix * LK + t];
+        const int k = tg * S + ts, ch = lvl * S + ts;
+        const float gv = to_f32(gpix[tg * gstride + ch]);
         // the forward's expressions (row_sample.cu): clamp, floor, fraction
-        const float x = fminf(fmaxf(pos[pix * K + (t - lvl * K)] * sc, -2.0f), (float)(wl + 1));
+        const float x = fminf(fmaxf(pos[pix * K + k] * sc, -2.0f), (float)(wl + 1));
         const float f = floorf(x);
         const int x0 = (int)f;
         const float w = __fsub_rn(x, f);
@@ -205,6 +222,10 @@ row_sample_bwd_kernel(Levels lv, int levels, const float* __restrict__ pos,
         }
       }
       __syncwarp();
+      for (ts += 32; ts >= S;) {
+        ts -= S;
+        if (++tg == G) tg = 0, ++tl;
+      }
     }
     if (dpos != nullptr) {
       for (int k = lane; k < K; k += 32) {
@@ -248,41 +269,45 @@ row_sample_bwd_kernel(Levels lv, int levels, const float* __restrict__ pos,
   }
 }
 
-template <typename T>
-int launch(const Levels& lv, int levels, const float* pos, const float* g, float* dpos,
-           long long npix, int K, int log2_cf, cudaStream_t s) {
+template <typename T, typename TG>
+int launch(const Levels& lv, int levels, const float* pos, const void* g, float* dpos,
+           long long npix, int K, int log2_cf, int G, int HW, cudaStream_t s) {
   int pixels = kPixels;
   while (pixels > 1 && layout(lv.w2, levels, K, (int)sizeof(T), pixels).total > kMaxShared)
     pixels >>= 1;
-  const int total = layout(lv.w2, levels, K, (int)sizeof(T), pixels).total;
+  const Layout L = layout(lv.w2, levels, K, (int)sizeof(T), pixels);
+  const int total = L.total;
   if (total > kMaxShared) return (int)cudaErrorInvalidValue;
   if (total > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        row_sample_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, total);
+        row_sample_bwd_kernel<T, TG>, cudaFuncAttributeMaxDynamicSharedMemorySize, total);
     if (e != cudaSuccess) return (int)e;
   }
   const long long blocks = (npix + pixels - 1) / pixels;
-  row_sample_bwd_kernel<T><<<(unsigned)blocks, 32 * pixels, total, s>>>(
-      lv, levels, pos, g, dpos, npix, K, log2_cf, pixels);
+  row_sample_bwd_kernel<T, TG><<<(unsigned)blocks, 32 * pixels, total, s>>>(
+      lv, L, levels, pos, static_cast<const TG*>(g), dpos, npix, K, log2_cf, pixels, G, HW);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launch on `stream`. dvol0..3 all null: no dvol; dpos null: no dpos (not
-// both). dvol tensors must be 16-byte aligned (fresh allocations are).
+// both). dvol tensors must be 16-byte aligned (fresh allocations are). `g`
+// is the folded (B*G, L*K/G, H, W) gradient, HW = H * W, in fp32 or bf16
+// (`g_bf16`), channels-last in memory.
 // Returns cudaGetLastError() after the launch (0 = ok), or
 // cudaErrorInvalidValue for arguments it refuses, among them a pixel's
 // working set beyond one block's shared memory.
 extern "C" int row_sample_bwd_launch(const void* vol0, const void* vol1, const void* vol2,
                                      const void* vol3, void* dvol0, void* dvol1, void* dvol2,
                                      void* dvol3, int w2_0, int w2_1, int w2_2, int w2_3,
-                                     int levels, const float* pos, const float* g, float* dpos,
-                                     long long npix, int K, int log2_cf, int is_bf16,
-                                     void* stream) {
+                                     int levels, const float* pos, const void* g, float* dpos,
+                                     long long npix, int K, int log2_cf, int is_bf16, int G,
+                                     int HW, int g_bf16, void* stream) {
   if (levels < 1 || levels > kMaxLevels || npix < 1 || npix > 0x7fffffffLL || K < 1 ||
       K > (1 << 20) || log2_cf < 0 || (levels - 1) * log2_cf > 126 ||
-      (dvol0 == nullptr && dpos == nullptr))
+      (dvol0 == nullptr && dpos == nullptr) || G < 1 || K % G != 0 || HW < 1 ||
+      npix % HW != 0 || (long long)HW * levels * K > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   Levels lv = {{vol0, vol1, vol2, vol3}, {dvol0, dvol1, dvol2, dvol3}, {w2_0, w2_1, w2_2, w2_3}};
   for (int i = 0; i < levels; ++i)
@@ -290,6 +315,12 @@ extern "C" int row_sample_bwd_launch(const void* vol0, const void* vol1, const v
         (reinterpret_cast<uintptr_t>(lv.dvol[i]) & 15) != 0)
       return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch<__nv_bfloat16>(lv, levels, pos, g, dpos, npix, K, log2_cf, s);
-  return launch<float>(lv, levels, pos, g, dpos, npix, K, log2_cf, s);
+  if (is_bf16 && g_bf16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(lv, levels, pos, g, dpos, npix, K, log2_cf, G,
+                                                HW, s);
+  if (is_bf16)
+    return launch<__nv_bfloat16, float>(lv, levels, pos, g, dpos, npix, K, log2_cf, G, HW, s);
+  if (g_bf16)
+    return launch<float, __nv_bfloat16>(lv, levels, pos, g, dpos, npix, K, log2_cf, G, HW, s);
+  return launch<float, float>(lv, levels, pos, g, dpos, npix, K, log2_cf, G, HW, s);
 }

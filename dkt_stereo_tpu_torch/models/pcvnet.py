@@ -34,7 +34,8 @@ iteration samples every level at ``G*S`` positions ``mu + sigma*dx`` per
 pixel (K5) and runs the slow-fast GRU hierarchy, whose updater moves the
 mixture in closed form.
 
-The lookup goes through ``ops/cuda/row_sample.py::gaussian_row_sample``:
+The lookup goes through ``ops/cuda/row_sample.py::gaussian_row_sample``,
+which returns the motion encoder's input folded and in the compute dtype:
 one K5 launch an iteration over every level on CUDA tensors, for every
 ``corr_implementation`` (``reg``, ``reg_cuda``, ``alt_cuda``, ``pallas``:
 all build the volume), as RAFT's ``reg`` takes K1 on the card; its plain
@@ -166,10 +167,11 @@ class PCVNet(nn.Module):
         coords1 = coords1.detach()
         sigma_d, w_d = sigma.detach(), w.detach()
         pos = gaussian_positions(coords1, sigma, cfg.sample_num)
-        corr = gaussian_row_sample(pyramid, pos, cfg.compress_factor)
+        # the motion encoder's folded input, in the compute dtype
+        corr = gaussian_row_sample(pyramid, pos, cfg.compress_factor, cfg.gauss_num, dt)
         mu = coords0 - coords1
         with self._autocast(coords1.device):
-            mfl = self.FDM.motion_features(mu.to(dt), corr.to(dt), w_d.to(dt), sigma_d.to(dt))
+            mfl = self.FDM.motion_features(mu.to(dt), corr, w_d.to(dt), sigma_d.to(dt))
             if n >= 3 and cfg.slow_fast_gru:
                 net = self.FDM(net, inp, mfl, iter16=True, iter08=False, iter04=False,
                                update=False)

@@ -126,17 +126,21 @@ class BasicMotionEncoderPCV(nn.Module):
         self.convc1 = nn.Conv2d(corr_levels * sample_num, 64, 3, padding=1)
         self.convc2 = nn.Conv2d(64, 64, 3, padding=1)
         self.convc3 = nn.Conv2d(64, 48, 3, padding=1)
+        # the folded lookup arrives channels-last (ops/cuda/row_sample.py):
+        # with the corr branch's weights in that layout too, cuDNN runs the
+        # three convs without a layout transform and PyTorch copies no weight
+        for conv in (self.convc1, self.convc2, self.convc3):
+            conv.to(memory_format=torch.channels_last)
         self.convf1 = nn.Conv2d(3 * G, 64, 7, padding=3)
         self.convf2 = nn.Conv2d(64, 64 - 3 * G, 3, padding=1)
 
     def forward(self, mu, corr, w, sigma):
-        """mu, w, sigma: (B, G, H, W); corr: (B, H, W, L*G*S)."""
+        """mu, w, sigma: (B, G, H, W); corr: the lookup folded to (B*G, L*S,
+        H, W), channel l*S + s (``ops/cuda/row_sample.py::fold_lookup``, what
+        ``gaussian_row_sample`` returns)."""
         relu = torch.relu
         B, G, H, W = mu.shape
-        # (B, H, W, L, G, S) -> (B*G, L*S, H, W), channel l*S + s
-        c = corr.reshape(B, H, W, self.L, G, self.S).permute(0, 4, 3, 5, 1, 2)
-        c = c.reshape(B * G, self.L * self.S, H, W)
-        c = relu(self.convc3(relu(self.convc2(relu(self.convc1(c))))))
+        c = relu(self.convc3(relu(self.convc2(relu(self.convc1(corr))))))
         c = c.reshape(B, G * 48, H, W)  # channel g*48 + c
         # the parameter branch sees w and sigma without their gradient, as
         # JAX's stop_gradient there (nn/pcv.py:154-156); mu keeps its gradient

@@ -12,6 +12,13 @@ whose forward and backward launch the kernels or raise. The backward gives
 each level of both pyramids its gradient in that level's dtype and no
 gradient for disp and coords, which IGEV detaches every iteration (the JAX
 VJP returns zeros there).
+
+Both directions take any number of levels up to :data:`MAX_LEVELS` (the
+kernels' parameter blocks) and any radius whose staging fits a block's
+shared memory: :func:`fwd_smem_bytes` (the forward's output staging, 256
+threads of 2r+1 floats) and :func:`bwd_plan` (the backward's pixels a
+block) raise past that limit. A NaN disparity gives zeros in every kernel,
+where the plain twin and JAX give NaN.
 """
 
 from __future__ import annotations
@@ -24,35 +31,93 @@ from dkt_stereo_tpu_torch.ops.cuda import _build
 from dkt_stereo_tpu_torch.ops.geometry import geo_lookup as geo_lookup_plain
 from dkt_stereo_tpu_torch.ops.geometry import geo_lookup_bwd_plain
 
-MAX_LEVELS = 4
-MAX_RADIUS = 8
+MAX_LEVELS = 32  # kMaxLevels of the kernels' parameter blocks
+MAX_SMEM = 232_448  # a block's shared memory on the H100
+FWD_THREADS = 256
+PIXELS_PER_BLOCK = (64, 32, 16, 8)
 
-__all__ = ["GeoLookup", "geo_lookup", "geo_lookup_bwd_corr", "geo_lookup_bwd_geo",
-           "geo_lookup_bwd_plain", "geo_lookup_plain"]
+__all__ = ["GeoLookup", "bwd_plan", "fwd_smem_bytes", "geo_lookup", "geo_lookup_bwd_corr",
+           "geo_lookup_bwd_geo", "geo_lookup_bwd_plain", "geo_lookup_plain"]
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def fwd_smem_bytes(levels: int, radius: int) -> int:
+    """Shared memory of one forward block (``geo_lookup.cu::smem_bytes``): a
+    24-byte entry a level, then every thread's 2r+1 outputs in fp32."""
+    return levels * 24 + FWD_THREADS * (2 * radius + 1) * 4
+
+
+def bwd_smem_bytes(levels: int, radius: int, channels: int, part: str, pixels: int,
+                   max_size: int, out_itemsize: int) -> int:
+    """Shared memory of one dgeo (``part`` "geo") or dcorr ("corr") block
+    (``geo_lookup_bwd.cu::make_plan``): an int4 a (pixel, level), a slot a
+    (pixel, level) for its g piece, C*(2r+1) or 2r+1 fp32 staged from
+    anywhere in its first 16-byte chunk, then one level's output span of
+    the tile (the widest level's: ``max_size`` D_i x C or W2_i values)."""
+    taps = 2 * radius + 1
+    geo = part == "geo"
+    length = channels * taps if geo else taps
+    items = pixels * levels
+    stage = _round16(pixels * max_size * (channels if geo else 1) * out_itemsize)
+    return items * 16 + items * (_round16(length * 4) + 16) + stage
+
+
+def bwd_plan(levels: int, radius: int, channels: int, part: str, max_size: int,
+             out_itemsize: int) -> tuple[int, int]:
+    """(pixels a block, shared-memory bytes) of the dgeo or dcorr kernel:
+    the widest block of which four fit an SM's shared memory, else the
+    widest that fits at all, else ValueError naming the limit."""
+    name = f"geo_lookup_bwd_{part}"
+    if not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(f"{name}: 1..{MAX_LEVELS} levels (the kernel's parameter block), got "
+                         f"{levels}")
+    if radius < 0:
+        raise ValueError(f"{name}: radius must be >= 0, got {radius}")
+
+    def smem(p):
+        return bwd_smem_bytes(levels, radius, channels, part, p, max_size, out_itemsize)
+
+    for budget in (MAX_SMEM // 4, MAX_SMEM):
+        for pixels in PIXELS_PER_BLOCK:
+            if smem(pixels) <= budget:
+                return pixels, smem(pixels)
+    raise ValueError(f"{name}: {levels} levels at radius {radius}, {channels} channels and size "
+                     f"{max_size} need {smem(8)} B of shared memory at 8 pixels a block, more "
+                     f"than the {MAX_SMEM} B a block has")
 
 
 def _launcher(name: str):
-    """``geo_lookup_launch``: four geo and four corr level pointers, four
-    depths, four widths, levels, channels, disp, coords, out, pixels,
-    radius, bf16 flag, stream. ``geo_lookup_bwd_{geo,corr}_launch``: four
-    output level pointers, four sizes, levels, channels, disp, coords, g,
-    pixels, radius, bf16 flag, stream."""
+    """``geo_lookup_launch``: geo and corr level pointers, depths and widths
+    (host arrays), levels, channels, disp, coords, out, pixels, radius, bf16
+    flag, stream. ``geo_lookup_bwd_{geo,corr}_launch``: output level
+    pointers and sizes (host arrays), levels, channels, disp, coords, g,
+    pixels, radius, bf16 flag, pixels a block, stream."""
     lib = "geo_lookup" if name == "geo_lookup" else "geo_lookup_bwd"
     fn = getattr(_build.load(lib), f"{name}_launch")
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        pointers = 8 if name == "geo_lookup" else 4
-        fn.argtypes = [p] * pointers + [i] * (pointers + 2) + [p, p, p, ctypes.c_longlong, i, i, p]
+        p, i, pp, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), \
+            ctypes.POINTER(ctypes.c_int)
+        if name == "geo_lookup":
+            fn.argtypes = [pp, pp, pi, pi, i, i, p, p, p, ctypes.c_longlong, i, i, p]
+        else:
+            fn.argtypes = [pp, pi, i, i, p, p, p, ctypes.c_longlong, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _array(ctype, values):
+    return (ctype * len(values))(*values)
 
 
 def _check_points(disp, coords, levels, radius, name):
     """Validate disp and coords; returns the lead shape (B, H, W)."""
     if not 1 <= levels <= MAX_LEVELS:
         raise ValueError(f"{name}: 1..{MAX_LEVELS} levels, got {levels}")
-    if not 0 <= radius <= MAX_RADIUS:
-        raise ValueError(f"{name}: radius 0..{MAX_RADIUS}, got {radius}")
+    if radius < 0:
+        raise ValueError(f"{name}: radius must be >= 0, got {radius}")
     lead = tuple(disp.shape[:3])
     for arg, t in (("disp", disp), ("coords", coords)):
         if (t.dtype != torch.float32 or not t.is_contiguous() or t.dim() != 4
@@ -88,17 +153,20 @@ def _launch_fwd(geo_pyr, corr_pyr, disp, coords, radius):
     for t in (*geo_pyr, *corr_pyr):
         if t.device != disp.device or not t.is_contiguous():
             raise ValueError("geo_lookup: levels must be contiguous, on disp's device")
+    if fwd_smem_bytes(L, radius) > MAX_SMEM:
+        raise ValueError(f"geo_lookup: radius {radius} needs {fwd_smem_bytes(L, radius)} B of "
+                         f"shared memory a block, more than the {MAX_SMEM} B a block has")
     taps = 2 * radius + 1
     out = torch.empty((*lead, L * (C + 1) * taps), dtype=torch.float32, device=disp.device)
-    pad = [None] * (MAX_LEVELS - L)
-    zeros = [0] * (MAX_LEVELS - L)
-    args = ([g.data_ptr() for g in geo_pyr] + pad + [c.data_ptr() for c in corr_pyr] + pad
-            + [g.shape[3] for g in geo_pyr] + zeros + [c.shape[3] for c in corr_pyr] + zeros)
     fn = _launcher("geo_lookup")
     with torch.cuda.device(disp.device):
         stream = torch.cuda.current_stream(disp.device).cuda_stream
-        err = fn(*args, L, C, disp.data_ptr(), coords.data_ptr(), out.data_ptr(),
-                 lead[0] * lead[1] * lead[2], radius, int(dtype == torch.bfloat16), stream)
+        err = fn(_array(ctypes.c_void_p, [g.data_ptr() for g in geo_pyr]),
+                 _array(ctypes.c_void_p, [c.data_ptr() for c in corr_pyr]),
+                 _array(ctypes.c_int, [g.shape[3] for g in geo_pyr]),
+                 _array(ctypes.c_int, [c.shape[3] for c in corr_pyr]), L, C, disp.data_ptr(),
+                 coords.data_ptr(), out.data_ptr(), lead[0] * lead[1] * lead[2], radius,
+                 int(dtype == torch.bfloat16), stream)
     _build.check_launch(err, "geo_lookup")
     geo_lookup.launches += 1
     return out
@@ -111,20 +179,21 @@ def _launch_bwd(part, geo_meta, corr_meta, disp, coords, g, radius):
     L = len(geo_meta)
     lead = _check_points(disp, coords, L, radius, name)
     C, dtype = _check_meta(geo_meta, corr_meta, lead, name)
+    meta = geo_meta if part == "geo" else corr_meta
+    pixels, _ = bwd_plan(L, radius, C, part, max(s[3] for s, _ in meta), dtype.itemsize)
     width = L * (C + 1) * (2 * radius + 1)
     if (g.device != disp.device or g.dtype != torch.float32 or not g.is_contiguous()
             or tuple(g.shape) != (*lead, width)):
         raise ValueError(f"{name}: g must be a contiguous fp32 {(*lead, width)} tensor on "
                          f"{disp.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
-    meta = geo_meta if part == "geo" else corr_meta
     outs = [torch.empty(s, dtype=dtype, device=g.device) for s, _ in meta]
-    ptrs = [o.data_ptr() for o in outs] + [None] * (MAX_LEVELS - L)
-    sizes = [s[3] for s, _ in meta] + [0] * (MAX_LEVELS - L)
     fn = _launcher(name)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = fn(*ptrs, *sizes, L, C, disp.data_ptr(), coords.data_ptr(), g.data_ptr(),
-                 lead[0] * lead[1] * lead[2], radius, int(dtype == torch.bfloat16), stream)
+        err = fn(_array(ctypes.c_void_p, [o.data_ptr() for o in outs]),
+                 _array(ctypes.c_int, [s[3] for s, _ in meta]), L, C, disp.data_ptr(),
+                 coords.data_ptr(), g.data_ptr(), lead[0] * lead[1] * lead[2], radius,
+                 int(dtype == torch.bfloat16), pixels, stream)
     _build.check_launch(err, name)
     return outs
 

@@ -169,6 +169,37 @@ def test_geo_lookup_autograd_function_matches_pallas_vjp(k4_case):
     _close_levels([v.grad for v in levels], want, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_geo_lookup_bwd_plain_matches_pallas_vjp_past_the_kernels_former_caps(dtype):
+    """Three levels at radius 10 (the CUDA kernels once stopped at 4 levels
+    and radius 8): ``geo_lookup_bwd_plain`` and autograd through
+    ``GeoLookup`` on CPU tensors against ``jax.vjp`` of the Pallas lookup in
+    interpret mode, held as the two-level case is."""
+    rng = np.random.default_rng(13)
+    Bk, Hk, Wk, D, C, L, r = 1, 2, 24, 16, 8, 3, 10
+    geo = [rng.standard_normal((Bk, Hk, Wk, D >> i, C)).astype(np.float32) for i in range(L)]
+    cor = [rng.standard_normal((Bk, Hk, Wk, Wk >> i)).astype(np.float32) for i in range(L)]
+    disp = rng.uniform(-6, D + 6, (Bk, Hk, Wk, 1)).astype(np.float32)
+    disp.reshape(-1)[:4] = [-1e9, 1e9, 0.0, D - 1.0]
+    coords = np.broadcast_to(np.arange(Wk, dtype=np.float32)[None, None, :, None],
+                             disp.shape).copy()
+    g = rng.standard_normal((Bk, Hk, Wk, L * (C + 1) * (2 * r + 1))).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    jpyr = [jnp.asarray(v, jdt) for v in geo + cor]
+    _, vjp = jax.vjp(lambda *p: geo_lookup_pallas(p[:L], p[L:], jnp.asarray(disp),
+                                                  jnp.asarray(coords), r, True), *jpyr)
+    want = [np.asarray(d.astype(jnp.float32)) for d in vjp(jnp.asarray(g))]
+    tdt = getattr(torch, dtype)
+    pyr = [_t(v).to(tdt) for v in geo + cor]
+    meta = [(v.shape, v.dtype) for v in pyr]
+    dgeo, dcorr = geo_lookup_bwd_plain(meta[:L], meta[L:], _t(disp), _t(coords), _t(g), r)
+    assert [tuple(d.shape) for d in dgeo + dcorr] == [tuple(v.shape) for v in pyr]
+    _close_levels(dgeo + dcorr, want, dtype)
+    levels = [v.clone().requires_grad_(True) for v in pyr]
+    GeoLookup.apply(_t(disp), _t(coords), r, L, *levels).backward(_t(g))
+    _close_levels([v.grad for v in levels], want, dtype)
+
+
 def test_geo_lookup_backward_skips_parts_without_grad(monkeypatch):
     """With the corr levels not requiring grad (a frozen backbone), the
     backward computes no corr gradient (the dcorr wrapper is not called)

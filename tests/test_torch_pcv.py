@@ -52,7 +52,7 @@ from dkt_stereo_tpu_torch.nn.pcv import (
     BasicMotionEncoderPCV, BasicMultiUpdateBlockPCV, ParametersUpdater, PCVMultiBasicEncoder,
     RefineNet, gaussian_corr_lookup, gaussian_corr_pyramid, gaussian_positions)
 from dkt_stereo_tpu_torch.ops.corr import corr_pyramid_fused
-from dkt_stereo_tpu_torch.ops.cuda.row_sample import gaussian_row_sample
+from dkt_stereo_tpu_torch.ops.cuda.row_sample import fold_lookup, gaussian_row_sample
 from dkt_stereo_tpu_torch.ops.upsample import convex_upsample
 from dkt_stereo_tpu_torch.weights import state_dict_from_flax
 
@@ -148,18 +148,24 @@ def _jax_lookups(pyr, mu, sigma, cf):
 
 # interpret mode unrolls the Pallas kernel over the B*H rows of a block, so
 # B*H stays small
-@pytest.mark.parametrize("dtype, shape, cf", [
-    ("float32", (2, 1, 37), 4),  # widths 37/9/2, a level of width 2
-    ("bfloat16", (2, 1, 37), 4),
-    ("bfloat16", (1, 2, 40), 2),  # fast.json's factor: 40/20/10
+@pytest.mark.parametrize("dtype, shape, cf, out", [
+    ("float32", (2, 1, 37), 4, "float32"),  # widths 37/9/2, a level of width 2
+    ("bfloat16", (2, 1, 37), 4, "bfloat16"),
+    ("bfloat16", (1, 2, 40), 2, "bfloat16"),  # fast.json's factor: 40/20/10
+    ("float32", (1, 2, 40), 2, "bfloat16"),  # an fp32 pyramid under mixed precision
 ])
-def test_gaussian_lookup_matches_jax(rng, dtype, shape, cf):
+def test_gaussian_lookup_matches_jax(rng, dtype, shape, cf, out):
     """K5's plain twin through the wrapper vs the JAX XLA lookup and the
     Pallas kernel (interpret mode), on the same (bf16-rounded) pyramid and
-    the same fp32 mixture. The port's ``gaussian_corr_pyramid`` equals the
+    the same fp32 mixture: the unfolded lookup within 1e-4 of the output's
+    scale (the JAX package's bound between its two samplers), and the
+    wrapper's folded output in ``out`` against the Pallas lookup folded and
+    cast the same way: fp32 within 1e-5 of the scale, bf16 equal to the
+    plain twin rounded once. The port's ``gaussian_corr_pyramid`` equals the
     JAX one bit for bit."""
     B, H, W = shape
     jdt, tdt = DTYPES[dtype]
+    odt = DTYPES[out][1]
     vol = rng.standard_normal((B, H, W, W)).astype(np.float32)
     jpyr = [np.asarray(v) for v in jgaussian_corr_pyramid(jnp.asarray(vol), L, cf)]
     pyr = gaussian_corr_pyramid(_t(vol), L, cf)
@@ -170,60 +176,92 @@ def test_gaussian_lookup_matches_jax(rng, dtype, shape, cf):
     want_xla, want_pallas = (np.asarray(a) for a in _jax_lookups(
         tuple(jnp.asarray(v).astype(jdt) for v in jpyr), jnp.asarray(mu), jnp.asarray(sigma), cf))
     levels = [_t(v).to(tdt) for v in jpyr]
-    n = gaussian_row_sample.launches
-    got = gaussian_row_sample(levels, gaussian_positions(_nchw(mu), _nchw(sigma), S), cf).numpy()
-    assert gaussian_row_sample.launches == n  # the CPU path launches nothing
-    assert got.shape == want_xla.shape == (B, H, W, L * G * S) and got.dtype == np.float32
+    pos = gaussian_positions(_nchw(mu), _nchw(sigma), S)
+    # the nn.pcv entry point is the unfolded lookup, in the JAX signature
+    plain = gaussian_corr_lookup(levels, _nchw(mu), _nchw(sigma), S, cf).numpy()
+    assert plain.shape == want_xla.shape == (B, H, W, L * G * S) and plain.dtype == np.float32
     scale = float(np.abs(want_xla).max())
-    errs = [float(np.abs(got - w).max()) for w in (want_xla, want_pallas)]
-    print(f"K5 plain twin {dtype} {shape} cf {cf}: max_abs vs XLA {errs[0]:.3e}, vs Pallas "
-          f"{errs[1]:.3e} (scale {scale:.2f})")
+    errs = [float(np.abs(plain - w).max()) for w in (want_xla, want_pallas)]
     assert max(errs) <= 1e-4 * scale
-    # the nn.pcv entry point is the same function
-    np.testing.assert_array_equal(
-        gaussian_corr_lookup(levels, _nchw(mu), _nchw(sigma), S, cf).numpy(), got)
+    n = gaussian_row_sample.launches
+    got = gaussian_row_sample(levels, pos, cf, G, odt)
+    assert gaussian_row_sample.launches == n  # the CPU path launches nothing
+    assert got.shape == (B * G, L * S, H, W) and got.dtype == odt
+    assert got.permute(0, 2, 3, 1).is_contiguous()  # channels-last in memory
+    assert torch.equal(got, fold_lookup(_t(plain), L, G).to(odt))
+    want = fold_lookup(_t(want_pallas), L, G).to(odt).float()
+    err = float((got.float() - want).abs().max())
+    print(f"K5 plain twin {dtype} {shape} cf {cf} -> {out}: max_abs vs XLA {errs[0]:.3e}, vs "
+          f"Pallas {errs[1]:.3e}; folded vs folded Pallas {err:.3e} (scale {scale:.2f})")
+    if out == "float32":
+        assert err <= 1e-5 * scale
+    else:  # one rounding of fp32 values that agree to 1e-5: at most one bf16 step
+        assert err <= 2**-8 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_fold_lookup_is_the_motion_encoders_reshape(channels_last):
+    """``fold_lookup`` puts lookup channel l*G*S + g*S + s of pixel (b, h, w)
+    at channel l*S + s of image b*G + g, channels-last in memory, and
+    ``unfold_lookup`` inverts it from that layout or from an NCHW copy (a
+    gradient autograd may hand back)."""
+    from dkt_stereo_tpu_torch.ops.cuda.row_sample import unfold_lookup
+
+    B, H, W = 2, 3, 5
+    x = torch.arange(B * H * W * L * G * S, dtype=torch.float32).reshape(B, H, W, L * G * S)
+    y = fold_lookup(x, L, G)
+    assert y.shape == (B * G, L * S, H, W) and y.is_contiguous(memory_format=torch.channels_last)
+    if not channels_last:
+        y = y.contiguous()
+        assert not y.is_contiguous(memory_format=torch.channels_last)
+    for b, h, w, l, g, s in ((0, 0, 0, 0, 0, 0), (1, 2, 4, 2, 3, 8), (1, 0, 3, 1, 2, 5)):
+        assert y[b * G + g, l * S + s, h, w] == x[b, h, w, l * G * S + g * S + s]
+    assert torch.equal(unfold_lookup(y, L, G), x)
 
 
 def test_gaussian_lookup_nan_position():
-    """On the CPU a NaN position gives NaN at its pixel only (the kernel
-    gives zeros there); huge positions read nothing."""
+    """On the CPU a NaN position gives NaN at its pixel only, as the kernel
+    does; huge positions read nothing."""
     levels = [torch.randn(1, 1, 3, 16), torch.randn(1, 1, 3, 4)]
     pos = torch.full((1, 1, 3, 2), 5.5)
     pos[0, 0, 1, 0] = float("nan")
     pos[0, 0, 2] = torch.tensor([1e9, -1e9])
-    out = gaussian_row_sample(levels, pos, 4)
-    assert out.shape == (1, 1, 3, 4)
-    assert torch.isnan(out[0, 0, 1, [0, 2]]).all() and torch.isfinite(out[0, 0, 1, [1, 3]]).all()
-    assert torch.isfinite(out[0, 0, 0]).all() and (out[0, 0, 2] == 0).all()
+    out = gaussian_row_sample(levels, pos, 4, 1)  # (1, L*K, 1, 3): channel l*K + k
+    assert out.shape == (1, 4, 1, 3)
+    assert torch.isnan(out[0, [0, 2], 0, 1]).all() and torch.isfinite(out[0, [1, 3], 0, 1]).all()
+    assert torch.isfinite(out[0, :, 0, 0]).all() and (out[0, :, 0, 2] == 0).all()
 
 
 def test_wrapper_checks_arguments():
-    """Power-of-two compress factors, 1..4 levels of one dtype (fp32 or
+    """Power-of-two compress factors, 1..32 levels of one dtype (fp32 or
     bf16) sharing pos's leading shape and device, contiguous fp32 (B, H,
-    W1, K) positions; a device that is neither CPU nor CUDA raises."""
+    W1, K) positions, K a multiple of gauss_num, an fp32 or bf16 output; a
+    device that is neither CPU nor CUDA raises."""
     levels = [torch.zeros(1, 2, 3, 8), torch.zeros(1, 2, 3, 2)]
     pos = torch.zeros(1, 2, 3, 36)
-    assert gaussian_row_sample(levels, pos, 4).shape == (1, 2, 3, 72)
+    assert gaussian_row_sample(levels, pos, 4, 4).shape == (4, 18, 2, 3)
     for cf in (0, 3, 6):
         with pytest.raises(ValueError, match="power of two"):
-            gaussian_row_sample(levels, pos, cf)
+            gaussian_row_sample(levels, pos, cf, 4)
     bad = {
-        "pos dtype": (levels, pos.double()),
-        "pos layout": (levels, torch.zeros(1, 2, 36, 3).transpose(2, 3)),
-        "pos rank": (levels, pos[0]),
-        "no level": ([], pos),
-        "five levels": (levels * 2 + levels[:1], pos),
-        "mixed dtypes": ([levels[0], levels[1].bfloat16()], pos),
-        "fp16 levels": ([v.half() for v in levels], pos),
-        "lead shape": ([levels[0], torch.zeros(1, 2, 4, 2)], pos),
-        "level layout": ([torch.zeros(1, 2, 8, 3).transpose(2, 3)], pos),
+        "pos dtype": (levels, pos.double(), 4, torch.float32),
+        "pos layout": (levels, torch.zeros(1, 2, 36, 3).transpose(2, 3), 4, torch.float32),
+        "pos rank": (levels, pos[0], 4, torch.float32),
+        "no level": ([], pos, 4, torch.float32),
+        "33 levels": (levels * 16 + levels[:1], pos, 4, torch.float32),
+        "mixed dtypes": ([levels[0], levels[1].bfloat16()], pos, 4, torch.float32),
+        "fp16 levels": ([v.half() for v in levels], pos, 4, torch.float32),
+        "lead shape": ([levels[0], torch.zeros(1, 2, 4, 2)], pos, 4, torch.float32),
+        "level layout": ([torch.zeros(1, 2, 8, 3).transpose(2, 3)], pos, 4, torch.float32),
+        "gauss_num": (levels, pos, 5, torch.float32),
+        "fp16 output": (levels, pos, 4, torch.float16),
     }
-    for name, (lv, p) in bad.items():
+    for name, (lv, p, gn, dt) in bad.items():
         with pytest.raises(ValueError, match="gaussian_row_sample"):
-            gaussian_row_sample(lv, p, 4)
+            gaussian_row_sample(lv, p, 4, gn, dt)
             pytest.fail(name)
     with pytest.raises(ValueError, match="unsupported device"):
-        gaussian_row_sample([v.to("meta") for v in levels], pos.to("meta"), 4)
+        gaussian_row_sample([v.to("meta") for v in levels], pos.to("meta"), 4, 4)
 
 
 @pytest.mark.parametrize("pool_factor", [2, 4])
@@ -297,8 +335,9 @@ def _corr_features(rng, B, H, W):
 
 
 def test_motion_encoder_matches_jax(rng):
-    """The (B, H, W, L, G, S) -> (B*G, L*S, H, W) fold and the parameter
-    branch."""
+    """The encoder on the folded lookup (``fold_lookup``: (B, H, W, L, G, S)
+    -> (B*G, L*S, H, W), what ``gaussian_row_sample`` returns) against the
+    JAX encoder on the unfolded one, and the parameter branch."""
     B, H, W = 1, 6, 10
     mu, sigma, w = _mixture_maps(rng, B, H, W)
     corr = _corr_features(rng, B, H, W)
@@ -308,7 +347,7 @@ def test_motion_encoder_matches_jax(rng):
     want = jax.jit(jm.apply)(v, *jargs)
     port = _load(BasicMotionEncoderPCV(G, S, L), v, "step.FDM.encoder")
     with torch.no_grad():
-        got = port(_nchw(mu), _t(corr), _nchw(w), _nchw(sigma))
+        got = port(_nchw(mu), fold_lookup(_t(corr), L, G), _nchw(w), _nchw(sigma))
     assert got.shape == (B, 48 * G + 64, H, W)
     _close(_nhwc(got), want, 1e-5)
 
@@ -360,7 +399,8 @@ def test_update_block_matches_jax(rng):
     port = _load(BasicMultiUpdateBlockPCV(3, 2, (128,) * 4, G, S, L), v, "step.FDM")
     tmix = dict(mu=_nchw(mu), w=_nchw(w), sigma=_nchw(sigma))
     with torch.no_grad():
-        got_mfl = port.motion_features(tmix["mu"], _t(corr), tmix["w"], tmix["sigma"])
+        got_mfl = port.motion_features(tmix["mu"], fold_lookup(_t(corr), L, G), tmix["w"],
+                                       tmix["sigma"])
         tnet = [_nchw(n) for n in net]
         tinp = [[_nchw(c) for c in i] for i in inp]
         tnet = port(tnet, tinp, got_mfl, **slow)

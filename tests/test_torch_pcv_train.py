@@ -55,8 +55,8 @@ from dkt_stereo_tpu_torch.models.registry import make_loss_adapter
 from dkt_stereo_tpu_torch.nn.pcv import BasicMotionEncoderPCV
 from dkt_stereo_tpu_torch.ops.cuda import row_sample as k5
 from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
-    GaussianRowSample, gaussian_row_sample, gaussian_row_sample_bwd,
-    gaussian_row_sample_bwd_plain)
+    GaussianRowSample, fold_lookup, gaussian_row_sample, gaussian_row_sample_bwd,
+    gaussian_row_sample_bwd_plain, gaussian_row_sample_folded_plain, unfold_lookup)
 from dkt_stereo_tpu_torch.train.dkt_step import cascade_upsample2x
 from dkt_stereo_tpu_torch.weights import state_dict_from_flax
 from tests.test_torch_pcv import _load, _mixture, _numpy_tree
@@ -114,7 +114,7 @@ def _jax_vjps(pyr, pos, g, cf):
     return tuple(jax.vjp(f, pyr, pos)[1](g) for f in (pallas, xla))
 
 
-def _k5_case(rng, dtype, shape, cf):
+def _k5_case(rng, dtype, shape, cf, bf16_g=False):
     """A pyramid pooled from one (B, H, W1, W1) volume (its last level 2 wide
     at W1 37, cf 4), the level-0 positions mu + sigma*dx, dx = -1, 0, 1, of
     :func:`_mixture`'s mixture (negative, past the row, far out of range,
@@ -126,6 +126,8 @@ def _k5_case(rng, dtype, shape, cf):
     dx = np.arange(-(K5_S // 2), K5_S // 2 + 1, dtype=np.float32)
     pos = (mu[..., None] + sigma[..., None] * dx).reshape(Bk, Hk, W1, K).astype(np.float32)
     g = rng.standard_normal((Bk, Hk, W1, L * K)).astype(np.float32)
+    if bf16_g:  # a bf16 cotangent, exact in fp32
+        g = np.asarray(jnp.asarray(g, jnp.bfloat16).astype(jnp.float32))
     jdt, tdt = DTYPES[dtype]
     want = [[np.asarray(jnp.asarray(d, jnp.float32)) for d in (*dl, dp)]
             for dl, dp in _jax_vjps(tuple(jnp.asarray(v).astype(jdt) for v in jpyr),
@@ -150,20 +152,25 @@ def _close_grads(got, want, dtype, label):
     return max(errs)
 
 
-@pytest.mark.parametrize("dtype, shape, cf", [
-    ("float32", (2, 1, 37), 4),  # widths 37/9/2
-    ("bfloat16", (2, 1, 37), 4),
-    ("float32", (1, 2, 40), 2),  # fast.json's factor: 40/20/10
+@pytest.mark.parametrize("dtype, shape, cf, g_dtype", [
+    ("float32", (2, 1, 37), 4, "float32"),  # widths 37/9/2
+    ("bfloat16", (2, 1, 37), 4, "float32"),
+    ("float32", (1, 2, 40), 2, "float32"),  # fast.json's factor: 40/20/10
+    ("bfloat16", (2, 1, 37), 4, "bfloat16"),  # the mixed-precision model's cotangent
 ])
-def test_row_sample_bwd_plain_matches_jax(rng, dtype, shape, cf):
-    """``gaussian_row_sample_bwd_plain`` (and the wrapper's CPU path) vs
-    ``jax.vjp`` of the Pallas kernel in interpret mode and of the XLA
-    sampler: every level's dvol, shaped and typed as the level, and dpos
-    through ``pos / cf^i``. In fp32, autograd of the plain forward (the
-    model's CPU path) gives the same gradients."""
-    levels, pos, g, (want_pallas, want_xla) = _k5_case(rng, dtype, shape, cf)
+def test_row_sample_bwd_plain_matches_jax(rng, dtype, shape, cf, g_dtype):
+    """``gaussian_row_sample_bwd_plain`` (and the wrapper's CPU path, fed
+    the cotangent folded as the motion encoder's input) vs ``jax.vjp`` of
+    the Pallas kernel in interpret mode and of the XLA sampler: every
+    level's dvol, shaped and typed as the level, and dpos through ``pos /
+    cf^i``. Autograd of the folded lookup on the CPU, and
+    ``GaussianRowSample``'s CPU backward with a folded cotangent in
+    ``g_dtype`` (JAX fed the same values), give the same gradients."""
+    levels, pos, g, (want_pallas, want_xla) = _k5_case(rng, dtype, shape, cf,
+                                                       g_dtype == "bfloat16")
+    gf = fold_lookup(g, L, G).to(DTYPES[g_dtype][1])
     n = gaussian_row_sample_bwd.launches
-    dlevels, dpos = gaussian_row_sample_bwd(levels, pos, g, cf)
+    dlevels, dpos = gaussian_row_sample_bwd(levels, pos, gf, cf, G)
     assert gaussian_row_sample_bwd.launches == n  # the CPU path launches nothing
     plain = gaussian_row_sample_bwd_plain(levels, pos, g, cf)
     assert all(torch.equal(a, b) for a, b in zip([*dlevels, dpos], [*plain[0], plain[1]]))
@@ -172,21 +179,27 @@ def test_row_sample_bwd_plain_matches_jax(rng, dtype, shape, cf):
     got = [*dlevels, dpos]
     errs = [_close_grads(got, w, dtype, name) for w, name in ((want_pallas, "pallas"),
                                                                (want_xla, "xla"))]
-    print(f"K5 bwd plain twin {dtype} {shape} cf {cf}: max relative error vs Pallas "
-          f"{errs[0]:.2e}, vs XLA {errs[1]:.2e}")
-    if dtype == "float32":
-        lv = [v.clone().requires_grad_(True) for v in levels]
-        p = pos.clone().requires_grad_(True)
-        gaussian_row_sample(lv, p, cf).backward(g)
-        _close_grads([*(v.grad for v in lv), p.grad], [x.numpy() for x in got], dtype, "autograd")
+    print(f"K5 bwd plain twin {dtype} {shape} cf {cf} g {g_dtype}: max relative error vs "
+          f"Pallas {errs[0]:.2e}, vs XLA {errs[1]:.2e}")
+    if dtype == "bfloat16" and g_dtype == "float32":
+        return  # autograd of the plain forward sums bf16 levels' gradients in bf16
+    lv = [v.clone().requires_grad_(True) for v in levels]
+    p = pos.clone().requires_grad_(True)
+    if g_dtype == "float32":
+        gaussian_row_sample(lv, p, cf, G).backward(gf)
+    else:
+        GaussianRowSample.apply(p, cf, G, torch.bfloat16, *lv).backward(gf)
+    _close_grads([*(v.grad for v in lv), p.grad], [x.float().numpy() for x in got], dtype,
+                 "autograd")
 
 
 def test_autograd_function_cpu_path_and_needs_input_grad(rng, monkeypatch):
     """``GaussianRowSample`` on CPU tensors: its plain forward and backward
-    equal the plain versions bit for bit, with a strided incoming gradient
-    as the model's fold gives it; it asks the backward only for what
-    ``needs_input_grad`` names (levels only, positions only, one level of
-    three), and returns None for the rest."""
+    equal the plain versions bit for bit, with the incoming gradient in the
+    folded layout and in NCHW (the CPU path reads either; only the card
+    copies to the folded layout, and counts it); it asks the backward only
+    for what ``needs_input_grad`` names (levels only, positions only, one
+    level of three), and returns None for the rest."""
     levels, pos, g, _ = _k5_case(rng, "float32", (2, 1, 37), 4)
     want_levels, want_pos = gaussian_row_sample_bwd_plain(levels, pos, g, 4)
     calls = []
@@ -197,23 +210,28 @@ def test_autograd_function_cpu_path_and_needs_input_grad(rng, monkeypatch):
         return real(*args, **kw)
 
     monkeypatch.setattr(k5, "gaussian_row_sample_bwd", spy)
-    strided = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-    assert not strided.is_contiguous()
-    for lv_grad, pos_grad in (([True] * L, True), ([True] * L, False), ([False] * L, True),
-                              ([False, True, False], False)):
+    folded = fold_lookup(g, L, G)
+    nchw = folded.contiguous()
+    assert not nchw.is_contiguous(memory_format=torch.channels_last)
+    copies = real.g_copies
+    for (lv_grad, pos_grad), gin in zip((([True] * L, True), ([True] * L, False),
+                                         ([False] * L, True), ([False, True, False], False)),
+                                        (folded, nchw, folded, nchw)):
         lv = [v.clone().requires_grad_(r) for v, r in zip(levels, lv_grad)]
         p = pos.clone().requires_grad_(pos_grad)
-        out = GaussianRowSample.apply(p, 4, *lv)
-        assert torch.equal(out.detach(), k5.gaussian_row_sample_plain(levels, pos, 4))
-        out.backward(strided)
+        out = GaussianRowSample.apply(p, 4, G, torch.float32, *lv)
+        assert torch.equal(out.detach(), gaussian_row_sample_folded_plain(levels, pos, 4, G))
+        out.backward(gin)
         assert calls.pop() == (any(lv_grad), pos_grad)
         for v, r, w in zip(lv, lv_grad, want_levels):
             assert (v.grad is None) if not r else torch.equal(v.grad, w)
         assert (p.grad is None) if not pos_grad else torch.equal(p.grad, want_pos)
+    assert real.g_copies == copies
     with pytest.raises(ValueError, match="gaussian_row_sample_bwd: g must be"):
-        gaussian_row_sample_bwd(levels, pos, g[..., :K], 4)
-    assert gaussian_row_sample_bwd(levels, pos, g, 4, need_vol=False, need_pos=False) == (
-        None, None)
+        gaussian_row_sample_bwd(levels, pos, g, 4, G)  # unfolded
+    assert torch.equal(unfold_lookup(folded, L, G), g)
+    assert gaussian_row_sample_bwd(levels, pos, folded, 4, G, need_vol=False,
+                                   need_pos=False) == (None, None)
 
 
 # --- the loss ------------------------------------------------------------------------
@@ -295,7 +313,8 @@ def test_motion_encoder_gradients_match_jax(rng):
     targs = [_nchw(mu), _t(corr), _nchw(w), _nchw(sigma)]
     for t in targs:
         t.requires_grad_(True)
-    (port(*targs) * _nchw(proj)).sum().backward()
+    # the encoder reads the lookup folded; its gradient flows back unfolded
+    (port(targs[0], fold_lookup(targs[1], L, G), *targs[2:]) * _nchw(proj)).sum().backward()
     assert float(np.abs(np.asarray(jgrads[3])).max()) == 0.0  # w
     assert float(np.abs(np.asarray(jgrads[4])).max()) == 0.0  # sigma
     for t, want in zip(targs, jgrads[1:]):
@@ -513,7 +532,7 @@ def test_position_gradient_reaches_the_updater(jax_setup, monkeypatch):
     want = {k: p.grad for k, p in named.items()}
     real = pcv_model.gaussian_row_sample
     monkeypatch.setattr(pcv_model, "gaussian_row_sample",
-                        lambda levels, pos, cf: real(levels, pos.detach(), cf))
+                        lambda levels, pos, *args: real(levels, pos.detach(), *args))
     cut_loss, cut = _student_grads(variables, batch)
     assert cut_loss == loss
     rel = _rel_by_module(cut, want)
