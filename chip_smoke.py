@@ -12,7 +12,8 @@ out-of-tolerance result raises and exits non-zero:
      prints each kernel's registers, spills and static shared memory as
      ptxas reported them, and the dynamic shared memory of K2's forward and
      K3 blocks, and of the K1 forward and backward, K4 forward and backward
-     and K5 forward blocks (each checked against the wrapper's plan);
+     and K5 forward and backward blocks (each checked against the
+     wrapper's plan);
   2. K1 (corr lookup) vs its plain version, the output's dtype and strides
      those of plain.permute(0, 3, 1, 2).to(dt), bf16 within one bf16 step of
      the plain value rounded once: at the frame's 1x184x320 (W2
@@ -69,7 +70,8 @@ out-of-tolerance result raises and exits non-zero:
      shapes (1x184x320, geo D 48/24 x 8 channels, corr W2 320/160) and past
      the kernels' former caps (5 levels at radius 12), bf16 and fp32
      pyramids, disparities far out of range, negative, above D and NaN
-     included; device times (a CUDA graph) at this frame and at the IGEV
+     included (NaN outputs exactly where the plain version has them);
+     device times (a CUDA graph) at this frame and at the IGEV
      training step's 8x80x184 beside their bounds, the plain version and
      upstream IGEV's grid_sample form (one call a volume and level); the
      register window against the sliding window at radius 4, the latter
@@ -78,8 +80,9 @@ out-of-tolerance result raises and exits non-zero:
  11. K4's backward (the dgeo and the dcorr kernel) vs its plain version at
      the IGEV training shapes (8x80x184, geo D 48/24 x 8, corr W2 184/92)
      and at 5 levels with radius 12, bf16 and fp32 pyramids, the same
-     hostile disparities (NaN gives zeros), the adjoint check <K4(v), g> =
-     <v, K4^T(g)> against the forward kernel at both; device times (a CUDA
+     hostile disparities (a NaN one gives NaN rows where the plain version
+     has them), the adjoint check <K4(v), g> = <v, K4^T(g)> against the
+     forward kernel at both, over the finite pixels; device times (a CUDA
      graph) beside the bound, the plain version and grid_sample's backward
      for the volumes; and the time autograd spends summing the
      per-iteration d/dgeo in bf16;
@@ -105,13 +108,15 @@ out-of-tolerance result raises and exits non-zero:
      the full-resolution path's 1x496x720 (D 256, widths 720/360/180/90)
      and at a ragged 2x7x37 (widths 37/18/9/4), bf16 and fp32 features:
      random coordinates, far out of range, negative and NaN included (NaN
-     gives zeros; bands of many pieces), a frame's coordinates, and nearly
+     where the plain version has NaN; bands of many pieces), a frame's coordinates, and nearly
      constant ones (every band one piece); at 2x5x150 depths 3 and 20 (no
      TMA) and 5 levels with radius 12; timed at random and at frame
      coordinates, each beside its bound, with the materialized route
      (fused pyramid + K1) at the same shapes as yardstick;
  17. K3's VJP (the recompute backward of CorrLookupAlt) vs autograd of the
-     plain version on the card, at 2x40x90, fp32 and bf16;
+     plain version on the card, at 2x40x90, fp32 and bf16, NaN coordinates
+     included (the forward's and the gradients' NaN where the plain
+     version's are);
  18. parity of RAFT with alt_cuda (K3, card) and with alt (plain, card) vs
      the plain path on the CPU: fp32, TF32 off, 1x256x512, 2 iterations;
  19. the full-resolution path: configs/raft_stereo/alt_pallas.json as
@@ -137,8 +142,8 @@ out-of-tolerance result raises and exits non-zero:
      device copy of the kernel's bytes; the motion encoder on the kernel's
      channels-last output and on an NCHW copy of it (device time, kernels by
      bucket); K5's autograd Function launching the backward, and copying an
-     NCHW gradient once; a step past the backward's limits refused before
-     its forward launches;
+     NCHW gradient once; 5 levels that need a gradient, forward and backward
+     through the kernels (the backward once took at most 4);
  21. PCVNet parity: base.json and fast.json in fp32, TF32 off, 1x256x512,
      2 iterations, exactly 2 K5 launches each; K5 vs the plain lookup with
      the rest of the model on the card, and kernels (card) vs plain path
@@ -151,11 +156,13 @@ out-of-tolerance result raises and exits non-zero:
      size, 1 warm-up and 5 timed frames, 32 K5 a frame;
  23. K5's backward (csrc/row_sample_bwd.cu: dvol of every level and dpos in
      one launch, a warp a pixel, taps binned by column, g read folded and
-     in the compute dtype) vs its plain version at the PCV training grid
-     (8x80x180, widths 180/45/11), the inference grid (1x184x320) and a
-     ragged 2x7x37, bf16 and fp32 levels and gradients, the hostile
-     positions of phase 20 (NaN gives no contribution), two launches bit
-     for bit, the adjoint check <K5(v), g> = <v, K5^T(g)> against the
+     in the compute dtype, a level table for up to 32 levels) vs its plain
+     version at the PCV training grid (8x80x180, widths 180/45/11), the
+     inference grid (1x184x320), a ragged 2x7x37, and at 5 (2x7x37) and 8
+     levels (2x8x300, cf 2), bf16 and fp32 levels and gradients, the hostile
+     positions of phase 20 (a NaN one gives NaN in its pixel's rows of
+     every level and 0 dpos, as the plain version), two launches bit for
+     bit, the adjoint check <K5(v), g> = <v, K5^T(g)> against the
      forward kernel, device times (a CUDA graph) beside the bound, the
      plain version and grid_sample's backward over the three levels, the
      unfold copy and fp32 cast that an unfolded gradient would need, and
@@ -190,7 +197,26 @@ out-of-tolerance result raises and exits non-zero:
      of its own, chiprun_out/chip_smoke_fused_train_profile.txt),
      alt_pallas.json as shipped (80 K3, 12 K2, 4 adjoint; 1 + 3 steps) and
      pallas.json as shipped (80 K1, 16 K1 bwd, 12 K2, 4 adjoint; one step);
-     then the "kernels" JSON line and the card's line.
+ 29. the eval path: a synthetic KITTI-2015 tree of 56 frames at KITTI's
+     375x1242 written with data/png.py (shifted pairs, uint16 disp_occ_0
+     maps with invalid pixels) and a seeded random RAFT .pth written with
+     torch.save, through cli.eval.main on the card: pallas.json, 32
+     iterations, fp32 (the eval protocol) and with --mixed_precision, each
+     with EPE, D1, the validator's kitti-2015-fps (frames 52-56), ms/frame,
+     peak memory and exact launches (32 K1 and 4 K2 a frame); then
+     base.json on 2 frames at 2 iterations on the card and on the CPU (EPE
+     within 5e-3 px, D1 within the share of pixels whose CPU error lies
+     within 5e-3 px of 3 px);
+ 30. IGEV pallas.json and PCVNet base.json through cli.eval.main, seeded
+     random .pth files, one frame, 32 iterations: finite metrics, exactly
+     32 K4 and 32 K5 launches;
+ 31. cli.demo.main on 2 pairs with --save_numpy --save_ply (base.json, 32
+     iterations): the PNG decodes to disp_to_color of the .npy, the .npy is
+     -1 x the eval forward's output on the card within 1e-3 px, the PLY
+     has a vertex for every pixel with a nonzero disparity;
+ 32. dkt_stereo_tpu_torch.bench in-process (pallas.json, 1x736x1280, 32
+     iterations, 3 warm-up frames and 5 batches of 10), its JSON line
+     printed; then the "kernels" JSON line and the card's line.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
@@ -359,6 +385,16 @@ def smem_line():
               f"K5's plan at widths {widths} differs from the wrapper's mirror")
         k5_rows.append(f"widths {widths} {'bf16' if vb else 'fp32'}->{'bf16' if ob else 'fp32'}"
                        f" {pixels} pixels {nbytes} B")
+    # K5's backward: its level table and warps' areas, 3 to 8 levels
+    k5b = _build.load("row_sample_bwd").row_sample_bwd_smem_bytes
+    for widths, elem in (((180, 45, 11), 2), ((320, 80, 20), 4), ((37, 18, 9, 4, 2), 2),
+                         ((300, 150, 75, 37, 18, 9, 4, 2), 4)):
+        pixels, nbytes = k5.bwd_plan(widths, PCV_G * PCV_S, elem)
+        arr = (ctypes.c_int * len(widths))(*widths)
+        check(k5b(arr, len(widths), PCV_G * PCV_S, elem, pixels) == nbytes,
+              f"K5's backward plan at widths {widths} differs from the wrapper's mirror")
+        k5_rows.append(f"bwd widths {widths} {'bf16' if elem == 2 else 'fp32'} {pixels} pixels "
+                       f"{nbytes} B")
     return (f"encoder_stage_fwd_kernel {fwd(0)} B (3 u stages), with v {fwd(1)} B (2 u + 1 v "
             f"stages) | corr_alt_kernel at D {ALT_D} bf16 r 4 {k3_bytes} B, fp32 "
             f"{k3(ALT_D, 0, 4)} B | K1 " + "; ".join(k1_rows) + " | K4 (C 8) "
@@ -1514,9 +1550,12 @@ def phase_k4(torch):
         want = geo_lookup_plain(geo, cor, disp, coords, rr)
         check(got.shape == (*shape, len(depths) * (C + 1) * (2 * rr + 1)),
               f"K4 {label} output shape {tuple(got.shape)}")
-        # a NaN disparity gives zeros in the kernel (its position is clamped
-        # to the far left), NaN in the plain version
-        check(bool((got[~finite] == 0).all()), f"K4 {label}: a NaN disparity did not give zeros")
+        # a NaN disparity gives NaN in every output of its pixel, in the
+        # kernel as in the plain version
+        check(torch.equal(torch.isnan(got), torch.isnan(want)),
+              f"K4 {label}: NaN differs from the plain version")
+        check(bool(torch.isnan(got[~finite]).all()) and not bool(torch.isnan(got[finite]).any()),
+              f"K4 {label}: a NaN disparity did not give NaN in exactly its pixel")
         err = float((got[finite] - want[finite]).abs().max())
         # the kernel shares one fractional weight across the taps of a
         # (pixel, level, channel); the plain version rounds each tap position
@@ -1562,7 +1601,7 @@ def phase_k4(torch):
         del geo, cor, lib_in, grids, lib, want
     errs = " | ".join(f"{k} {e:.3e} (tol {t:.1e})" for k, (e, t) in res.items())
     print(f"K4 geo_lookup: max_abs vs plain {errs} (tol 1e-4 x the volumes' scale; NaN "
-          f"disparity -> zeros)")
+          f"disparity -> NaN where the plain version has NaN)")
     for name, t in times.items():
         shape = IGEV_SHAPE if name == "frame" else IGEV_TRAIN_SHAPE
         print(f"K4 geo_lookup at the {name}, bf16 {shape} geo D {IGEV_TRAIN_D} x {C}: device ms "
@@ -1612,10 +1651,13 @@ def phase_k4_bwd(torch):
                       f"K4 bwd {part} {label} dtypes {[d.dtype for d in got]}")
                 check(all(tuple(a.shape) == tuple(b.shape) for a, b in zip(got, want)),
                       f"K4 bwd {part} {label} shapes")
-                # a NaN disparity gives zeros in the kernels (as in the
-                # forward kernel), NaN in the plain version
-                check(all(bool((d[~finite] == 0).all()) for d in got),
-                      f"K4 bwd {part} {label}: a NaN disparity did not give zeros")
+                # a NaN disparity gives NaN in its pixel's rows, in the
+                # kernels as in the plain version
+                check(all(torch.equal(torch.isnan(a), torch.isnan(b)) for a, b in zip(got, want)),
+                      f"K4 bwd {part} {label}: NaN differs from the plain version")
+                check(all(bool(torch.isnan(d[~finite]).all())
+                          and not bool(torch.isnan(d[finite]).any()) for d in got),
+                      f"K4 bwd {part} {label}: a NaN disparity did not give NaN rows")
                 err = max(float((a[finite].float() - b[finite].float()).abs().max())
                           for a, b in zip(got, want))
                 scale = max(float(b[finite].float().abs().max()) for b in want)
@@ -1629,15 +1671,17 @@ def phase_k4_bwd(torch):
             del plain
 
         # adjoint: <K4(v), g> == <v, K4^T(g)>, the forward and both backward
-        # kernels, fp32 pyramids, fp64 sums (NaN pixels: zeros on both sides)
+        # kernels, fp32 pyramids, fp64 sums over the finite pixels (a NaN
+        # pixel's outputs and rows are NaN on both sides)
         geo, cor, _, _ = k4_inputs(torch, gen, shape, depths, widths, torch.float32)
         with torch.no_grad():
             out = geo_lookup(geo, cor, disp, coords, rr)
         meta_g, meta_c = [(v.shape, v.dtype) for v in geo], [(v.shape, v.dtype) for v in cor]
         grads = (geo_lookup_bwd_geo(meta_g, meta_c, disp, coords, g, rr)
                  + geo_lookup_bwd_corr(meta_g, meta_c, disp, coords, g, rr))
-        lhs = float((out.double() * g.double()).sum())
-        rhs = float(sum((v.double() * d.double()).sum() for v, d in zip(geo + cor, grads)))
+        lhs = float((out[finite].double() * g[finite].double()).sum())
+        rhs = float(sum((v[finite].double() * d[finite].double()).sum()
+                        for v, d in zip(geo + cor, grads)))
         adj[label] = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
         check(adj[label] <= 1e-5, f"K4 adjoint check {label}: relative {adj[label]} > 1e-5")
         del geo, cor, out, grads
@@ -1699,7 +1743,8 @@ def phase_k4_bwd(torch):
         errs = " ".join(f"{lab} {dt_} {e:.3e} (tol {tl:.1e})"
                         for (p_, lab, dt_), (e, tl) in res.items() if p_ == part)
         print(f"K4 geo_lookup_bwd_{part}: max_abs vs plain {errs} (tol 1e-4*max|dplain| fp32, "
-              f"2^-7*max|dplain| bf16; NaN disparity -> zeros) | adjoint rel "
+              f"2^-7*max|dplain| bf16; NaN disparity -> NaN rows as the plain version) | "
+              f"adjoint rel "
               + " ".join(f"{k_} {v:.2e}" for k_, v in adj.items()) + " (tol 1e-5, both kernels) "
               f"| bf16 {IGEV_TRAIN_SHAPE} {'D' if part == 'geo' else 'W2'} {sizes}: device ms "
               f"{t['ms']:.4f} (one CUDA graph of 20 launches) | plain_ms {t['plain_ms']:.3f} | "
@@ -2013,7 +2058,11 @@ def phase_k3(torch):
         want = corr_lookup_alt_plain(f1, pyr, coords, r)
         check(got.shape == (*coords.shape[:3], L * (2 * r + 1)),
               f"K3 {label}: output shape {tuple(got.shape)}")
-        check(bool((got[~finite] == 0).all()), f"K3 {label}: a NaN coordinate did not give zeros")
+        # a NaN coordinate gives NaN in all its taps, as in the plain version
+        check(torch.equal(torch.isnan(got), torch.isnan(want)),
+              f"K3 {label}: NaN differs from the plain version")
+        check(bool(torch.isnan(got[~finite]).all()) and not bool(torch.isnan(got[finite]).any()),
+              f"K3 {label}: a NaN coordinate did not give NaN in exactly its pixel")
         err = float((got[finite] - want[finite]).abs().max())
         # fp32 sums of the same products in another order; the kernel
         # shares one fractional weight per (pixel, level), where the plain
@@ -2056,7 +2105,8 @@ def phase_k3(torch):
     bound_ms, bound_by, mb, f32_ms = alt_bound(torch, f1, pyr, coords, r)
     errs = " ".join(f"{k} {e:.3e} (tol {t:.2e})" for k, (e, t) in res.items())
     print(f"K3 corr_lookup_alt: max_abs {errs} (tol 1e-4 x max|plain|; NaN coordinate -> "
-          f"zeros) | bf16 {ALT_SHAPE} D {ALT_D} widths {[v.shape[2] for v in pyr]}: random "
+          f"NaN as the plain version) | bf16 {ALT_SHAPE} D {ALT_D} widths "
+          f"{[v.shape[2] for v in pyr]}: random "
           f"coordinates kernel_ms {ms:.4f} plain_ms {plain_ms:.3f} bound_ms {bound_ms:.4f} "
           f"({bound_by}, {mb:.2f} MB; products on the fp32 cores {f32_ms:.4f} ms) | frame "
           f"coordinates kernel_ms {frame_ms:.4f} bound_ms {frame_bound:.4f} ({frame_by}, "
@@ -2078,17 +2128,26 @@ def phase_k3_vjp(torch):
     g = torch.randn((B, H, W, L * (2 * r + 1)), generator=gen, device="cuda")
     res = {}
     for dt in (torch.float32, torch.bfloat16):
+        # NaN coordinates kept: the kernel's forward gives NaN where the plain
+        # one does, and the recompute backward NaN where autograd of the
+        # plain version does
         f1, _, pyr, coords, _ = _alt_inputs(torch, gen, B, H, W, dt, L)
-        coords = coords.nan_to_num(0.0)
         leaves = [t.detach().requires_grad_(True) for t in (f1, *pyr)]
         n = corr_lookup_alt.launches
-        got = torch.autograd.grad(corr_lookup_alt(leaves[0], leaves[1:], coords, r), leaves, g)
+        out = corr_lookup_alt(leaves[0], leaves[1:], coords, r)
         check(corr_lookup_alt.launches == n + 1, "K3 VJP: the forward did not launch K3")
-        want = torch.autograd.grad(corr_lookup_alt_plain(leaves[0], leaves[1:], coords, r),
-                                   leaves, g)
+        got = torch.autograd.grad(out, leaves, g)
+        plain = corr_lookup_alt_plain(leaves[0], leaves[1:], coords, r)
+        check(torch.equal(torch.isnan(out), torch.isnan(plain)),
+              "K3 VJP: the forward's NaN differs from the plain version's")
+        want = torch.autograd.grad(plain, leaves, g)
         check([d.dtype for d in got] == [dt] * (L + 1), f"K3 VJP dtypes {[d.dtype for d in got]}")
-        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
-        scale = max(float(b.float().abs().max()) for b in want)
+        check(all(torch.equal(torch.isnan(a), torch.isnan(b)) for a, b in zip(got, want)),
+              "K3 VJP: NaN differs from autograd of the plain version")
+        check(any(bool(torch.isnan(b).any()) for b in want), "K3 VJP: no NaN gradient")
+        err = max(float((a.float() - b.float()).nan_to_num(0.0).abs().max())
+                  for a, b in zip(got, want))
+        scale = max(float(b.float().nan_to_num(0.0).abs().max()) for b in want)
         # fp32: sums in another order (scatter-add atomics); bf16: one
         # rounding of fp32 sums that may differ in their last bits
         tol = (1e-4 if dt == torch.float32 else 2**-7) * scale
@@ -2096,7 +2155,8 @@ def phase_k3_vjp(torch):
         res[dt] = (err, scale)
     print(f"K3 VJP (recompute backward) vs autograd of plain, {B}x{H}x{W} D {ALT_D}: max_abs "
           + " ".join(f"{str(d).split('.')[-1]} {e:.3e} (max|grad| {s:.3e})"
-                     for d, (e, s) in res.items()) + " (tol fp32 1e-4, bf16 2^-7 x max|grad|)")
+                     for d, (e, s) in res.items()) + " (tol fp32 1e-4, bf16 2^-7 x max|grad|; "
+          "NaN coordinates: NaN where autograd of plain has NaN)")
 
 
 def phase_alt_parity(torch, config):
@@ -2252,23 +2312,23 @@ PCV_G, PCV_S, PCV_L = 4, 9, 3  # gauss_num, sample_num, corr_levels of both conf
 PCV_FAST_FRAMES = 5
 
 
-def _k5_inputs(torch, gen, shape, cf, dt):
-    """Levels of widths W, W/cf, W/cf^2 in ``dt`` and the level-0 positions
-    mu + sigma*dx of a random mixture (sigma in [0.1, 16], mu over and
-    beyond the row), with far out-of-range, negative, past-the-row,
+def _k5_inputs(torch, gen, shape, cf, dt, L=PCV_L):
+    """``L`` levels of widths W, W/cf, W/cf^2, ... in ``dt`` and the level-0
+    positions mu + sigma*dx of a random mixture (sigma in [0.1, 16], mu over
+    and beyond the row), with far out-of-range, negative, past-the-row,
     exact-integer (0 and W2-1 among them) and NaN positions; and the mask of
     the output entries whose position is finite."""
     from dkt_stereo_tpu_torch.nn.pcv import gaussian_positions
 
     B, H, W = shape
     levels = [(4 * torch.randn((B, H, W, W // cf**i), generator=gen, device="cuda")).to(dt)
-              for i in range(PCV_L)]
+              for i in range(L)]
     mu = torch.rand((B, PCV_G, H, W), generator=gen, device="cuda") * (W + 40) - 20
     sigma = 0.1 + 15.9 * torch.rand((B, PCV_G, H, W), generator=gen, device="cuda")
     pos = gaussian_positions(mu, sigma, PCV_S)
     pos.view(-1)[:12] = torch.tensor([-1e9, 1e9, 3e7, -0.5, -1.0, -3.0, 0.0, 17.0, W - 1.0,
                                       W + 0.25, float(2 * cf**2), float("nan")])
-    return levels, pos, torch.isfinite(pos).repeat(1, 1, 1, PCV_L)
+    return levels, pos, torch.isfinite(pos).repeat(1, 1, 1, L)
 
 
 def k5_bound(torch, levels, pos, cf, out_itemsize=2):
@@ -2451,28 +2511,32 @@ def phase_k5(torch):
     gaussian_row_sample(small, p, 4, 2).backward(gs.contiguous())
     check(gaussian_row_sample_bwd.g_copies == copies + 1,
           "K5: an NCHW gradient was not copied once to the folded layout")
-    # past the backward's parameter block, a call that needs a gradient is
-    # refused before its forward launches; without one the forward runs
+    # past the backward's former 4-level parameter block: 5 levels that need
+    # a gradient run forward and backward through the kernels, with the
+    # plain backward's gradients
     five = [torch.randn((1, 2, 3, 8), device="cuda", requires_grad=True) for _ in range(5)]
+    p5 = p.detach().clone().requires_grad_(True)
+    g5 = fold_lookup(torch.randn((1, 2, 3, 20), device="cuda"), 5, 2)
     counts = kernel_counts()
-    try:
-        gaussian_row_sample(five, p, 2, 2)
-        refused = False
-    except ValueError as e:
-        refused = "1..4 levels" in str(e)
-    check(refused and _diff(kernel_counts(), counts)["gaussian_row_sample"] == 0,
-          "K5: 5 levels that need a gradient were not refused before the forward")
-    with torch.no_grad():
-        check(gaussian_row_sample(five, p, 2, 2).shape == (2, 10, 2, 3),
-              "K5: 5 levels without a gradient did not run")
-    del five
+    out5 = gaussian_row_sample(five, p5, 2, 2)
+    check(out5.shape == (2, 10, 2, 3), f"K5: 5 levels gave {tuple(out5.shape)}")
+    out5.backward(g5)
+    counts = _diff(kernel_counts(), counts)
+    check(counts["gaussian_row_sample"] == 1 and counts["gaussian_row_sample_bwd"] == 1,
+          f"K5: 5 levels that need a gradient launched {counts}")
+    dv, dp = gaussian_row_sample_bwd_plain([v.detach() for v in five], p5.detach(),
+                                           unfold_lookup(g5, 5, 2), 2)
+    for got_g, want_g in zip([*(v.grad for v in five), p5.grad], [*dv, dp]):
+        check(float((got_g - want_g).abs().max()) <= 1e-5 * float(want_g.abs().max()) + 1e-7,
+              "K5: 5 levels' gradients differ from the plain backward")
+    del five, out5
 
     print("K5 gaussian_row_sample: max_abs vs fold_lookup(plain).to(dt), output dtype, shape "
           "and strides those of it, NaN where it has NaN: "
           + " | ".join(f"{k} {e:.1e}" for k, e in res.items()) + " (tol 0: bit-equal) | with "
           "inputs that require grad: 1 forward and 1 backward launch, gradients equal to the "
           "plain backward's, an NCHW gradient copied once; 5 levels that need a gradient "
-          "refused before the forward, 5 without one run")
+          "run forward and backward (1 launch each) with the plain backward's gradients")
     for name, t in times.items():
         shape = PCV_SHAPE if name == "frame" else TRAIN_SHAPE
         print(f"K5 gaussian_row_sample at the {name}, bf16 -> bf16 {shape} K {PCV_G * PCV_S} "
@@ -2635,44 +2699,57 @@ def phase_k5_bwd(torch):
     cf, G, LK = 4, PCV_G, PCV_L * PCV_G * PCV_S
     res = {}
 
-    def folded_g(shape, dt):
-        return fold_lookup(torch.randn((*shape, LK), generator=gen, device="cuda"), PCV_L,
-                           G).to(dt)
+    def folded_g(shape, dt, L=PCV_L):
+        return fold_lookup(torch.randn((*shape, L * PCV_G * PCV_S), generator=gen,
+                                       device="cuda"), L, G).to(dt)
 
-    for shape, pairs in (((2, 7, 37), ((F32, F32), (BF16, BF16), (F32, BF16))),
-                         (PCV_SHAPE, ((F32, F32), (BF16, BF16))),
-                         (TRAIN_SHAPE, ((F32, F32), (BF16, BF16)))):
+    # the PCV configs' 3 levels (cf 4), then 5 and 8 levels (cf 2), past the
+    # kernel's former 4-level parameter block
+    for shape, L, cff, pairs in (((2, 7, 37), PCV_L, cf, ((F32, F32), (BF16, BF16), (F32, BF16))),
+                                 (PCV_SHAPE, PCV_L, cf, ((F32, F32), (BF16, BF16))),
+                                 (TRAIN_SHAPE, PCV_L, cf, ((F32, F32), (BF16, BF16))),
+                                 ((2, 7, 37), 5, 2, ((F32, F32), (BF16, BF16))),
+                                 ((2, 8, 300), 8, 2, ((F32, F32), (BF16, BF16)))):
         for vol, gdt in pairs:
             dt = getattr(torch, vol)
-            levels, pos, _ = _k5_inputs(torch, gen, shape, cf, dt)
-            g = folded_g(shape, getattr(torch, gdt))
-            dv, dp = gaussian_row_sample_bwd(levels, pos, g, cf, G)
-            dv2, dp2 = gaussian_row_sample_bwd(levels, pos, g, cf, G)
-            check(all(torch.equal(a, b) for a, b in zip([*dv, dp], [*dv2, dp2])),
-                  f"K5 bwd {shape} {vol} g {gdt}: two launches differ")
+            levels, pos, _ = _k5_inputs(torch, gen, shape, cff, dt, L)
+            g = folded_g(shape, getattr(torch, gdt), L)
+            dv, dp = gaussian_row_sample_bwd(levels, pos, g, cff, G)
+            dv2, dp2 = gaussian_row_sample_bwd(levels, pos, g, cff, G)
+            check(all(torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+                      and torch.equal(a.isnan(), b.isnan())
+                      for a, b in zip([*dv, dp], [*dv2, dp2])),
+                  f"K5 bwd {shape} L {L} {vol} g {gdt}: two launches differ")
             want_v, want_p = gaussian_row_sample_bwd_plain(levels, pos,
-                                                           unfold_lookup(g, PCV_L, G), cf)
-            check([d.dtype for d in dv] == [dt] * PCV_L and dp.dtype == torch.float32,
+                                                           unfold_lookup(g, L, G), cff)
+            check([d.dtype for d in dv] == [dt] * L and dp.dtype == torch.float32,
                   f"K5 bwd output dtypes {[d.dtype for d in dv]} {dp.dtype}")
+            nan_pix = torch.isnan(pos).any(dim=-1)
             errs = []
             for a, b in zip(dv, want_v):
-                # a NaN position gives NaN at index 0 of its row in the plain
-                # version (where its clamped taps point) and no contribution
-                # in the kernel; every kernel element is finite
+                # a NaN position gives NaN in its pixel's whole row, in the
+                # kernel as in the plain version (and JAX); the rest finite
+                check(torch.equal(torch.isnan(a), torch.isnan(b)),
+                      f"K5 bwd {shape} L {L} {vol}: NaN differs from the plain version")
+                check(bool(torch.isnan(a[nan_pix]).all()) and bool(nan_pix.any())
+                      and bool(torch.isfinite(a[~nan_pix]).all()),
+                      f"K5 bwd {shape} L {L} {vol}: NaN rows are not exactly the NaN pixels'")
                 fin = torch.isfinite(b)
-                check(bool(torch.isfinite(a).all()), f"K5 bwd {shape} {vol}: non-finite dvol")
                 err = float((a.float()[fin] - b.float()[fin]).abs().max())
                 # fp32: the same taps, weights and roundings summed in another
                 # order; bf16: one rounding of fp32 sums that may differ in
                 # their last bits, one bf16 step (2^-8) with margin
                 tol = (1e-4 if dt == torch.float32 else 2**-7) * float(b.float()[fin].abs().max())
-                check(err <= tol, f"K5 bwd dvol {shape} {vol} g {gdt} max-abs {err} > {tol}")
+                check(err <= tol, f"K5 bwd dvol {shape} L {L} {vol} g {gdt} max-abs {err} > {tol}")
                 errs.append((err, tol))
+            # a NaN position's dpos is 0, in the kernel as in the plain version
+            check(bool(torch.isfinite(dp).all()) and bool((dp[torch.isnan(pos)] == 0).all()),
+                  f"K5 bwd {shape} L {L}: dpos not finite, or not 0 at NaN positions")
             err = float((dp - want_p).abs().max())
             tol = 1e-4 * float(want_p.abs().max())
-            check(err <= tol, f"K5 bwd dpos {shape} {vol} g {gdt} max-abs {err} > {tol}")
+            check(err <= tol, f"K5 bwd dpos {shape} L {L} {vol} g {gdt} max-abs {err} > {tol}")
             errs.append((err, tol))
-            res[(shape, vol, gdt)] = (max(e for e, _ in errs), errs)
+            res[(shape, L, vol, gdt)] = (max(e for e, _ in errs), errs)
             del dv, dp, dv2, dp2, want_v, want_p
 
     # adjoint: <K5(v), g> == <v, K5^T(g)>, both kernels, fp32, fp64 sums, at
@@ -2723,12 +2800,13 @@ def phase_k5_bwd(torch):
     del lib_in, grids, gouts, gu
 
     errs = " | ".join(
-        f"{s[0]}x{s[1]}x{s[2]} {vol} g {gdt}: dvol per level "
+        f"{s[0]}x{s[1]}x{s[2]} L {L} {vol} g {gdt}: dvol per level "
         + " ".join(f"{e:.2e}" for e, _ in es[:-1]) + f", dpos {es[-1][0]:.2e} (tol "
         + " ".join(f"{t:.1e}" for _, t in es) + ")"
-        for (s, vol, gdt), (_, es) in res.items())
+        for (s, L, vol, gdt), (_, es) in res.items())
     print(f"K5 gaussian_row_sample_bwd: max_abs {errs} (tol 1e-4 x max|dplain| fp32, 2^-7 x "
-          f"max|dplain| bf16; NaN position -> no contribution; two launches bit-identical) | "
+          f"max|dplain| bf16; NaN position -> NaN row in every level and 0 dpos, as the plain "
+          f"version; two launches bit-identical) | "
           f"adjoint rel {adj:.2e} (tol 1e-5) | bf16 levels and folded g {TRAIN_SHAPE} K {K} "
           f"widths {[v.shape[-1] for v in levels]}, dvol and dpos: device ms {ms:.4f} (one CUDA "
           f"graph of 20 launches) | the unfold copy and fp32 cast an unfolded g would need: "
@@ -3048,6 +3126,302 @@ def phase_fused_train(torch, train_cfg, alt_cfg, pallas_cfg, card, unfused_ms):
     return paths
 
 
+
+KITTI_IMAGE = (375, 1242)  # KITTI 2015's own frame size
+KITTI_FRAMES = 56  # the validator's 51 warm-up frames and 5 timed ones
+EVAL_ITERS = 32
+
+
+KITTI_SUBDIRS = ("image_2", "image_3", "disp_occ_0")
+
+
+def write_kitti_tree(root):
+    """A synthetic KITTI-2015 training tree under ``root`` written with the
+    port's PNG encoder: textured left images, right images that are the
+    left shifted by the true disparity, and uint16 ``disp_occ_0`` maps (x
+    256) with the top rows and a band of pixels 0 (invalid), as KITTI's
+    sparse maps have. Two distinct frames, copied to KITTI_FRAMES names."""
+    import shutil
+
+    from dkt_stereo_tpu_torch.data import png
+
+    H, W = KITTI_IMAGE
+    rng = np.random.default_rng(29)
+    base = Path(root) / "KITTI" / "KITTI_2015" / "training"
+    for sub in KITTI_SUBDIRS:
+        (base / sub).mkdir(parents=True, exist_ok=True)
+    for i in range(KITTI_FRAMES):
+        name = f"{i:06d}_10.png"
+        if i < 2:
+            tex = rng.integers(0, 256, (H, W + 128, 3), dtype=np.uint8)
+            tex = ((tex.astype(np.uint16) + np.roll(tex, 1, 1) + np.roll(tex, 1, 0)) // 3)
+            yy, xx = np.mgrid[:H, :W]
+            disp = (20 + 40 * yy / H + 10 * np.sin(xx / 60 + i)).astype(np.float32)
+            left = tex[:, 64:64 + W].astype(np.uint8)
+            cols = np.clip(np.rint(64 + xx - disp).astype(np.int64), 0, W + 127)
+            right = tex[yy, cols].astype(np.uint8)
+            d16 = np.rint(disp * 256).astype(np.uint16)
+            d16[:H // 3] = 0
+            d16[:, 200:260] = 0
+            png.write(base / "image_2" / name, left)
+            png.write(base / "image_3" / name, right)
+            png.write(base / "disp_occ_0" / name, d16)
+        else:
+            for sub in KITTI_SUBDIRS:
+                shutil.copyfile(base / sub / f"{i % 2:06d}_10.png", base / sub / name)
+    return str(root)
+
+
+def kitti_subset(data, root, frames):
+    """A KITTI tree under ``root`` with the first ``frames`` frames of the
+    one under ``data``."""
+    import shutil
+
+    sub = Path("KITTI") / "KITTI_2015" / "training"
+    for d in KITTI_SUBDIRS:
+        (root / sub / d).mkdir(parents=True)
+        for i in range(frames):
+            name = f"{i:06d}_10.png"
+            shutil.copyfile(Path(data) / sub / d / name, root / sub / d / name)
+    return root
+
+
+def seeded_pth(torch, config, path):
+    """A reference-format .pth of ``config``'s model with seeded random
+    weights, written with torch.save as a user's checkpoint is."""
+    from dkt_stereo_tpu_torch.models.registry import create_model
+
+    model = create_model(config, iters=1, device="cpu", seed=0)
+    torch.save(model.state_dict(), path)
+    return str(path)
+
+
+class _FrameTimes:
+    """Records the seconds of every ``_run_one`` call the validators make
+    while it is entered (the frame's forward, unpad and copy back)."""
+
+    def __init__(self):
+        from dkt_stereo_tpu_torch.eval import validate
+
+        self.mod, self.seconds = validate, []
+
+    def __enter__(self):
+        self.orig = self.mod._run_one
+
+        def timed(*a, **kw):
+            out = self.orig(*a, **kw)
+            self.seconds.append(out[1])
+            return out
+
+        self.mod._run_one = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._run_one = self.orig
+
+
+def _capture_forward(torch):
+    """Patch ``run_validator`` to record the forward the eval CLI builds;
+    returns (the list it fills, a function that restores it)."""
+    from dkt_stereo_tpu_torch.eval import validate
+
+    seen, orig = [], validate.run_validator
+
+    def run_validator(name, forward, *a, **kw):
+        seen.append(forward)
+        return orig(name, forward, *a, **kw)
+
+    validate.run_validator = run_validator
+
+    def restore():
+        validate.run_validator = orig
+
+    return seen, restore
+
+
+def phase_eval(torch, card, tmp):
+    """The eval path through ``cli.eval.main`` on the synthetic KITTI tree
+    at 375x1242: pallas.json fp32 (the protocol) and with
+    --mixed_precision, 32 iterations, 56 frames, exact K1 and K2 launches;
+    then base.json on the first 2 frames at 2 iterations on the card and on
+    the CPU."""
+    from dkt_stereo_tpu_torch.cli.config import load_model_config
+    from dkt_stereo_tpu_torch.cli.eval import main as eval_main
+    from dkt_stereo_tpu_torch.eval import validate
+
+    t0 = time.perf_counter()
+    data = write_kitti_tree(tmp / "data")
+    write_s = time.perf_counter() - t0
+    pallas = str(ROOT / "configs/raft_stereo/pallas.json")
+    pth = seeded_pth(torch, load_model_config(pallas), tmp / "raft_pallas.pth")
+    paths, rows = {}, []
+    for label, extra in (("fp32", []), ("bf16", ["--mixed_precision"])):
+        args = ["--config", pallas, "--restore_ckpt", pth, "--valid_iters", str(EVAL_ITERS),
+                "--datasets", "kitti-2015", "--data_root", data] + extra
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with _FrameTimes() as ft:
+            res = eval_main(args)
+        launches = kernel_counts()
+        want = {**dict.fromkeys(launches, 0), "corr_lookup": EVAL_ITERS * KITTI_FRAMES,
+                "encoder_stage": 4 * KITTI_FRAMES}
+        check(launches == want, f"eval {label} launch counts {launches} != {want}")
+        check(len(ft.seconds) == KITTI_FRAMES and "kitti-2015-fps" in res
+              and all(np.isfinite(v) for v in res.values()), f"eval {label}: {res}")
+        ms = 1e3 * np.asarray(ft.seconds)
+        paths[f"eval_kitti_{label}"] = launches
+        rows.append(
+            f"eval path (cli.eval, pallas.json {label}, kitti-2015 {KITTI_FRAMES} frames "
+            f"{KITTI_IMAGE[0]}x{KITTI_IMAGE[1]}, {EVAL_ITERS} iters): EPE "
+            f"{res['kitti-2015-epe']:.4f} px D1 {res['kitti-2015-d1']:.3f} % "
+            f"kitti-2015-fps {res['kitti-2015-fps']:.3f} (frames 52-56) | ms/frame median "
+            f"{np.median(ms):.2f} min {ms.min():.2f} max {ms.max():.2f} (frames 52-56: median "
+            f"{np.median(ms[51:]):.2f}) | peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches a frame: K1 "
+            f"{launches['corr_lookup'] // KITTI_FRAMES}, K2 "
+            f"{launches['encoder_stage'] // KITTI_FRAMES} | {card}")
+        print(rows[-1], flush=True)
+
+    # base.json, 2 frames at 2 iterations, on the card and on the CPU: the
+    # card's kernels against the plain path, fp32 with TF32 off
+    small = kitti_subset(data, tmp / "data2", 2)
+    base = str(ROOT / "configs/raft_stereo/base.json")
+    base_pth = seeded_pth(torch, load_model_config(base), tmp / "raft_base.pth")
+    args = ["--config", base, "--restore_ckpt", base_pth, "--valid_iters", "2", "--datasets",
+            "kitti-2015", "--data_root", str(small)]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card_res = eval_main(args)
+        seen, restore = _capture_forward(torch)
+        try:
+            cpu_res = eval_main(args, device="cpu")
+        finally:
+            restore()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    ds = validate.KITTI(None, root=str(small / "KITTI"), split="2015")
+    near = total = 0
+    for i in range(len(ds)):
+        img1, img2, flow_gt, valid_gt = ds.get_sample(i)
+        pred, _ = validate._run_one(seen[0], img1, img2, 32)
+        val = (valid_gt >= 0.5) & (flow_gt > -192) & (flow_gt < 0)
+        err = np.abs(pred - flow_gt)[val]
+        near += int((np.abs(err - 3.0) <= 5e-3).sum())
+        total += err.size
+    epe_gap = abs(card_res["kitti-2015-epe"] - cpu_res["kitti-2015-epe"])
+    d1_gap = abs(card_res["kitti-2015-d1"] - cpu_res["kitti-2015-d1"])
+    d1_tol = 100 * near / total
+    # 5e-3 px: the RAFT card-vs-CPU bound of phase 4
+    check(epe_gap <= 5e-3, f"eval base.json card vs CPU EPE gap {epe_gap} > 5e-3")
+    check(d1_gap <= d1_tol + 1e-9, f"eval base.json card vs CPU D1 gap {d1_gap} > {d1_tol}")
+    print(f"eval parity (cli.eval, base.json fp32, TF32 off, 2 frames {KITTI_IMAGE[0]}x"
+          f"{KITTI_IMAGE[1]}, 2 iters): card EPE {card_res['kitti-2015-epe']:.5f} D1 "
+          f"{card_res['kitti-2015-d1']:.4f} | CPU EPE {cpu_res['kitti-2015-epe']:.5f} D1 "
+          f"{cpu_res['kitti-2015-d1']:.4f} | EPE gap {epe_gap:.2e} px (tol 5e-3) | D1 gap "
+          f"{d1_gap:.2e} % (tol {d1_tol:.2e} %: pixels whose CPU error is within 5e-3 px of 3 "
+          f"px) | the tree written in {write_s:.1f} s")
+    return paths, data
+
+
+def phase_eval_models(torch, card, tmp, data):
+    """IGEV pallas.json and PCVNet base.json through ``cli.eval.main`` on
+    one frame of the KITTI tree, 32 iterations, on the card: finite
+    metrics, exact K4 and K5 launches."""
+    from dkt_stereo_tpu_torch.cli.config import load_model_config
+    from dkt_stereo_tpu_torch.cli.eval import main as eval_main
+
+    one = kitti_subset(data, tmp / "data1", 1)
+    paths = {}
+    for name, config, kernel in (("igev", "configs/igev_stereo/pallas.json", "geo_lookup"),
+                                 ("pcv", "configs/pcvnet/base.json", "gaussian_row_sample")):
+        cfg = str(ROOT / config)
+        pth = seeded_pth(torch, load_model_config(cfg), tmp / f"{name}.pth")
+        zero_counts()
+        t0 = time.perf_counter()
+        res = eval_main(["--config", cfg, "--restore_ckpt", pth, "--valid_iters",
+                         str(EVAL_ITERS), "--datasets", "kitti-2015", "--data_root", str(one)])
+        secs = time.perf_counter() - t0
+        launches = kernel_counts()
+        want = {**dict.fromkeys(launches, 0), kernel: EVAL_ITERS}
+        check(launches == want, f"eval {name} launch counts {launches} != {want}")
+        check(all(np.isfinite(v) for v in res.values()), f"eval {name}: {res}")
+        paths[f"eval_{name}"] = launches
+        print(f"eval path (cli.eval, {config} fp32, 1 frame {KITTI_IMAGE[0]}x{KITTI_IMAGE[1]}, "
+              f"{EVAL_ITERS} iters, seeded random weights): EPE {res['kitti-2015-epe']:.3f} px "
+              f"D1 {res['kitti-2015-d1']:.2f} % | {kernel} launches {launches[kernel]} | "
+              f"{secs:.1f} s with the model's build | {card}", flush=True)
+    return paths
+
+
+def phase_demo(torch, tmp, data):
+    """``cli.demo.main`` on 2 pairs of the KITTI tree with --save_numpy and
+    --save_ply (base.json, 32 iterations): the PNG is ``disp_to_color`` of
+    the .npy, the .npy is -1 x the eval forward's output for the pair on the
+    card, and the PLY has a vertex for every pixel with a nonzero
+    disparity."""
+    from dkt_stereo_tpu_torch.cli.config import load_model_config
+    from dkt_stereo_tpu_torch.cli.demo import main as demo_main
+    from dkt_stereo_tpu_torch.data import png
+    from dkt_stereo_tpu_torch.data.readers import read_image_rgb
+    from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
+    from dkt_stereo_tpu_torch.models.registry import create_model
+    from dkt_stereo_tpu_torch.utils.visualization import disp_to_color
+    from dkt_stereo_tpu_torch.weights import load_reference_pth
+
+    base = str(ROOT / "configs/raft_stereo/base.json")
+    pth = str(tmp / "raft_base.pth")
+    imgs = Path(data) / "KITTI" / "KITTI_2015" / "training"
+    out = tmp / "demo"
+    zero_counts()
+    t0 = time.perf_counter()
+    written = demo_main(["--config", base, "--restore_ckpt", pth, "--valid_iters",
+                         str(EVAL_ITERS), "-l", str(imgs / "image_2" / "00000[01]_10.png"),
+                         "-r", str(imgs / "image_3" / "00000[01]_10.png"), "-o", str(out),
+                         "--save_numpy", "--save_ply"])
+    secs = time.perf_counter() - t0
+    launches = kernel_counts()
+    check(len(written) == 2 and launches["corr_lookup"] == 2 * EVAL_ITERS,
+          f"demo wrote {written}, launches {launches}")
+    model = create_model(load_model_config(base), iters=EVAL_ITERS)
+    forward = make_forward_fn(load_reference_pth(model, pth))
+    gaps, verts = [], []
+    for p in written:
+        disp = np.load(p.with_suffix(".npy"))
+        rgb, _ = disp_to_color(disp)
+        check(np.array_equal(png.read(p), rgb[0].transpose(1, 2, 0).astype(np.uint8)),
+              f"demo {p.name}: the PNG is not disp_to_color of the .npy")
+        left = read_image_rgb(str(imgs / "image_2" / p.name)).astype(np.float32)
+        right = read_image_rgb(str(imgs / "image_3" / p.name)).astype(np.float32)
+        pred, _ = _run_one(forward, left, right)
+        gaps.append(float(np.abs(disp + pred).max()))
+        check(gaps[-1] <= 1e-3, f"demo {p.name}: .npy vs -forward {gaps[-1]} > 1e-3 px")
+        header = p.with_suffix(".ply").read_text().split("end_header")[0]
+        verts.append(int((np.abs(disp) > 0).sum()))
+        check(f"element vertex {verts[-1]}\n" in header, f"demo {p.name}: PLY vertices")
+    print(f"demo (cli.demo, base.json bf16, 2 pairs {KITTI_IMAGE[0]}x{KITTI_IMAGE[1]}, "
+          f"{EVAL_ITERS} iters, --save_numpy --save_ply): PNG = disp_to_color(.npy) | .npy vs "
+          f"-forward max_abs " + " ".join(f"{g:.1e}" for g in gaps) + " px (tol 1e-3) | PLY "
+          f"vertices {verts} | {secs:.1f} s with the model's build")
+
+
+def phase_bench(torch):
+    """``dkt_stereo_tpu_torch.bench`` in-process; its JSON line is printed
+    on a line of its own."""
+    from dkt_stereo_tpu_torch import bench
+
+    zero_counts()
+    res = bench.run()
+    launches = kernel_counts()
+    frames = bench.WARMUP + bench.BATCHES * bench.FRAMES
+    check(launches["corr_lookup"] == bench.ITERS * frames
+          and launches["encoder_stage"] == 4 * frames, f"bench launches {launches}")
+    check(res["value"] > 0 and res["mean_fps"] > 0, f"bench {res}")
+    print(json.dumps(res), flush=True)
+    return {"bench": launches}
+
+
+
 def main():
     import torch
 
@@ -3114,6 +3488,15 @@ def main():
                         "encoder_stage_bwd": 4})
     fused_paths = phase_fused_train(torch, train_cfg, alt_cfg, config, card, unfused_ms)
 
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        tmp = Path(tmp)
+        eval_paths, data = phase_eval(torch, card, tmp)
+        eval_paths.update(phase_eval_models(torch, card, tmp, data))
+        phase_demo(torch, tmp, data)
+    eval_paths.update(phase_bench(torch))
+
     def launches(name):
         by_path = {"inference": infer.get(name, 0), "training": train.get(name, 0),
                    "igev_inference": igev.get(name, 0),
@@ -3121,7 +3504,8 @@ def main():
                    "alt_inference": alt.get(name, 0), "pcv_inference": pcv.get(name, 0),
                    "pcv_fast_inference": pcv_fast.get(name, 0),
                    "pcv_training": pcv_train.get(name, 0),
-                   **{path: c.get(name, 0) for path, c in fused_paths.items()}}
+                   **{path: c.get(name, 0) for path, c in fused_paths.items()},
+                   **{path: c.get(name, 0) for path, c in eval_paths.items()}}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     k2p = k2["plain"]

@@ -63,8 +63,11 @@
 //
 // All taps of a (pixel, level) share one fractional weight, and the
 // position is clamped before the integer conversion, as K1 and K4 do: a
-// coordinate of +-1e9 gives zeros, and so does a NaN (fmaxf(NaN, a) = a),
-// where the plain version and the JAX kernel give NaN. Offsets are 64-bit.
+// coordinate of +-1e9 gives zeros. A NaN coordinate reads through the
+// clamped index (fmaxf(NaN, a) = a), but its weight is taken from the
+// unclamped position, so its taps are NaN at every level, as in the plain
+// version and the JAX kernel (relu(1 - |j - NaN|) is NaN). Offsets are
+// 64-bit.
 
 #include <cuda.h>  // CUtensorMap and its enums only: no driver library is linked
 #include <cuda_bf16.h>
@@ -198,12 +201,12 @@ __device__ __forceinline__ uint32_t swz(int n, int k, int rows) {
 // the first column x0 of a pixel's window at a level and its fractional
 // weight. x / 2^lvl is exact in fp32; any position left of -(2r+2) or right
 // of w2 reads only zeros: clamp there before converting, so out-of-range
-// floats (and NaN) never reach the int
+// floats (and NaN) never reach the int. A NaN position keeps a NaN weight
 __device__ __forceinline__ int window(float x, int lvl, int radius, int w2, float& w) {
-  float p0 = x * __int_as_float((127 - lvl) << 23) - (float)radius;
-  p0 = fminf(fmaxf(p0, -(float)(2 * radius + 3)), (float)(w2 + 1));
+  const float p = x * __int_as_float((127 - lvl) << 23) - (float)radius;
+  const float p0 = fminf(fmaxf(p, -(float)(2 * radius + 3)), (float)(w2 + 1));
   const float f0 = floorf(p0);
-  w = p0 - f0;
+  w = isnan(p) ? p : p0 - f0;
   return (int)f0;
 }
 

@@ -42,8 +42,11 @@
 //
 // The position is clamped before the integer conversion, so a disparity of
 // +-1e9 gives zeros. A NaN position is clamped to the far left
-// (fmaxf(NaN, a) = a) and also gives zeros, where the plain version and the
-// JAX kernel give NaN.
+// (fmaxf(NaN, a) = a) for its reads, but its weight comes from the
+// unclamped position, so its outputs are NaN, as in the plain version and
+// the JAX kernel: a NaN disparity makes every output of its pixel NaN, a
+// NaN coordinate its corr taps. An infinite position gives NaN too, as in
+// the plain version (JAX's relu weights give zeros there).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,11 +128,16 @@ __global__ void __launch_bounds__(kThreads)
 
     // the first tap sits r to the left; any position left of -(2r+2) or
     // right of n reads only zeros: clamp there before converting to int
-    float p0 = x - (float)radius;
-    p0 = fminf(fmaxf(p0, -(float)(taps + 2)), (float)(n + 1));
+    const float p = x - (float)radius;
+    const float p0 = fminf(fmaxf(p, -(float)(taps + 2)), (float)(n + 1));
     const float f0 = floorf(p0);
     const int x0 = (int)f0;
-    const float w = p0 - f0;
+    // the weight from the unclamped position: equal where the clamp does not
+    // move it, NaN for a NaN one (and an infinite one, as in the plain
+    // version); where the clamp moves it, the window reads only zeros and
+    // the taps are +0. (A select on isnan here raised the bf16 kernel's
+    // registers from 32 to 40 and ran slower on the H100.)
+    const float w = p - f0;
 
     float* o = stage + threadIdx.x * taps;
     if (!kWide) {

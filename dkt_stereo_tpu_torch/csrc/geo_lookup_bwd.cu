@@ -15,9 +15,11 @@
 //   dv[s] = g[j] * (1-w) [j <= 2r] + g[j-1] * w [j >= 1],
 // and every other slot receives 0. first_tap() below computes p0, x0 and w
 // with the forward's expressions: the position is clamped to [-(2r+3), n+1]
-// before the integer conversion, so +-1e9 gives zeros, and a NaN position
-// clamps to the far left (fmaxf(NaN, a) = a) and gives zeros too, where the
-// plain twin and the JAX kernel give NaN.
+// before the integer conversion, so +-1e9 gives zeros. A NaN position
+// (a NaN disparity; for dcorr also a NaN coordinate) gives NaN in its
+// pixel's whole row of every level, as the JAX kernels' relu(1 - |j - NaN|)
+// weights do and the plain twin does: its weight is NaN, its window reaches
+// no slot, and a block that holds one fills those rows with NaN.
 //
 // Outputs, in the pyramid's dtype (bf16 or fp32, the math in fp32, rounded
 // once at the store):
@@ -114,14 +116,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 __device__ __forceinline__ float pow2_neg(int lvl) { return __int_as_float((127 - lvl) << 23); }
 
 // The forward kernel's first tap and shared fractional weight
-// (csrc/geo_lookup.cu, the same expressions).
+// (csrc/geo_lookup.cu, the same expressions; NaN for a NaN position).
 __device__ __forceinline__ void first_tap(float x, int radius, int n, int& x0, float& w) {
   const int taps = 2 * radius + 1;
-  float p0 = x - (float)radius;
-  p0 = fminf(fmaxf(p0, -(float)(taps + 2)), (float)(n + 1));
+  const float p = x - (float)radius;
+  const float p0 = fminf(fmaxf(p, -(float)(taps + 2)), (float)(n + 1));
   const float f0 = floorf(p0);
   x0 = (int)f0;
-  w = p0 - f0;
+  w = isnan(p) ? p : p0 - f0;
 }
 
 // floor(a / d) for 0 <= a < 2^24 and d >= 1, by a float reciprocal and
@@ -160,6 +162,7 @@ __global__ void __launch_bounds__(kThreads)
   unsigned char* slots = smem + pl.slot_off;
 
   // 1. each (pixel, level): its first tap and weight, once
+  int nan_pos = 0;  // a NaN position among this thread's items
   for (int it = threadIdx.x; it < items; it += kThreads) {
     const int lvl = it >> log2_pixels, p = it & (P - 1);
     int x0 = 0, hit = 0, off = 0;
@@ -170,13 +173,14 @@ __global__ void __launch_bounds__(kThreads)
       const float d = disp[pix];
       const float sc = pow2_neg(lvl);
       first_tap(kGeo ? d * sc : (coords[pix] - d) * sc, radius, n, x0, w);
+      nan_pos |= isnan(w);
       hit = x0 + taps >= 0 && x0 <= n - 1;  // slots x0 .. x0 + 2r + 1 reach the row
       const float* piece = g + pix * gstride + lvl * (channels + 1) * taps + (kGeo ? 0 : channels * taps);
       off = (int)(reinterpret_cast<uintptr_t>(piece) & 15);
     }
     meta[it] = make_int4(x0, __float_as_int(w), off, hit);
   }
-  __syncthreads();
+  const bool any_nan = __syncthreads_or(nan_pos) != 0;
 
   // 2. the g pieces of the windows that reach their rows, all copies in flight
   const int maxch = (pl.len * 4 + 15) / 16 + 1;
@@ -224,6 +228,14 @@ __global__ void __launch_bounds__(kThreads)
       if (j < taps) acc += gc[j] * (1.0f - w);
       if (j >= 1) acc += gc[j - 1] * w;
       store_one(stage + p * row + sl * C + c, acc);
+    }
+    if (any_nan) {
+      // the rows of NaN positions: no window reaches them, so no element is
+      // written twice
+      const float inv_row = 1.0f / (float)row;
+      for (int e = threadIdx.x; e < np * row; e += kThreads)
+        if (isnan(__int_as_float(lm[udiv(e, row, inv_row)].y)))
+          store_one(stage + e, __int_as_float(0x7fc00000));
     }
     __syncthreads();
     T* dst = static_cast<T*>(gr.out[lvl]) + pix0 * row;

@@ -16,6 +16,11 @@ card. It gathers (B, H, W1, 2r+1, D) fp32 taps twice a level, about 1 GB
 each at the DKT crop's 8 x 80 x 180 grid with D = 256, once per iteration
 under remat: the JAX package's choice (training rarely runs memory-starved,
 ``corr_alt.py:23-26``), and it fits an 80 GB card.
+
+A NaN coordinate gives NaN in its pixel's taps of every level, in the
+kernel as in the plain version and JAX; the recompute backward then gives
+NaN where JAX's does (its pixel's fmap1 row, and the level column its
+clamped taps read).
 """
 
 from __future__ import annotations

@@ -17,8 +17,10 @@ Both directions take any number of levels up to :data:`MAX_LEVELS` (the
 kernels' parameter blocks) and any radius whose staging fits a block's
 shared memory: :func:`fwd_smem_bytes` (the forward's output staging, 256
 threads of 2r+1 floats) and :func:`bwd_plan` (the backward's pixels a
-block) raise past that limit. A NaN disparity gives zeros in every kernel,
-where the plain twin and JAX give NaN.
+block) raise past that limit. A NaN disparity gives NaN in every kernel,
+as the plain twins and JAX do: in all of its pixel's outputs, and in its
+pixel's rows of dgeo and dcorr (a NaN coordinate: its corr taps and dcorr
+rows).
 """
 
 from __future__ import annotations

@@ -21,14 +21,15 @@ undetached in train mode (JAX ``models/pcvnet.py:96-97``), so the position
 gradient carries the loss from the lookup back into the previous
 iteration's updater.
 
-The forward takes any number of levels up to :data:`MAX_LEVELS` (its
-parameter block) and any K whose staging fits a block's shared memory
-(:func:`fwd_plan` picks the pixels a block owns and raises past that
-limit). A non-finite position gives NaN in the forward, as in the plain
-twin and JAX; the backward gives it no contribution and zero dpos. The
-backward takes up to :data:`MAX_BWD_LEVELS` levels and :data:`MAX_TAPS`
-taps a pixel; on CUDA tensors that need a gradient, :func:`gaussian_row_sample`
-refuses more before it launches the forward.
+Both directions take any number of levels up to :data:`MAX_LEVELS` (the
+kernels' parameter blocks). The forward takes any K whose staging fits a
+block's shared memory (:func:`fwd_plan` picks the pixels a block owns and
+raises past that limit); the backward any whose pixel fits a block
+(:func:`bwd_plan`), and on CUDA tensors that need a gradient
+:func:`gaussian_row_sample` refuses more before it launches the forward. A
+non-finite position gives NaN in the forward, as in the plain twin and
+JAX; a NaN position gives NaN in its pixel's dvol row of every level and
+zero dpos, in the kernel and the plain backward, as in JAX.
 """
 
 from __future__ import annotations
@@ -40,16 +41,12 @@ import torch
 from dkt_stereo_tpu_torch.ops.cuda import _build
 from dkt_stereo_tpu_torch.ops.sampler import sample_row_1d
 
-MAX_LEVELS = 32  # kMaxLevels of the forward kernel's parameter block
-MAX_BWD_LEVELS = 4
+MAX_LEVELS = 32  # kMaxLevels of the kernels' parameter blocks
 MAX_SMEM = 232_448  # a block's shared memory on the H100
 PIXELS_PER_BLOCK = (64, 32, 16, 8)
-# the backward stages a pixel's levels * K taps in shared memory, 16 bytes
-# each and 8 more a sample for the counting sort; beyond this a block of
-# one pixel would not fit
-MAX_TAPS = 3072
+BWD_PIXELS = 4  # the backward's warps (pixels) a block, halved while a block does not fit
 
-__all__ = ["GaussianRowSample", "fold_lookup", "fwd_plan", "gaussian_row_sample",
+__all__ = ["GaussianRowSample", "bwd_plan", "fold_lookup", "fwd_plan", "gaussian_row_sample",
            "gaussian_row_sample_bwd", "gaussian_row_sample_bwd_plain",
            "gaussian_row_sample_folded_plain", "gaussian_row_sample_plain", "unfold_lookup"]
 
@@ -115,10 +112,12 @@ def gaussian_row_sample_bwd_plain(levels, pos: torch.Tensor, g: torch.Tensor,
     tap outside the row gets nothing. ``dpos`` (fp32) is ``sum_i (g *
     v_i[x0 + 1] - g * v_i[x0]) / cf^i`` with taps outside the row read as
     0: the two-tap form at exact integers too. ``dlevels`` or ``dpos`` is
-    None when not asked for. A NaN position gives NaN in its row's dvol (at
-    index 0, where its clamped taps point) and zero dpos."""
+    None when not asked for. A NaN position gives NaN in its pixel's whole
+    row of every level's dvol and zero dpos, as the JAX kernels' relu(1 -
+    |j - NaN|) weights and 0/1 dpos selectors do."""
     K = pos.shape[-1]
     g = g.float()
+    nan_row = torch.isnan(pos).any(dim=-1, keepdim=True)  # (B, H, W1, 1)
     dlevels = [] if need_vol else None
     dpos = torch.zeros_like(pos, dtype=torch.float32) if need_pos else None
     for i, vol in enumerate(levels):
@@ -135,7 +134,7 @@ def gaussian_row_sample_bwd_plain(levels, pos: torch.Tensor, g: torch.Tensor,
             d = torch.zeros(vol.shape, dtype=torch.float32, device=vol.device)
             for idx, inb, weight in taps:
                 d.scatter_add_(-1, idx, gi * weight * inb)
-            dlevels.append(d.to(vol.dtype))
+            dlevels.append(d.masked_fill(nan_row, float("nan")).to(vol.dtype))
         if need_pos:
             v0, v1 = (torch.gather(vol, -1, idx).float() * inb for idx, inb, _ in taps)
             dpos = dpos + (gi * v1 - gi * v0) / compress_factor**i
@@ -181,29 +180,61 @@ def fwd_plan(widths, K: int, gauss_num: int, vol_itemsize: int,
                      f"memory at 8 pixels a block, more than the {MAX_SMEM} B a block has")
 
 
+def bwd_smem_bytes(widths, K: int, elem: int, pixels: int) -> int:
+    """Shared memory of one backward block (``row_sample_bwd.cu::layout``):
+    the level table (16 bytes and a pointer a level), per warp its L*K taps
+    (16 bytes each) and its bins (8 bytes each, sum(widths) + L + 1 of them),
+    then each level's staging area of pixels rows, 16 bytes more to shift it
+    to its span's alignment."""
+    L = len(widths)
+    warp = _round16(16 * L * K + 8 * (sum(widths) + L + 1))
+    return (_round16(L * 24) + pixels * warp
+            + sum(_round16(pixels * w * elem + 16) for w in widths))
+
+
+def bwd_plan(widths, K: int, elem: int) -> tuple[int, int]:
+    """(pixels a block, shared-memory bytes) of the backward kernel: its
+    :data:`BWD_PIXELS` warps, halved while the block does not fit, down to
+    one; ValueError naming the limit where one pixel does not fit."""
+    widths = [int(w) for w in widths]
+    if not 1 <= len(widths) <= MAX_LEVELS:
+        raise ValueError(f"gaussian_row_sample_bwd: 1..{MAX_LEVELS} levels (the kernel's "
+                         f"parameter block), got {len(widths)}")
+    pixels = BWD_PIXELS
+    while pixels > 1 and bwd_smem_bytes(widths, K, elem, pixels) > MAX_SMEM:
+        pixels //= 2
+    nbytes = bwd_smem_bytes(widths, K, elem, pixels)
+    if nbytes > MAX_SMEM:
+        raise ValueError(f"gaussian_row_sample_bwd: widths {widths} at K {K} need {nbytes} B of "
+                         f"shared memory for one pixel, more than the {MAX_SMEM} B a block "
+                         f"takes")
+    return pixels, nbytes
+
+
 def _launcher(name: str):
     """``row_sample_launch``: level pointers and widths (host arrays), the
     level count, pos, out, B, H*W, K, G, log2 of the compress factor, two
     bf16 flags (levels, out), pixels a block, stream.
-    ``row_sample_bwd_launch``: four level pointers, four dvol pointers, four
-    widths, the level count, pos, g, dpos, pixels, K, log2 of the compress
-    factor, bf16 flag (levels), G, H*W, bf16 flag (g), stream."""
+    ``row_sample_bwd_launch``: level pointers, dvol pointers and widths
+    (host arrays), the level count, pos, g, dpos, pixels, K, log2 of the
+    compress factor, bf16 flag (levels), G, H*W, bf16 flag (g), stream."""
     fn = getattr(_build.load(name), f"{name}_launch")
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        pp, pi = ctypes.POINTER(p), ctypes.POINTER(i)
         if name == "row_sample":
-            fn.argtypes = [ctypes.POINTER(p), ctypes.POINTER(i), i, p, p] + [i] * 8 + [p]
+            fn.argtypes = [pp, pi, i, p, p] + [i] * 8 + [p]
         else:
-            fn.argtypes = [p] * 8 + [i] * 5 + [p, p, p, ll] + [i] * 6 + [p]
+            fn.argtypes = [pp, pp, pi, i, p, p, p, ll] + [i] * 6 + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(levels, pos: torch.Tensor, max_levels: int = MAX_LEVELS):
+def _check(levels, pos: torch.Tensor):
     """Validate the arguments on either device; returns the volumes' dtype."""
     L = len(levels)
-    if not 1 <= L <= max_levels:
-        raise ValueError(f"gaussian_row_sample: 1..{max_levels} levels, got {L}")
+    if not 1 <= L <= MAX_LEVELS:
+        raise ValueError(f"gaussian_row_sample: 1..{MAX_LEVELS} levels, got {L}")
     if pos.dtype != torch.float32 or not pos.is_contiguous() or pos.dim() != 4 or pos.shape[-1] < 1:
         raise ValueError(f"gaussian_row_sample: pos must be a contiguous fp32 (B, H, W1, K) "
                          f"tensor, got {pos.dtype} {tuple(pos.shape)}")
@@ -218,17 +249,6 @@ def _check(levels, pos: torch.Tensor, max_levels: int = MAX_LEVELS):
                              f"(*{lead}, W2) tensor on {pos.device}, got {v.dtype} "
                              f"{tuple(v.shape)} on {v.device}")
     return dtype
-
-
-def _check_bwd_limits(L: int, K: int, device: torch.device) -> None:
-    """The backward's limits: its parameter block of :data:`MAX_BWD_LEVELS`
-    levels, and on the card :data:`MAX_TAPS` taps a pixel."""
-    if not 1 <= L <= MAX_BWD_LEVELS:
-        raise ValueError(f"gaussian_row_sample_bwd: 1..{MAX_BWD_LEVELS} levels (the backward "
-                         f"kernel's parameter block), got {L}")
-    if device.type == "cuda" and L * K > MAX_TAPS:
-        raise ValueError(f"gaussian_row_sample_bwd: levels * K must be at most {MAX_TAPS}, got "
-                         f"{L * K}")
 
 
 def _check_fold(pos: torch.Tensor, gauss_num: int, dtype) -> None:
@@ -280,7 +300,6 @@ def gaussian_row_sample_bwd(levels, pos: torch.Tensor, g: torch.Tensor, compress
     dtype = _check(levels, pos)
     _check_fold(pos, gauss_num, g.dtype)
     L, (B, H, W, K) = len(levels), pos.shape
-    _check_bwd_limits(L, K, pos.device)
     want = (B * gauss_num, L * K // gauss_num, H, W)
     if (tuple(g.shape) != want or g.device != pos.device
             or (pos.device.type == "cuda"
@@ -288,6 +307,8 @@ def gaussian_row_sample_bwd(levels, pos: torch.Tensor, g: torch.Tensor, compress
         raise ValueError(f"gaussian_row_sample_bwd: g must be a {want} tensor on {pos.device}, "
                          f"dense channels-last, got {g.dtype} {tuple(g.shape)} strides "
                          f"{g.stride()} on {g.device}")
+    if pos.device.type == "cuda":
+        bwd_plan([v.shape[3] for v in levels], K, dtype.itemsize)
     if not (need_vol or need_pos):
         return None, None
     if pos.device.type == "cpu":
@@ -297,15 +318,13 @@ def gaussian_row_sample_bwd(levels, pos: torch.Tensor, g: torch.Tensor, compress
         raise ValueError(f"gaussian_row_sample_bwd: unsupported device {pos.device}")
     dlevels = [torch.empty_like(v) for v in levels] if need_vol else None
     dpos = torch.empty_like(pos) if need_pos else None
-    pad = MAX_BWD_LEVELS - L
-    ptrs = [v.data_ptr() for v in levels] + [None] * pad
-    widths = [v.shape[3] for v in levels] + [0] * pad
-    dptrs = [d.data_ptr() for d in dlevels] if need_vol else [None] * L
-    dptrs += [None] * pad
+    ptrs = (ctypes.c_void_p * L)(*[v.data_ptr() for v in levels])
+    dptrs = (ctypes.c_void_p * L)(*([d.data_ptr() for d in dlevels] if need_vol else [None] * L))
+    widths = (ctypes.c_int * L)(*[v.shape[3] for v in levels])
     fn = _launcher("row_sample_bwd")
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream(pos.device).cuda_stream
-        err = fn(*ptrs, *dptrs, *widths, L, pos.data_ptr(), g.data_ptr(),
+        err = fn(ptrs, dptrs, widths, L, pos.data_ptr(), g.data_ptr(),
                  dpos.data_ptr() if need_pos else None, B * H * W, K, log2_cf,
                  int(dtype == torch.bfloat16), gauss_num, H * W, int(g.dtype == torch.bfloat16),
                  stream)
@@ -358,8 +377,8 @@ def gaussian_row_sample(levels, pos: torch.Tensor, compress_factor: int, gauss_n
     channels-last in memory, level i sampled at ``pos / cf^i``,
     differentiable with respect to the levels and the positions.
     ``compress_factor`` must be a power of two. On CUDA tensors that need a
-    gradient, the backward's limits (:func:`_check_bwd_limits`) are checked
-    before the forward is launched."""
+    gradient, the backward's plan (:func:`bwd_plan`) is checked before the
+    forward is launched."""
     levels = list(levels)
     if pos.device.type == "cpu":
         _log2(compress_factor)
@@ -369,9 +388,9 @@ def gaussian_row_sample(levels, pos: torch.Tensor, compress_factor: int, gauss_n
     if pos.device.type != "cuda":
         raise ValueError(f"gaussian_row_sample: unsupported device {pos.device}")
     # the arguments are checked where the kernel is launched, the backward's
-    # limits here, so that a step past them fails before its forward
+    # plan here, so that a step past its limits fails before its forward
     if torch.is_grad_enabled() and (pos.requires_grad or any(v.requires_grad for v in levels)):
-        _check_bwd_limits(len(levels), pos.shape[-1], pos.device)
+        bwd_plan([v.shape[3] for v in levels], pos.shape[-1], levels[0].element_size())
     return GaussianRowSample.apply(pos, compress_factor, gauss_num, dtype, *levels)
 
 

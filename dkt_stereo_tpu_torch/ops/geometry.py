@@ -51,7 +51,10 @@ def geo_lookup_bwd_plain(geo_shapes_dtypes, corr_shapes_dtypes, disp: torch.Tens
     levels, so that each level's sum runs in fp32 and is rounded once to the
     level's dtype. Returns ``(dgeo, dcorr)``: per level (B, H, W, D_i, C)
     and (B, H, W, W2_i), or None per level where ``need_geo`` /
-    ``need_corr`` is false. Nothing flows to disp or coords.
+    ``need_corr`` is false. Nothing flows to disp or coords. A NaN position
+    gives NaN in its pixel's whole row, as the JAX kernels' relu(1 - |j -
+    NaN|) weights do: a NaN disparity in every level of both pyramids, a NaN
+    coordinate in the corr levels.
 
     ``*_shapes_dtypes``: one ``(shape, dtype)`` per level; ``disp``,
     ``coords``: (B, H, W, 1); ``g``: (B, H, W, L*(C+1)*(2r+1))."""
@@ -66,8 +69,12 @@ def geo_lookup_bwd_plain(geo_shapes_dtypes, corr_shapes_dtypes, disp: torch.Tens
         with torch.enable_grad():
             out = geo_lookup(geo, corr, disp.detach(), coords.detach(), radius)
             grads = iter(torch.autograd.grad(out, wrt, g.float()))
-    dgeo = [next(grads).to(dt) if need_geo else None for _, dt in geo_shapes_dtypes]
-    dcorr = [next(grads).to(dt) if need_corr else None for _, dt in corr_shapes_dtypes]
+    nan_geo = torch.isnan(disp.float())[..., None]  # (B, H, W, 1, 1)
+    nan_corr = torch.isnan(coords.float() - disp.float())  # (B, H, W, 1)
+    dgeo = [next(grads).masked_fill(nan_geo, float("nan")).to(dt) if need_geo else None
+            for _, dt in geo_shapes_dtypes]
+    dcorr = [next(grads).masked_fill(nan_corr, float("nan")).to(dt) if need_corr else None
+             for _, dt in corr_shapes_dtypes]
     return dgeo, dcorr
 
 

@@ -109,6 +109,40 @@ def test_corr_lookup_alt_nan_position():
     assert (out[0, 0, 3:] == 0).all()
 
 
+def test_corr_lookup_alt_nan_positions_match_pallas(rng):
+    """NaN coordinates among finite ones: the plain twin's NaN mask equals
+    ``corr_lookup_alt_pallas``'s in interpret mode (every tap of the pixel
+    at every level), and the gradients of ``CorrLookupAlt`` (its recompute
+    backward) have ``jax.vjp``'s NaN mask for fmap1 and the pyramid; the
+    finite values within the bounds above."""
+    B, H, W, D = 1, 2, 16, 8
+    f1, f2 = (rng.standard_normal((B, H, W, D)).astype(np.float32) for _ in range(2))
+    c = rng.uniform(-2, W + 2, (B, H, W, 1)).astype(np.float32)
+    c.reshape(-1)[[3, 20]] = np.nan
+    g = rng.standard_normal((B, H, W, 36)).astype(np.float32)
+
+    def lookup(a, b):
+        f2t = tuple(jnp.swapaxes(f, -1, -2) for f in jfmap_pyramid(b, 4))
+        return corr_lookup_alt_pallas(a, f2t, jnp.asarray(c), 4, True)
+
+    out, vjp = jax.vjp(lookup, jnp.asarray(f1), jnp.asarray(f2))
+    want = [np.asarray(d) for d in vjp(jnp.asarray(g))]
+    t1, t2 = _t(f1).requires_grad_(True), _t(f2).requires_grad_(True)
+    got_out = CorrLookupAlt.apply(t1, _t(c), 4, *fmap_pyramid(t2, 4))
+    got_out.backward(_t(g))
+    out, got_out = np.asarray(out), got_out.detach().numpy()
+    np.testing.assert_array_equal(np.isnan(got_out), np.isnan(out))
+    assert np.isnan(got_out[0, 0, 3]).all() and np.isnan(got_out[0, 1, 4]).all()
+    assert np.isnan(got_out).sum() == 2 * 36
+    fin = ~np.isnan(out)
+    assert float(np.abs(got_out[fin] - out[fin]).max()) <= 1e-4 * float(np.abs(out[fin]).max())
+    for d, w in zip((t1.grad.numpy(), t2.grad.numpy()), want):
+        np.testing.assert_array_equal(np.isnan(d), np.isnan(w))
+        assert np.isnan(d).any()
+        fin = ~np.isnan(w)
+        assert float(np.abs(d[fin] - w[fin]).max()) <= 1e-4 * float(np.abs(w[fin]).max())
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_corr_lookup_alt_function_grads_match_jax(rng, dtype):
     """Gradients of ``sum(out^2)`` through ``CorrLookupAlt`` (its recompute

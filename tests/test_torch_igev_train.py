@@ -200,6 +200,46 @@ def test_geo_lookup_bwd_plain_matches_pallas_vjp_past_the_kernels_former_caps(dt
     _close_levels([v.grad for v in levels], want, dtype)
 
 
+def test_geo_lookup_nan_positions_match_pallas():
+    """NaN disparities and a NaN coordinate among finite ones: the plain
+    forward's NaN mask (``ops/geometry.py::geo_lookup``) equals the Pallas
+    lookup's in interpret mode (every output of a NaN-disparity pixel, the
+    corr taps of a NaN-coordinate pixel), and ``geo_lookup_bwd_plain``'s
+    equals ``jax.vjp``'s in every level of dgeo and dcorr (the pixel's whole
+    row); the finite values within the bounds above."""
+    rng = np.random.default_rng(17)
+    Bk, Hk, Wk, D, C, L = 1, 2, 24, 12, 8, 2
+    geo = [rng.standard_normal((Bk, Hk, Wk, D >> i, C)).astype(np.float32) for i in range(L)]
+    cor = [rng.standard_normal((Bk, Hk, Wk, Wk >> i)).astype(np.float32) for i in range(L)]
+    disp = rng.uniform(-2, D + 2, (Bk, Hk, Wk, 1)).astype(np.float32)
+    disp.reshape(-1)[[2, 30]] = np.nan
+    coords = np.broadcast_to(np.arange(Wk, dtype=np.float32)[None, None, :, None],
+                             disp.shape).copy()
+    coords.reshape(-1)[5] = np.nan
+    g = rng.standard_normal((Bk, Hk, Wk, L * (C + 1) * 9)).astype(np.float32)
+    out, vjp = jax.vjp(lambda *p: geo_lookup_pallas(p[:L], p[L:], jnp.asarray(disp),
+                                                    jnp.asarray(coords), 4, True),
+                       *[jnp.asarray(v) for v in geo + cor])
+    want = [np.asarray(d) for d in vjp(jnp.asarray(g))]
+    got_out = k4.geo_lookup_plain([_t(v) for v in geo], [_t(v) for v in cor], _t(disp),
+                                  _t(coords), 4).numpy()
+    out = np.asarray(out)
+    np.testing.assert_array_equal(np.isnan(got_out), np.isnan(out))
+    assert np.isnan(got_out[0, 0, 2]).all() and np.isnan(got_out[0, 1, 6]).all()
+    assert np.isnan(got_out[0, 0, 5]).sum() == L * 9  # the corr taps only
+    fin = ~np.isnan(out)
+    np.testing.assert_allclose(got_out[fin], out[fin], atol=1e-5 * float(np.abs(out[fin]).max()))
+    meta = [(v.shape, torch.float32) for v in geo + cor]
+    dgeo, dcorr = geo_lookup_bwd_plain(meta[:L], meta[L:], _t(disp), _t(coords), _t(g), 4)
+    got = [d.numpy() for d in dgeo + dcorr]
+    for d, w in zip(got, want):
+        np.testing.assert_array_equal(np.isnan(d), np.isnan(w))
+    assert np.isnan(got[0][0, 0, 2]).all() and not np.isnan(got[0][0, 0, 5]).any()
+    assert np.isnan(got[L][0, 0, 5]).all()
+    _close_levels([torch.tensor(np.nan_to_num(d)) for d in got], [np.nan_to_num(w) for w in want],
+                  "float32")
+
+
 def test_geo_lookup_backward_skips_parts_without_grad(monkeypatch):
     """With the corr levels not requiring grad (a frozen backbone), the
     backward computes no corr gradient (the dcorr wrapper is not called)

@@ -128,25 +128,58 @@ def test_k5_forward_plan_falls_back_and_names_its_limit():
 
 
 @pytest.mark.parametrize("levels,K,device,refused", [
-    (4, 36, "cuda", None),  # the PCV configs' 3 levels fit with room
-    (5, 36, "cuda", r"1\.\.4 levels"),  # past the backward's parameter block
-    (5, 36, "cpu", r"1\.\.4 levels"),  # the plain backward keeps the kernel's contract
-    (4, 769, "cuda", "at most 3072"),  # a pixel's taps past one block's shared memory
-    (4, 769, "cpu", None),  # the plain backward has no shared memory
+    (3, 36, "cuda", None),  # the PCV configs' 3 levels
+    (5, 36, "cuda", None),  # past the kernel's former 4-level parameter block
+    (32, 36, "cuda", None),  # its parameter block now: 32 levels
+    (33, 36, "cuda", r"1\.\.32 levels"),
+    (4, 4000, "cuda", "232448 B a block takes"),  # a pixel's taps past one block
+    (4, 4000, "cpu", None),  # the plain backward has no shared memory
 ])
 def test_k5_backward_limits(levels, K, device, refused):
-    """K5's backward limits: up to 4 levels, and on the card up to 3,072
-    taps a pixel. ``gaussian_row_sample`` checks them on CUDA tensors that
-    need a gradient before it launches the forward."""
-    from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
-        MAX_BWD_LEVELS, MAX_TAPS, _check_bwd_limits)
+    """K5's backward limits: up to 32 levels (its parameter block, as the
+    forward's) and, on the card, a pixel whose taps and bins fit one
+    block's shared memory. ``gaussian_row_sample`` checks them on CUDA
+    tensors that need a gradient before it launches the forward; the CPU's
+    plain backward takes any."""
+    from dkt_stereo_tpu_torch.ops.cuda.row_sample import MAX_LEVELS, bwd_plan
 
-    assert (MAX_BWD_LEVELS, MAX_TAPS) == (4, 3072)
+    assert MAX_LEVELS == 32
+    widths = [max(180 >> i, 1) for i in range(levels)]
+    if device == "cpu":
+        return
     if refused is None:
-        _check_bwd_limits(levels, K, torch.device(device))
+        pixels, nbytes = bwd_plan(widths, K, 2)
+        assert pixels >= 1 and nbytes <= 227 * 1024
     else:
         with pytest.raises(ValueError, match=refused):
-            _check_bwd_limits(levels, K, torch.device(device))
+            bwd_plan(widths, K, 2)
+
+
+@pytest.mark.parametrize("widths,elem,pixels", [
+    ((180, 45, 11), 2, 4),  # the PCV step's levels, bf16
+    ((320, 80, 20), 4, 4),  # the PCV frame's, fp32
+    ((37, 18, 9, 4, 2), 2, 4),  # five levels, cf 2
+    ((300, 150, 75, 37, 18, 9, 4, 2), 4, 4),  # eight
+])
+def test_k5_backward_plan_and_level_table(widths, elem, pixels):
+    """The backward's shared memory (``row_sample_bwd.cu::layout``): the
+    level table (a 16-byte entry and an 8-byte pointer a level), then per
+    warp its L*K float4 taps and its bins (8 bytes each, sum(widths) + L + 1
+    of them), then each level's staging span of the block's rows with 16
+    bytes to shift it to its alignment; 4 warps a block where that fits."""
+    from dkt_stereo_tpu_torch.ops.cuda.row_sample import bwd_plan, bwd_smem_bytes
+
+    L, K = len(widths), 36
+
+    def smem(p):
+        warp = _r16(16 * L * K + 8 * (sum(widths) + L + 1))
+        return _r16(L * 24) + p * warp + sum(_r16(p * w * elem + 16) for w in widths)
+
+    assert bwd_plan(widths, K, elem) == (pixels, smem(pixels))
+    assert bwd_smem_bytes(widths, K, elem, pixels) == smem(pixels)
+    # rows 3000 wide: ~90 KB a pixel, so the block halves to 2 pixels
+    assert bwd_plan((3000,) * 3, K, 2) == (2, bwd_smem_bytes((3000,) * 3, K, 2, 2))
+    assert bwd_smem_bytes((3000,) * 3, K, 2, 4) > 232_448
 
 
 @pytest.mark.parametrize("part,size,pixels", [("geo", 48, 32), ("corr", 184, 64)])

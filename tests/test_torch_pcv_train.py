@@ -193,6 +193,70 @@ def test_row_sample_bwd_plain_matches_jax(rng, dtype, shape, cf, g_dtype):
                  "autograd")
 
 
+def test_row_sample_bwd_plain_nan_positions_match_jax(rng):
+    """NaN positions among finite ones: the plain backward's NaN mask equals
+    ``jax.vjp`` of the Pallas kernel's (interpret mode) in every level's
+    dvol, where a NaN position makes its pixel's whole row NaN, and in dpos,
+    where it gives 0; the other values within the bounds above."""
+    levels, pos, g, _ = _k5_case(rng, "float32", (2, 1, 37), 4)
+    pos = pos.clone()
+    pos.view(-1)[[5, 40, 41, 300]] = float("nan")
+    want = [np.asarray(jnp.asarray(d, jnp.float32)) for d in (
+        lambda dl, dp: (*dl, dp))(*_jax_vjps(tuple(jnp.asarray(v.numpy()) for v in levels),
+                                             jnp.asarray(pos.numpy()), jnp.asarray(g.numpy()),
+                                             4)[0])]
+    dlevels, dpos = gaussian_row_sample_bwd_plain(levels, pos, g, 4)
+    got = [d.numpy() for d in (*dlevels, dpos)]
+    nan_pix = torch.isnan(pos).any(-1).numpy()
+    assert nan_pix.sum() == 3
+    for i, (d, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(np.isnan(d), np.isnan(w))
+        if i < L:
+            assert np.isnan(d[nan_pix]).all() and not np.isnan(d[~nan_pix]).any()
+    assert (got[-1][torch.isnan(pos).numpy()] == 0).all()
+    _close_grads([torch.tensor(np.nan_to_num(d)) for d in got], [np.nan_to_num(w) for w in want],
+                 "float32", "pallas")
+    # the wrapper's CPU path and the autograd Function give the same NaN rows
+    lv = [v.clone().requires_grad_(True) for v in levels]
+    GaussianRowSample.apply(pos, 4, G, torch.float32, *lv).backward(fold_lookup(g, L, G))
+    for v, w in zip(lv, want):
+        np.testing.assert_array_equal(np.isnan(v.grad.numpy()), np.isnan(w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_sample_bwd_plain_at_five_levels_matches_jax(dtype):
+    """Five levels (cf 2, widths 37/18/9/4/2), which the backward kernel's
+    former 4-level parameter block refused: the plain backward and the
+    autograd Function's CPU path against ``jax.vjp`` of the Pallas kernel in
+    interpret mode, every level's dvol and dpos, bounds as above."""
+    r5 = np.random.default_rng(55)
+    # one row and one sample a Gaussian: interpret mode unrolls over both
+    Bk, Hk, W1, L5, cf, K1 = 1, 1, 37, 5, 2, G
+    vol = r5.standard_normal((Bk, Hk, W1, W1)).astype(np.float32)
+    jpyr = [np.asarray(v) for v in jgaussian_corr_pyramid(jnp.asarray(vol), L5, cf)]
+    assert [v.shape[-1] for v in jpyr] == [37, 18, 9, 4, 2]
+    pos = r5.uniform(-3, W1 + 3, (Bk, Hk, W1, K1)).astype(np.float32)
+    pos.reshape(-1)[:4] = [0.0, 8.0, 36.0, -1.0]
+    g = r5.standard_normal((Bk, Hk, W1, L5 * K1)).astype(np.float32)
+    jdt, tdt = DTYPES[dtype]
+
+    def pallas(pyr, p):
+        return jnp.concatenate([row_sample_pallas(v, p / cf**i, True)
+                                for i, v in enumerate(pyr)], axis=-1)
+
+    dl, dp = jax.vjp(pallas, tuple(jnp.asarray(v).astype(jdt) for v in jpyr),
+                     jnp.asarray(pos))[1](jnp.asarray(g))
+    want = [np.asarray(jnp.asarray(d, jnp.float32)) for d in (*dl, dp)]
+    levels = [_t(v).to(tdt) for v in jpyr]
+    dlevels, dpos = gaussian_row_sample_bwd_plain(levels, _t(pos), _t(g), cf)
+    assert [d.dtype for d in dlevels] == [tdt] * L5
+    _close_grads([*dlevels, dpos], want, dtype, "pallas")
+    lv = [v.clone().requires_grad_(True) for v in levels]
+    p = _t(pos).requires_grad_(True)
+    GaussianRowSample.apply(p, cf, G, torch.float32, *lv).backward(fold_lookup(_t(g), L5, G))
+    _close_grads([*(v.grad for v in lv), p.grad], want, dtype, "pallas")
+
+
 def test_autograd_function_cpu_path_and_needs_input_grad(rng, monkeypatch):
     """``GaussianRowSample`` on CPU tensors: its plain forward and backward
     equal the plain versions bit for bit, with the incoming gradient in the
