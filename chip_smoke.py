@@ -216,11 +216,45 @@ out-of-tolerance result raises and exits non-zero:
      has a vertex for every pixel with a nonzero disparity;
  32. dkt_stereo_tpu_torch.bench in-process (pallas.json, 1x736x1280, 32
      iterations, 3 warm-up frames and 5 batches of 10), its JSON line
-     printed; then the "kernels" JSON line and the card's line.
+     printed.
+
+The training side (phases 33-35, in the same temporary directory), then the
+"kernels" JSON line and the card's line:
+
+ 33. the host data path: a synthetic Booster quarter-resolution tree
+     (6 scenes at 752x1028, disp_00.npy) and a Scene Flow TRAIN tree
+     (540x960, PFM), their PNGs written with adaptive filters; the host
+     seconds a sample takes to read and to augment on one worker (Booster
+     sparse at the RAFT recipe's 480x896 crop, Scene Flow dense at
+     320x720); the loader's batches a second at batch 2 with the CLI's
+     --num_workers over the tree as the CLI builds it; the RAFT recipe's
+     step fed by the loader with 0 workers (batches built in the step's
+     process: the step's own time without the workers' load) and 4 (the
+     wait for the batch and the step's own host time beside them);
+     a batch's keys, shapes, dtypes, ranges and pinned memory;
+ 34. run_scripts/raft_stereo/ft_booster.sh through cli.train (train.json,
+     batch 2, 480x896, 16 iterations, lr 1e-5, seeded random .pth, 4
+     loader workers): stage 1 in a subprocess killed after its mid-run
+     save and that save's
+     validation, the same command with --auto_resume in this process (the
+     save restored bit for bit: step, weights, optimizer state; the run
+     ends at step_{num_steps+1}), stage 2 with --restore_weights_only and
+     --restore_ckpt_T (step 0, a fresh optimizer, the teacher the .pth bit
+     for bit), cli.export of stage 2's student, and cli.eval on two Booster
+     frames with the export and with stage 2's checkpoint --which ema; per
+     stage ms/step, the loader's wait, the step's own time, peak memory and
+     the validators' keys; exactly 96 K1 and 16 K1-backward launches a
+     step (the subprocess's counters are its own and not read);
+ 35. IGEV's ft_kitti.sh stage 1 (kitti_mix on phase 29's KITTI tree, batch
+     4, 320x736) and PCVNet base.json on the Scene Flow tree (batch 8,
+     320x720) through cli.train, 4 loader workers, 3 steps each: exactly 96 K4 and 16 dgeo,
+     and 80 K5 and 16 K5-backward launches a step; ms/step, wait, peak.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
-result.
+result. Whatever the outcome, every process the phases started (the
+loaders' forkserver, workers and resource tracker, the killed stage 1's
+orphans, which this process adopts) is stopped and reaped before it exits.
 """
 
 from __future__ import annotations
@@ -228,6 +262,8 @@ from __future__ import annotations
 import copy
 import ctypes
 import json
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -248,6 +284,88 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+PR_SET_CHILD_SUBREAPER = 36  # <linux/prctl.h>
+
+
+def adopt_orphans():
+    """Make this process the parent of its descendants' orphans: a loader
+    worker, forkserver or resource tracker whose parent died (phase 34 kills
+    stage 1) becomes a child here, where stop_children finds it."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def _children(pgid=None):
+    """Pids of this process's children, zombies included (from /proc), only
+    those of process group ``pgid`` where it is given."""
+    me, pids = os.getpid(), []
+    for entry in os.scandir("/proc"):
+        if not entry.name.isdigit():
+            continue
+        try:
+            stat = Path(entry.path, "stat").read_text()
+        except OSError:  # gone meanwhile
+            continue
+        ppid, group = stat[stat.rindex(")") + 2:].split()[1:3]
+        if int(ppid) == me and (pgid is None or int(group) == pgid):
+            pids.append(int(entry.name))
+    return pids
+
+
+def _reaped(pid):
+    try:
+        return os.waitpid(pid, os.WNOHANG)[0] == pid
+    except ChildProcessError:
+        return True
+
+
+def stop_children(pgid=None, grace=10.0):
+    """Stop and reap every child of this process (of process group ``pgid``
+    where given): SIGTERM, then SIGKILL to whatever is left after ``grace``
+    seconds, in rounds, since a stopped child's own children come here.
+
+    Without ``pgid`` it first ends the multiprocessing machinery of this
+    process's loaders in order: the forkserver (it leaves when its pipe
+    closes), multiprocessing's exit finalizers (the queues' semaphores are
+    unlinked through the resource tracker while it still runs, and none is
+    left to start a new tracker at interpreter exit), the workers, then the
+    resource tracker (it ignores SIGTERM and leaves when its pipe closes).
+    Returns the number of processes it had to signal."""
+    from multiprocessing import forkserver, resource_tracker, util
+
+    tracker = None
+    if pgid is None:
+        import gc
+
+        gc.collect()
+        forkserver._forkserver._stop()
+        util._exit_function()
+        tracker = resource_tracker._resource_tracker._pid
+    stopped = 0
+    for _ in range(5):
+        pids = [p for p in _children(pgid) if p != tracker]
+        if not pids:
+            break
+        stopped += len(pids)
+        for sig in (signal.SIGTERM, signal.SIGKILL):
+            for p in pids:
+                try:
+                    os.kill(p, sig)
+                except ProcessLookupError:
+                    pass
+            deadline = time.monotonic() + grace
+            while pids and time.monotonic() < deadline:
+                pids = [p for p in pids if not _reaped(p)]
+                if pids:
+                    time.sleep(0.05)
+            if not pids:
+                break
+    if pgid is None:
+        resource_tracker._resource_tracker._stop()
+    return stopped
 
 
 def cuda_ms(torch, fn, n):
@@ -3422,7 +3540,459 @@ def phase_bench(torch):
 
 
 
+# --- the training side: the host data path and the recipes through cli.train -------
+
+BOOSTER_IMAGE = (752, 1028)  # Booster's quarter resolution (3008x4112 / 4)
+BOOSTER_SCENES = 6
+SCENEFLOW_IMAGE = (540, 960)  # Scene Flow's own frame size
+RECIPE_ARGS = ["--config", str(ROOT / "configs/raft_stereo/train.json"), "--train_datasets",
+               "booster",
+               "--batch_size", "2", "--image_size", "480", "896", "--train_iters", "16",
+               "--lr", "1e-5", "--tau_pl", "3.0",  # run_scripts/raft_stereo/ft_booster.sh
+               # as scripts/drive_recipe_fixture.sh, a worker count for the host (phase 33)
+               "--num_workers", "4"]
+TRAIN_WORKERS = "4"
+HOST_SAMPLES = 2
+LOADER_BATCHES = 8
+FED_WORKERS = (0, 4)  # loader processes beside the step (0: built in the step's process)
+FED_STEPS = 3
+
+
+def _textured_pair(rng, H, W, disp):
+    """A smoothed-noise left image and the right image it gives at ``disp``
+    px of disparity, uint8."""
+    tex = rng.integers(0, 256, (H, W + 256, 3), dtype=np.uint8).astype(np.uint16)
+    tex = ((tex + np.roll(tex, 1, 1) + np.roll(tex, 1, 0)) // 3).astype(np.uint8)
+    yy, xx = np.mgrid[:H, :W]
+    cols = np.clip(np.rint(128 + xx - disp).astype(np.int64), 0, W + 255)
+    return tex[:, 128:128 + W], tex[yy, cols]
+
+
+def write_training_trees(root):
+    """Under ``root``: a Booster quarter-resolution tree (BOOSTER_SCENES
+    scenes at 752x1028, ``disp_00.npy`` with an invalid band) and a Scene
+    Flow TRAIN tree (2 FlyingThings3D frames in both passes at 540x960, PFM
+    disparities), the PNGs written with adaptive filters as dataset files
+    are. Returns the seconds it took."""
+    from dkt_stereo_tpu_torch.data import png
+    from dkt_stereo_tpu_torch.data.readers import writePFM
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(33)
+    H, W = BOOSTER_IMAGE
+    yy, xx = np.mgrid[:H, :W]
+    for s in range(BOOSTER_SCENES):
+        scene = Path(root) / "Booster_dataset/quarter/train/balanced" / f"scene{s}"
+        disp = (30 + 60 * yy / H + 15 * np.sin(xx / 70 + s)).astype(np.float32)
+        left, right = _textured_pair(rng, H, W, disp)
+        for cam, img in (("camera_00", left), ("camera_02", right)):
+            (scene / cam).mkdir(parents=True)
+            png.write(scene / cam / "0000.png", img, adaptive=True)
+        disp[:, :40] = 0  # no ground truth at the left border
+        np.save(scene / "disp_00.npy", disp)
+    H, W = SCENEFLOW_IMAGE
+    yy, xx = np.mgrid[:H, :W]
+    things = Path(root) / "sceneflow/FlyingThings3D"
+    for i in range(2):
+        disp = (10 + 80 * xx / W + 5 * np.cos(yy / 40 + i)).astype(np.float32)
+        for dstype in ("frames_cleanpass", "frames_finalpass"):
+            left, right = _textured_pair(rng, H, W, disp)
+            for side, img in (("left", left), ("right", right)):
+                d = things / dstype / "TRAIN" / f"A/000{i}" / side
+                d.mkdir(parents=True)
+                png.write(d / "0006.png", img, adaptive=True)
+        d = things / "disparity/TRAIN" / f"A/000{i}/left"
+        d.mkdir(parents=True)
+        writePFM(str(d / "0006.pfm"), disp)
+    return time.perf_counter() - t0
+
+
+def _host_seconds(ds, n):
+    """Host seconds a sample takes in this process: reading its three files,
+    and the whole augmented ``get_sample`` (augmenting is the rest)."""
+    from dkt_stereo_tpu_torch.data import readers
+
+    read, total = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        ds.disparity_reader(ds.disparity_list[i % len(ds)])
+        for path in ds.image_list[i % len(ds)]:
+            readers.read_image_rgb(path)
+        t1 = time.perf_counter()
+        ds.get_sample(i, np.random.default_rng(i))
+        total.append(time.perf_counter() - t1)
+        read.append(t1 - t0)
+    read, total = np.asarray(read), np.asarray(total)
+    return float(np.median(read)), float(np.median(total - read))
+
+
+def _loader_rate(torch, ds, batch, workers, batches):
+    """Batches a second of a StereoLoader over ``ds``: the seconds to the
+    first batch (the workers' start), then ``batches`` more, across
+    epochs; returns (first s, batches/s, the first batch)."""
+    from dkt_stereo_tpu_torch.data.loader import StereoLoader
+
+    loader = StereoLoader(ds, batch_size=batch, num_workers=workers, seed=1234)
+    try:
+        t0 = time.perf_counter()
+        it = iter(loader)
+        first = next(it)
+        t1 = time.perf_counter()
+        n = 0
+        while n < batches:
+            for _ in it:
+                n += 1
+                if n == batches:
+                    break
+            it = iter(loader)
+        return t1 - t0, batches / (time.perf_counter() - t1), first
+    finally:
+        loader.close()
+
+
+def _fed_steps(torch, ds, workers, steps):
+    """The RAFT recipe's loop in miniature: ``steps`` DKT steps of
+    train.json (2x480x896, 16/32 iterations, seeded random weights) fed by
+    a StereoLoader of ``workers`` processes over ``ds``, as cli.train runs
+    them. Returns host ms of the wait in ``next`` and of the step's own
+    part (copy, step, metrics) for the steps after the first, and the
+    seconds to the first batch."""
+    from dkt_stereo_tpu_torch.data.loader import StereoLoader
+    from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    config = json.loads((ROOT / "configs/raft_stereo/train.json").read_text())
+    hyper = DKTHyperParams(lr=1e-5, train_iters=16)
+    state = create_dkt_state(config, hyper, seed=0)
+    step = make_dkt_train_step(config, hyper)
+    gen = torch.Generator().manual_seed(0)
+    loader = StereoLoader(ds, batch_size=2, num_workers=workers, seed=1234)
+
+    def stream():
+        while True:
+            yield from loader
+
+    wait, own = [], []
+    try:
+        batches = stream()
+        t_start = time.perf_counter()
+        for _ in range(steps + 1):
+            t0 = time.perf_counter()
+            cpu = next(batches)
+            t1 = time.perf_counter()
+            state, m = step(state, {k: v.to("cuda", non_blocking=True) for k, v in cpu.items()},
+                            generator=gen)
+            check(m["ok"] == 1.0, f"fed step not ok: {m}")
+            wait.append(t1 - t0)
+            own.append(time.perf_counter() - t1)
+        first = wait[0]
+    finally:
+        loader.close()
+    del state, step
+    torch.cuda.empty_cache()
+    return 1e3 * np.asarray(wait[1:]), 1e3 * np.asarray(own[1:]), first
+
+
+def phase_data(torch, tmp, card):
+    """Phase 33, the host data path: the training trees, the seconds a
+    sample takes to read and to augment (Booster, sparse, at the RAFT
+    recipe's 480x896 crop; Scene Flow, dense, at PCVNet's 320x720), the
+    loader's batches a second at the recipe's batch 2 with the CLI's
+    --num_workers, and a batch's keys, shapes, dtypes, ranges and pinned
+    memory."""
+    from dkt_stereo_tpu_torch.cli.train import parse_args
+    from dkt_stereo_tpu_torch.data.datasets import fetch_dataset
+
+    data = tmp / "train_data"
+    write_s = write_training_trees(data)
+    booster = fetch_dataset(["booster"], (480, 896), data_root=str(data))
+    sceneflow = fetch_dataset(["sceneflow"], (320, 720), data_root=str(data))
+    b_read, b_aug = _host_seconds(booster, HOST_SAMPLES)
+    s_read, s_aug = _host_seconds(sceneflow, HOST_SAMPLES)
+    workers = parse_args(["--config", "x"]).num_workers
+    first_s, rate, batch = _loader_rate(torch, booster, 2, workers, LOADER_BATCHES)
+    fed = []
+    for n in FED_WORKERS:
+        wait, own, first = _fed_steps(torch, booster, n, FED_STEPS)
+        fed.append(f"{n} workers: wait median {np.median(wait):.1f} max {wait.max():.1f} ms, "
+                   f"the step's own median {np.median(own):.1f} ms, iteration median "
+                   f"{np.median(wait + own):.1f} ms (first batch after {first:.1f} s)")
+    want = {"img1": (2, 480, 896, 3), "img2": (2, 480, 896, 3), "img1_clean": (2, 480, 896, 3),
+            "img2_clean": (2, 480, 896, 3), "flow": (2, 480, 896), "valid": (2, 480, 896)}
+    check({k: tuple(v.shape) for k, v in batch.items()} == want, f"batch shapes {batch}")
+    for k, v in batch.items():
+        check(v.dtype == torch.float32 and v.device.type == "cpu" and v.is_pinned(),
+              f"batch {k}: {v.dtype} {v.device} pinned {v.is_pinned()}")
+        check(bool(torch.isfinite(v).all()), f"batch {k} not finite")
+    check(all(0 <= float(batch[k].min()) and float(batch[k].max()) <= 255
+              for k in ("img1", "img2", "img1_clean", "img2_clean")), "image range")
+    valid = batch["valid"]
+    check(set(torch.unique(valid).tolist()) <= {0.0, 1.0} and float(valid.mean()) > 0,
+          f"valid mean {float(valid.mean())}")
+    check(float(batch["flow"][valid > 0].max()) < 0, "flow is not negative disparity")
+    print(f"host data path (numpy on the host; {os.cpu_count()} CPUs): the trees written in "
+          f"{write_s:.1f} s (adaptive PNG filters) | a sample on one worker, median of "
+          f"{HOST_SAMPLES}: Booster {BOOSTER_IMAGE[0]}x{BOOSTER_IMAGE[1]} sparse -> 480x896: "
+          f"read {b_read:.3f} s, augment {b_aug:.3f} s; Scene Flow {SCENEFLOW_IMAGE[0]}x"
+          f"{SCENEFLOW_IMAGE[1]} dense -> 320x720: read {s_read:.3f} s, augment {s_aug:.3f} s "
+          f"| loader, batch 2 at 480x896, {workers} workers (--num_workers default), the "
+          f"tree as the CLI builds it (3 batches an epoch): {rate:.2f} batches/s over "
+          f"{LOADER_BATCHES} batches after the first, which came {first_s:.1f} s after the "
+          f"loader started | RAFT recipe steps (train.json, 2x480x896) fed by the loader, "
+          f"{FED_STEPS} steps after the first: " + "; ".join(fed)
+          + f" | batch: keys, shapes, float32, pinned, ranges ok | {card}", flush=True)
+    return data
+
+
+class _StepProbe:
+    """While entered, ``cli.train`` builds its step through a wrapper that
+    keeps a CPU copy of the state the first step is handed and the launch
+    counts and metrics of every step."""
+
+    def __init__(self, torch):
+        from dkt_stereo_tpu_torch.cli import train as cli
+
+        self.torch, self.cli, self.orig = torch, cli, cli.make_dkt_train_step
+        self.first, self.per_step, self.metrics = None, [], []
+
+    def __enter__(self):
+        def make(config, hyper):
+            step = self.orig(config, hyper)
+
+            def step_fn(state, batch, **kw):
+                if self.first is None:
+                    self.first = _state_to_cpu(self.torch, state)
+                before = kernel_counts()
+                state, m = step(state, batch, **kw)
+                self.per_step.append(_diff(kernel_counts(), before))
+                self.metrics.append(m)
+                return state, m
+
+            return step_fn
+
+        self.cli.make_dkt_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.cli.make_dkt_train_step = self.orig
+
+
+def _to_cpu(torch, x):
+    if isinstance(x, dict):
+        return {k: _to_cpu(torch, v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_to_cpu(torch, v) for v in x]
+    return x.detach().cpu().clone() if isinstance(x, torch.Tensor) else copy.deepcopy(x)
+
+
+def _state_to_cpu(torch, state):
+    return {"step": state.step, "student": _to_cpu(torch, state.student.state_dict()),
+            "ema": _to_cpu(torch, state.ema.state_dict()),
+            "teacher": _to_cpu(torch, state.teacher.state_dict()),
+            "optimizer": _to_cpu(torch, state.optimizer.state_dict())}
+
+
+def _equal_tree(torch, a, b, where):
+    if isinstance(b, dict):
+        check(set(a) == set(b), f"{where}: keys differ")
+        for k in b:
+            _equal_tree(torch, a[k], b[k], f"{where}.{k}")
+    elif isinstance(b, (list, tuple)):
+        check(len(a) == len(b), f"{where}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _equal_tree(torch, x, y, f"{where}[{i}]")
+    elif isinstance(b, torch.Tensor):
+        check(torch.equal(torch.as_tensor(a), b), f"{where}: tensors differ")
+    else:
+        check(a == b, f"{where}: {a} != {b}")
+
+
+def _ckpt(torch, path):
+    from dkt_stereo_tpu_torch.train.checkpoint import CHECKPOINT_FILE
+
+    return torch.load(Path(path) / CHECKPOINT_FILE, map_location="cpu", weights_only=True)
+
+
+def _stage_line(label, timing, per_step, validation, card):
+    ms, wait, own = timing["ms_per_step"], timing["wait_ms"], timing["step_ms"]
+    launches = ({k: v for k, v in per_step[0].items() if v} if per_step else
+                "not read (another process)")
+    return (f"{label}: {timing['steps']} steps | ms/step (host clock around the loop's "
+            f"iteration, steps after the first) median {ms['median']:.1f} min {ms['min']:.1f} "
+            f"max {ms['max']:.1f} | loader wait median {wait['median']:.1f} min "
+            f"{wait['min']:.1f} max {wait['max']:.1f} ms | the step's own median "
+            f"{own['median']:.1f} ms | peak mem {timing.get('peak_gib', float('nan')):.2f} GiB "
+            f"| launches a step {launches} | validators {sorted(validation) or 'none run'} | {card}")
+
+
+def _in_process(torch, argv, label, want, card):
+    """``cli.train.main(argv)`` on the card with every launch counter zeroed
+    first; each step must launch exactly ``want`` and be ok. Returns the
+    CLI's result, the probe and the counts of the whole run."""
+    from dkt_stereo_tpu_torch.cli.train import main as train_main
+
+    zero_counts()
+    with _StepProbe(torch) as probe:
+        res = train_main(argv)
+    launches = kernel_counts()
+    full = {**dict.fromkeys(launches, 0), **want}
+    check(probe.per_step and all(c == full for c in probe.per_step),
+          f"{label} launches a step {probe.per_step} != {full}")
+    check(all(m["ok"] == 1.0 and np.isfinite(m["loss"]) for m in probe.metrics),
+          f"{label} step not ok: {[(m['ok'], m['loss']) for m in probe.metrics]}")
+    print(_stage_line(label, res["timing"], probe.per_step, res["validation"], card), flush=True)
+    torch.cuda.empty_cache()
+    return res, probe, launches
+
+
+def phase_booster_recipe(torch, tmp, data, card):
+    """Phase 34, run_scripts/raft_stereo/ft_booster.sh through cli.train at
+    full width (batch 2, 480x896, 16 iterations, from a seeded random .pth;
+    4 loader workers, as scripts/drive_recipe_fixture.sh sets its own):
+    stage 1 in a subprocess, killed once its mid-run save (step_3, after
+    step 2) and that save's validation exist; the same command with
+    --auto_resume in this process, which must restore the save bit for bit
+    and end at step_{num_steps+1}; stage 2 with --restore_weights_only and
+    --restore_ckpt_T; cli.export of stage 2's student with the .pth as
+    template; cli.eval on two Booster frames with the export and with stage
+    2's checkpoint --which ema. Exactly 96 K1 and 16 K1-backward launches a
+    step (the subprocess's counters are its own and not read). The killed
+    stage's forkserver, resource tracker and workers are stopped and reaped
+    with it."""
+    import re
+
+    from dkt_stereo_tpu_torch.cli.config import load_model_config
+    from dkt_stereo_tpu_torch.cli.eval import main as eval_main
+    from dkt_stereo_tpu_torch.cli.export import main as export_main
+
+    ws = tmp / "recipe"
+    pth = seeded_pth(torch, load_model_config(str(ROOT / "configs/raft_stereo/train.json")),
+                     tmp / "raft_train.pth")
+    stage1 = RECIPE_ARGS + ["--data_root", str(data), "--ema_decay", "0.9999", "--num_steps",
+                            "4", "--validation_frequency", "3", "--save_dir",
+                            str(ws / "stage1"), "--restore_ckpt", pth]
+    want = {"corr_lookup": 96, "corr_lookup_bwd": 16}
+
+    log = tmp / "stage1.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "dkt_stereo_tpu_torch.cli.train", *stage1],
+                                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    try:
+        deadline = time.perf_counter() + 300
+        while time.perf_counter() < deadline and proc.poll() is None:
+            if (ws / "stage1/step_3").is_dir() and "validation {" in log.read_text():
+                break
+            time.sleep(0.25)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGTERM)
+        proc.wait(timeout=60)
+        stop_children(pgid=proc.pid)
+    text = log.read_text()
+    check(proc.returncode == -signal.SIGTERM and (ws / "stage1/step_3").is_dir()
+          and not (ws / "stage1/step_5").exists(),
+          f"stage 1 was not killed after its mid-run save (exit {proc.returncode}): "
+          f"{text[-3000:]}")
+    timing = json.loads(re.findall(r"timing (\{.*\})", text)[-1])
+    validation = json.loads(re.findall(r"validation (\{.*\})", text)[-1])
+    print(_stage_line(f"recipe stage 1 (subprocess, killed after step_3 and its validation, "
+                      f"{time.perf_counter() - t0:.1f} s with its start)", timing, None,
+                      validation, card), flush=True)
+
+    saved = _ckpt(torch, ws / "stage1/step_3")
+    res, probe, resume_launches = _in_process(
+        torch, stage1 + ["--auto_resume"], "recipe stage 1, --auto_resume", want, card)
+    check(saved["step"] == 2 and probe.first["step"] == 2, f"resumed at {probe.first['step']}")
+    for part in ("student", "ema", "teacher", "optimizer"):
+        _equal_tree(torch, probe.first[part], saved[part], f"resume {part}")
+    check(res["checkpoint"] == str(ws / "stage1/step_5") and _ckpt(torch, res["checkpoint"])[
+        "step"] == 5, f"resumed run ended at {res['checkpoint']}")
+
+    ref = torch.load(pth, map_location="cpu", weights_only=True)
+    stage2 = RECIPE_ARGS + ["--data_root", str(data), "--ema_decay", "0.99999", "--num_steps",
+                            "2", "--validation_frequency", "3", "--save_dir", str(ws / "stage2"),
+                            "--restore_ckpt", res["checkpoint"], "--restore_weights_only",
+                            "--restore_ckpt_T", pth]
+    res2, probe2, stage2_launches = _in_process(torch, stage2, "recipe stage 2", want, card)
+    last = _ckpt(torch, res["checkpoint"])
+    check(probe2.first["step"] == 0 and probe2.first["optimizer"]["state"] == {},
+          "stage 2 did not start at step 0 with a fresh optimizer")
+    _equal_tree(torch, probe2.first["teacher"], ref, "stage 2 teacher vs the .pth")
+    _equal_tree(torch, probe2.first["student"], last["student"], "stage 2 student")
+    check(res2["checkpoint"] == str(ws / "stage2/step_3") and res2["validation"],
+          f"stage 2: {res2['checkpoint']} {res2['validation']}")
+
+    exported = tmp / "exported.pth"
+    export_main(["--restore_ckpt", res2["checkpoint"], "--template", pth, "--out",
+                 str(exported)])
+    two = tmp / "booster2"
+    for s in range(2):
+        sub = f"Booster_dataset/quarter/train/balanced/scene{s}"
+        (two / sub).parent.mkdir(parents=True, exist_ok=True)
+        os.symlink(data / sub, two / sub)
+    args = ["--config", str(ROOT / "configs/raft_stereo/train.json"), "--datasets", "booster-Q",
+            "--data_root", str(two)]
+    zero_counts()
+    from_pth = eval_main(args + ["--restore_ckpt", str(exported)])
+    from_ckpt = eval_main(args + ["--restore_ckpt", res2["checkpoint"], "--which", "ema"])
+    eval_launches = kernel_counts()
+    check(all(np.isfinite(v) for r in (from_pth, from_ckpt) for v in r.values()),
+          f"eval {from_pth} {from_ckpt}")
+    check(eval_launches["corr_lookup"] == 2 * 2 * EVAL_ITERS, f"eval launches {eval_launches}")
+    print(f"recipe export and eval: {exported.name} ({len(torch.load(exported))} tensors), "
+          f"cli.eval booster-Q on 2 frames, {EVAL_ITERS} iters: the exported student EPE "
+          f"{from_pth['Booster-epe']:.3f} D1 {from_pth['Booster-d1']:.2f} % | stage 2's "
+          f"checkpoint --which ema EPE {from_ckpt['Booster-epe']:.3f} D1 "
+          f"{from_ckpt['Booster-d1']:.2f} % | {card}", flush=True)
+    return {"train_cli_booster_resume": resume_launches,
+            "train_cli_booster_stage2": stage2_launches, "train_cli_booster_eval": eval_launches}
+
+
+def phase_train_models(torch, kitti, data, card):
+    """Phase 35: run_scripts/igev/ft_kitti.sh's stage 1 (IGEV train.json,
+    kitti_mix on the KITTI tree, batch 4, 320x736, EMA 0.99) and PCVNet
+    base.json on Scene Flow at batch 8, 320x720, through cli.train from
+    seeded random .pth files, 4 loader workers, 3 steps each: exactly 96 K4
+    and 16 dgeo, and 80 K5 and 16 K5-backward launches a step."""
+    from dkt_stereo_tpu_torch.cli.config import load_model_config
+
+    paths = {}
+    for name, config, extra, want in (
+            ("igev", "configs/igev_stereo/train.json",
+             ["--train_datasets", "kitti_mix", "--data_root", str(kitti), "--batch_size", "4",
+              "--image_size", "320", "736", "--lr", "2e-4", "--ema_decay", "0.99",
+              "--tau_pl", "3.0", "--num_workers", TRAIN_WORKERS],
+             {"geo_lookup": 96, "geo_lookup_bwd_geo": 16}),
+            ("pcv", "configs/pcvnet/base.json",
+             ["--train_datasets", "sceneflow", "--data_root", str(data), "--batch_size", "8",
+              "--image_size", "320", "720", "--num_workers", TRAIN_WORKERS],
+             {"gaussian_row_sample": 80, "gaussian_row_sample_bwd": 16})):
+        cfg = str(ROOT / config)
+        pth = seeded_pth(torch, load_model_config(cfg), Path(data).parent / f"{name}_train.pth")
+        argv = ["--config", cfg, *extra, "--num_steps", "2", "--validation_frequency",
+                "100000", "--save_dir", str(Path(data).parent / f"run_{name}"),
+                "--restore_ckpt", pth]
+        res, _, launches = _in_process(torch, argv, f"{name} through cli.train ({config})",
+                                       want, card)
+        check(res["checkpoint"].endswith("step_3"), f"{name} ended at {res['checkpoint']}")
+        paths[f"train_cli_{name}"] = launches
+    return paths
+
+
 def main():
+    """Every phase, then every process the phases started is stopped."""
+    adopt_orphans()
+    try:
+        return run()
+    finally:
+        stopped = stop_children()
+        if stopped:
+            print(f"chip_smoke: stopped {stopped} leftover processes", file=sys.stderr)
+
+
+def run():
     import torch
 
     if not torch.cuda.is_available():
@@ -3495,7 +4065,10 @@ def main():
         eval_paths, data = phase_eval(torch, card, tmp)
         eval_paths.update(phase_eval_models(torch, card, tmp, data))
         phase_demo(torch, tmp, data)
-    eval_paths.update(phase_bench(torch))
+        eval_paths.update(phase_bench(torch))
+        train_data = phase_data(torch, tmp, card)
+        eval_paths.update(phase_booster_recipe(torch, tmp, train_data, card))
+        eval_paths.update(phase_train_models(torch, data, train_data, card))
 
     def launches(name):
         by_path = {"inference": infer.get(name, 0), "training": train.get(name, 0),

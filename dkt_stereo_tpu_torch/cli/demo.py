@@ -5,7 +5,8 @@ stereo inference over image globs, on the GPU -> colormapped PNG (+ .npy,
   python -m dkt_stereo_tpu_torch.cli.demo --config configs/raft_stereo/base.json \\
       --restore_ckpt ckpt.pth -l 'left/*.png' -r 'right/*.png' -o out/
 
-PNG inputs need no image library; JPEG inputs need PIL
+``--restore_ckpt`` is a ``.pth`` or a port checkpoint (``--which``), as in
+``cli/eval.py``. PNG inputs need no image library; JPEG inputs need PIL
 (``data/readers.py``). ``main(argv, device="cpu")`` runs on the CPU.
 """
 
@@ -29,7 +30,7 @@ def parse_args(argv=None):
     p.add_argument("--divide_factor", type=int, default=32,
                    help="pad inputs to multiples of this (64 for n_downsample=3 configs)")
     p.add_argument("--which", choices=["student", "ema", "teacher"], default="student",
-                   help="weight set of a DKT train-state checkpoint (ignored for .pth)")
+                   help="weight set of a port checkpoint (ignored for .pth)")
     p.add_argument("--save_numpy", action="store_true")
     p.add_argument("--save_ply", action="store_true",
                    help="also export a colored point cloud per frame "
@@ -47,20 +48,19 @@ def main(argv=None, device=None):
     args = parse_args(argv)
 
     from dkt_stereo_tpu_torch.cli.config import load_model_config
-    from dkt_stereo_tpu_torch.cli.eval import check_checkpoint
     from dkt_stereo_tpu_torch.data import png
     from dkt_stereo_tpu_torch.data.readers import read_image_rgb
     from dkt_stereo_tpu_torch.device import resolve_device
     from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
     from dkt_stereo_tpu_torch.models.registry import create_model
+    from dkt_stereo_tpu_torch.train.checkpoint import restore_variables
     from dkt_stereo_tpu_torch.utils.visualization import disp_to_color, disp_to_ply
-    from dkt_stereo_tpu_torch.weights import load_reference_pth
 
     dev = resolve_device(device)
-    check_checkpoint(args.restore_ckpt)
+    weights = restore_variables(args.restore_ckpt, args.which)
     config = load_model_config(args.config)
     model = create_model(config, iters=args.valid_iters, device=dev, test_mode=True)
-    load_reference_pth(model, args.restore_ckpt)
+    model.load_state_dict(weights, strict=True)
     fwd = make_forward_fn(model, dev)
 
     out_dir = Path(args.output_directory)

@@ -6,7 +6,10 @@ tools/evaluate_stereo.py __main__, :339-404), on the GPU:
 
 ``--restore_ckpt`` takes a reference-format ``.pth`` (what
 ``torch.save(model.state_dict())`` writes, or the JAX package's
-``export_reference_pth``), loaded strictly. ``main(argv, device="cpu")``
+``export_reference_pth``) or a port checkpoint of ``cli.train`` (a
+``step_N`` directory; ``--which`` picks its student, EMA or teacher
+weights), loaded strictly. A JAX package (Orbax) checkpoint raises: ``python
+-m dkt_stereo_tpu.cli.export`` turns it into a ``.pth``. ``main(argv, device="cpu")``
 runs on the CPU; without ``device`` it wants a CUDA device and raises when
 there is none.
 """
@@ -43,7 +46,7 @@ def parse_args(argv=None):
         "--which",
         choices=["student", "ema", "teacher"],
         default="student",
-        help="which weights of a DKT train-state checkpoint (ignored for .pth checkpoints)",
+        help="which weights of a port checkpoint (ignored for .pth checkpoints)",
     )
     p.add_argument(
         "--mixed_precision",
@@ -52,16 +55,6 @@ def parse_args(argv=None):
         "(tools/evaluate_stereo.py:376-380 hard-disables AMP for accuracy runs)",
     )
     return p.parse_args(argv)
-
-
-def check_checkpoint(path: str) -> None:
-    """Only reference-format ``.pth`` checkpoints load into the port."""
-    if not os.fspath(path).endswith(".pth"):
-        raise ValueError(
-            f"--restore_ckpt {path!r}: the port reads reference-format .pth checkpoints only. "
-            "The JAX package's Orbax checkpoints reach it through `python -m "
-            "dkt_stereo_tpu.cli.export` (a .pth); the port's own training checkpoints come "
-            "with ROADMAP.md Queue 1 item 6b")
 
 
 def main(argv=None, device=None):
@@ -75,14 +68,14 @@ def main(argv=None, device=None):
     from dkt_stereo_tpu_torch.device import resolve_device
     from dkt_stereo_tpu_torch.eval.validate import make_forward_fn, preflight, run_validator
     from dkt_stereo_tpu_torch.models.registry import create_model
-    from dkt_stereo_tpu_torch.weights import load_reference_pth
+    from dkt_stereo_tpu_torch.train.checkpoint import restore_variables
 
     dev = resolve_device(device)
     if args.spatial_bands > 1:
         raise NotImplementedError(
             "--spatial_bands > 1 (banded multi-device eval) is not ported yet: ROADMAP.md "
             "Queue 1 item 11")
-    check_checkpoint(args.restore_ckpt)
+    weights = restore_variables(args.restore_ckpt, args.which)
     if not os.path.isdir(args.data_root):
         raise SystemExit(f"--data_root {args.data_root!r} does not exist (checked before the "
                          "model is built)")
@@ -95,7 +88,7 @@ def main(argv=None, device=None):
     merge_config(args, config, allow=("mixed_precision",))
     config = {**config, "mixed_precision": args.mixed_precision}
     model = create_model(config, iters=args.valid_iters, device=dev, test_mode=True)
-    load_reference_pth(model, args.restore_ckpt)
+    model.load_state_dict(weights, strict=True)
     fwd = make_forward_fn(model, dev)
     results = {}
     for name in args.datasets:

@@ -11,8 +11,11 @@ PIL and OpenCV, so the port reads and writes PNG itself:
     ``IHDR``, ``PLTE`` and ``IDAT``, checks every chunk's CRC and skips the
     ancillary chunks. Interlaced (Adam7) files and bit depths below 8
     outside palette images raise ``ValueError``.
-  - :func:`encode` (or :func:`write`) writes 8-bit gray, RGB and RGBA and
-    16-bit gray with filter 0.
+  - :func:`encode` (or :func:`write`) writes gray, RGB and RGBA at 8 and
+    16 bits (KITTI's flow maps are 16-bit RGB), every row with filter 0, or
+    with ``adaptive=True`` each row with the filter libpng's heuristic
+    picks (the least sum of the filtered bytes read as signed), as image
+    files in the wild are written.
 
 Samples come back as (H, W) for gray and (H, W, C) otherwise, uint8 or
 uint16 (big-endian in the file, native in the array): what
@@ -24,7 +27,8 @@ Filters 1-4 make each byte depend on its left, upper and upper-left
 neighbours. The decoder reconstructs all rows at once along anti-diagonals
 of (row, pixel) — every neighbour of a cell on diagonal t lies on diagonal
 t - 1 or t - 2 — so it takes H + W vectorized steps instead of H * W scalar
-ones. Rows that all use filter 0 skip that walk.
+ones, reading each diagonal's neighbours as slices of a skewed copy of the
+image. Rows that all use filter 0 skip that walk.
 """
 
 from __future__ import annotations
@@ -76,22 +80,32 @@ def _unfilter(raw: np.ndarray, height: int, row_bytes: int, bpp: int) -> np.ndar
         raise ValueError(f"PNG row filter type {int(ftype.max())} is not one of 0-4")
     if not ftype.any():
         return np.ascontiguousarray(filt)
-    # cells are pixels of bpp bytes (bytes when bpp is 1); a zero row above
-    # and a zero column on the left stand for the bytes outside the image
+    # cells are pixels of bpp bytes (bytes when bpp is 1), held along
+    # anti-diagonals: diag[t + 2, r + 1] is cell (r, x = t - r), so a cell's
+    # left neighbour is diag[t + 1, r + 1], the one above diag[t + 1, r] and
+    # the upper-left diag[t, r], all slices. Positions no cell maps to (x < 0,
+    # the row above the image, diagonals -1 and -2) stay 0, the bytes PNG
+    # puts outside the image.
     ncols = row_bytes // bpp
-    f = filt.reshape(height, ncols, bpp).astype(np.int32)
-    rec = np.zeros((height + 1, ncols + 1, bpp), np.int32)
-    kind = ftype.astype(np.int32)[:, None]
+    rr, xx = np.mgrid[:height, :ncols]
+    f = np.zeros((height + ncols - 1, height, bpp), np.int16)
+    f[rr + xx, rr] = filt.reshape(height, ncols, bpp)
+    diag = np.zeros((height + ncols + 1, height + 1, bpp), np.int16)
+    kind = ftype[:, None].astype(np.int16)
+    kinds = set(np.unique(ftype).tolist())
     for t in range(height + ncols - 1):
-        r = np.arange(max(0, t - ncols + 1), min(height - 1, t) + 1)
-        x = t - r
-        a, b, c = rec[r + 1, x], rec[r, x + 1], rec[r, x]
-        k = kind[r]
-        pred = np.where(k == 1, a, np.where(k == 2, b, np.where(k == 3, (a + b) >> 1,
-                                                                 _paeth(a, b, c))))
-        pred = np.where(k == 0, 0, pred)
-        rec[r + 1, x + 1] = (f[r, x] + pred) & 0xFF
-    return rec[1:, 1:].reshape(height, row_bytes).astype(np.uint8)
+        r0, r1 = max(0, t - ncols + 1), min(height - 1, t) + 1
+        a, b, c = diag[t + 1, r0 + 1:r1 + 1], diag[t + 1, r0:r1], diag[t, r0:r1]
+        k = kind[r0:r1]
+        pred = np.where(k == 1, a, 0)
+        if 2 in kinds:
+            pred = np.where(k == 2, b, pred)
+        if 3 in kinds:
+            pred = np.where(k == 3, (a + b) >> 1, pred)
+        if 4 in kinds:
+            pred = np.where(k == 4, _paeth(a, b, c), pred)
+        diag[t + 2, r0 + 1:r1 + 1] = (f[t, r0:r1] + pred) & 0xFF
+    return diag[rr + xx + 2, rr + 1].reshape(height, row_bytes).astype(np.uint8)
 
 
 def decode(data: bytes) -> np.ndarray:
@@ -157,26 +171,48 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
 
-def encode(image: np.ndarray) -> bytes:
-    """PNG bytes of a uint8 (H, W), (H, W, 3) or (H, W, 4) image (gray, RGB,
-    RGBA) or a uint16 (H, W) one (16-bit gray), every row with filter 0."""
+def _filter_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Each row of ``rows`` (height, row_bytes) filtered with the type that
+    gives the least sum of its bytes read as signed, ties to the lower
+    type; returns (height, 1 + row_bytes) with the type byte first."""
+    x = rows.astype(np.int32)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    cand = np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - _paeth(a, b, c)]) & 0xFF
+    cost = np.abs(cand.astype(np.uint8).view(np.int8).astype(np.int32)).sum(axis=2)
+    kind = cost.argmin(axis=0)
+    out = cand[kind, np.arange(len(x))].astype(np.uint8)
+    return np.concatenate([kind.astype(np.uint8)[:, None], out], axis=1)
+
+
+def encode(image: np.ndarray, adaptive: bool = False) -> bytes:
+    """PNG bytes of a uint8 or uint16 (H, W), (H, W, 3) or (H, W, 4) image
+    (gray, RGB, RGBA at 8 or 16 bits), every row with filter 0, or with
+    ``adaptive`` each row with the filter that suits it best (see
+    :func:`_filter_rows`)."""
     a = np.asarray(image)
-    if a.dtype == np.uint16 and a.ndim == 2:
-        depth, ctype, rows = 16, 0, a.astype(">u2").view(np.uint8)
-    elif a.dtype == np.uint8 and (a.ndim == 2 or (a.ndim == 3 and a.shape[2] in (3, 4))):
-        depth, ctype = 8, 0 if a.ndim == 2 else {3: 2, 4: 6}[a.shape[2]]
-        rows = a.reshape(a.shape[0], -1)
-    else:
-        raise ValueError(f"encode takes uint8 gray/RGB/RGBA or uint16 gray, got {a.dtype} "
+    if a.dtype not in (np.uint8, np.uint16) or not (
+            a.ndim == 2 or (a.ndim == 3 and a.shape[2] in (3, 4))):
+        raise ValueError(f"encode takes uint8 or uint16 gray/RGB/RGBA, got {a.dtype} "
                          f"{a.shape}")
+    depth = 8 * a.dtype.itemsize
+    ctype = 0 if a.ndim == 2 else {3: 2, 4: 6}[a.shape[2]]
     height, width = a.shape[:2]
-    raw = np.concatenate([np.zeros((height, 1), np.uint8), rows.reshape(height, -1)], axis=1)
+    rows = a.astype(a.dtype.newbyteorder(">")).view(np.uint8).reshape(height, -1)
+    if adaptive:
+        raw = _filter_rows(rows, _CHANNELS[ctype] * depth // 8)
+    else:
+        raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
     return (_SIGNATURE
             + _chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth, ctype, 0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(np.ascontiguousarray(raw).tobytes()))
             + _chunk(b"IEND", b""))
 
 
-def write(path, image: np.ndarray) -> None:
+def write(path, image: np.ndarray, adaptive: bool = False) -> None:
     """Write :func:`encode` of ``image`` to ``path``."""
-    Path(path).write_bytes(encode(image))
+    Path(path).write_bytes(encode(image, adaptive))

@@ -8,12 +8,14 @@ need PIL, imported where such a file is read: without it that read raises
 ``ImportError`` naming the file. :func:`read_gen` returns numpy arrays where
 the JAX reader returns a ``PIL.Image``.
 
-The training-only readers (Sintel, FallingThings, TartanAir, KITTI flow)
-come with the training data layer (ROADMAP.md Queue 1 item 6b).
+The training readers (KITTI flow, Sintel, FallingThings, TartanAir) read
+their PNG files the same way: :func:`png.read` gives 16-bit RGB in RGB order,
+where the JAX package's ``cv2.imread`` gives BGR and flips it.
 """
 
 from __future__ import annotations
 
+import json
 import re
 from os.path import basename, exists, splitext
 
@@ -66,10 +68,56 @@ def readFlow(path: str) -> np.ndarray:
     return data.reshape(h, w, 2)
 
 
+def readFlowKITTI(path: str):
+    """16-bit KITTI flow png: (v - 2^15) / 64 and the validity channel
+    (frame_utils.py:145-150)."""
+    flow = png.read(path)[:, :, :3].astype(np.float32)
+    flow, valid = flow[:, :, :2], flow[:, :, 2]
+    flow = (flow - 2**15) / 64.0
+    return flow, valid
+
+
+def writeFlowKITTI(path: str, uv: np.ndarray) -> None:
+    """frame_utils.py:198-202: (64 uv + 2^15, 1) as a 16-bit RGB png."""
+    uv = 64.0 * uv + 2**15
+    valid = np.ones([uv.shape[0], uv.shape[1], 1])
+    png.write(path, np.concatenate([uv, valid], axis=-1).astype(np.uint16))
+
+
 def readDispKITTI(path: str):
     """16-bit disparity png / 256 (frame_utils.py:152-155)."""
     disp = png.read(path) / 256.0
     return disp, disp > 0.0
+
+
+def readDispSintelStereo(path: str):
+    """RGB-packed disparity and the occlusion mask beside it
+    (frame_utils.py:158-164). The reference computes ``d_r * 4`` on the raw
+    uint8 channel, which wraps modulo 256 for disparities of 256 px and more
+    (70 * 4 -> 24); decoded in float here, as in the JAX package."""
+    a = png.read(path).astype(np.float32)
+    d_r, d_g, d_b = np.split(a, axis=2, indices_or_sections=3)
+    disp = (d_r * 4 + d_g / (2**6) + d_b / (2**14))[..., 0]
+    mask = png.read(path.replace("disparities", "occlusions"))
+    return disp, (mask == 0) & (disp > 0)
+
+
+def readDispFallingThings(path: str):
+    """fx * baseline (6 cm, x 100) / depth, the depth a 16-bit png and fx
+    from the camera json beside it (frame_utils.py:167-174)."""
+    a = png.read(path)
+    with open("/".join(path.split("/")[:-1] + ["_camera_settings.json"])) as f:
+        intrinsics = json.load(f)
+    fx = intrinsics["camera_settings"][0]["intrinsic_settings"]["fx"]
+    disp = (fx * 6.0 * 100) / a.astype(np.float32)
+    return disp, disp > 0
+
+
+def readDispTartanAir(path: str):
+    """80 / depth from the .npy depth (frame_utils.py:177-181)."""
+    depth = np.load(path)
+    disp = 80.0 / depth
+    return disp, disp > 0
 
 
 def readDispMiddlebury(path: str):

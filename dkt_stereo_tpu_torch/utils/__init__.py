@@ -3,3 +3,4 @@ from dkt_stereo_tpu_torch.utils.visualization import (
     disp_to_color,
     epe_on_depth,
 )
+from dkt_stereo_tpu_torch.utils.logging import Logger, save_images, save_scalars

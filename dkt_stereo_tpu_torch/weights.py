@@ -150,13 +150,18 @@ def dkt_state_from_flax(state) -> dict:
     }
 
 
+def reference_state_dict(path) -> dict:
+    """A reference-format ``.pth`` as a plain state dict: nested under
+    ``state_dict`` or not, DataParallel ``module.`` prefixes removed."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in state:
+        state = state["state_dict"]
+    return {k.removeprefix("module."): v for k, v in state.items()}
+
+
 def load_reference_pth(model: torch.nn.Module, path) -> torch.nn.Module:
     """Load a reference-format checkpoint (a state dict, possibly nested
     under ``state_dict`` and with DataParallel ``module.`` prefixes) with a
     strict ``load_state_dict``."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    if "state_dict" in state:
-        state = state["state_dict"]
-    state = {k.removeprefix("module."): v for k, v in state.items()}
-    model.load_state_dict(state, strict=True)
+    model.load_state_dict(reference_state_dict(path), strict=True)
     return model

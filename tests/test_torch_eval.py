@@ -377,21 +377,25 @@ def test_eval_and_demo_cli_match_jax(cli_setup, monkeypatch):
 
 def test_cli_refusals(cli_setup, tmp_path):
     """What the slice does not port raises and names where it comes: a
-    non-.pth checkpoint (the JAX package's export, and item 6b),
-    ``--spatial_bands 2`` (item 11), augmentation parameters (item 6b)."""
+    checkpoint path that is neither a ``.pth`` nor a port checkpoint,
+    ``--spatial_bands 2`` (item 11), NeRF-Stereo's dataset (item 10). The
+    training datasets the training side ported build: augmented samples
+    and Scene Flow's training splits."""
     from dkt_stereo_tpu_torch.cli.eval import main as port_eval
+    from dkt_stereo_tpu_torch.data.datasets import fetch_dataset
 
     tmp, cfg, ckpt = cli_setup
     base = ["--config", str(cfg), "--valid_iters", "2", "--datasets", "kitti-2015",
             "--data_root", str(tmp)]
-    with pytest.raises(ValueError, match="dkt_stereo_tpu.cli.export.*Queue 1 item 6b"):
+    with pytest.raises(FileNotFoundError, match="neither a port checkpoint"):
         port_eval(base + ["--restore_ckpt", str(tmp / "step_3")], device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         port_eval(base + ["--restore_ckpt", str(ckpt), "--spatial_bands", "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-        KITTI({"crop_size": (32, 64)}, root=str(tmp / "KITTI"), split="2015")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-        SceneFlowDatasets(None, root=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        fetch_dataset(["nerf_stereo"], (32, 64), data_root=str(tmp))
+    kitti = KITTI({"crop_size": (32, 64)}, root=str(tmp / "KITTI"), split="2015")
+    assert kitti.get_sample(0, np.random.default_rng(0))["img1"].shape == (32, 64, 3)
+    assert len(SceneFlowDatasets(None, root=str(tmp_path))) == 0
 
 
 def test_entry_points_want_the_gpu(cli_setup):
