@@ -197,6 +197,29 @@ out-of-tolerance result raises and exits non-zero:
      of its own, chiprun_out/chip_smoke_fused_train_profile.txt),
      alt_pallas.json as shipped (80 K3, 12 K2, 4 adjoint; 1 + 3 steps) and
      pallas.json as shipped (80 K1, 16 K1 bwd, 12 K2, 4 adjoint; one step);
+28a. GWCNet and CGI-Stereo parity: configs/gwcnet/base_g.json, base_gc.json
+     and configs/cgi/base.json, the card vs the CPU from the same seeded
+     weights, fp32 with TF32 off, 1x256x512, maxdisp 192 (GWCNet's batch
+     norms calibrated: shifts 1, running statistics moved toward the pair's
+     own by the port's train_bn update): GWCNet's disparity within 5e-2 px;
+     CGI's pre-regression cost within 5e-4, its disparity's p90 within 1e-4
+     px and its max below 4 px + 1e-3 (top-2 tie flips); no port kernel
+     launched (neither model has one);
+28b. the three as shipped (bf16), B=1, 736x1280 (the JAX zoo bench's
+     geometry), seeded random weights, through make_forward_fn/_run_one: 1
+     warm-up and 20 timed frames, peak memory and a profile of one frame
+     each (chiprun_out/chip_smoke_{gwc_g,gwc_gc,cgi}_profile.txt);
+28c. one DKT step of base_gc.json and of cgi/base.json, card vs CPU, fp32,
+     TF32 off, 1x64x128, same weights, batch and draws: losses within 1e-3
+     relative, gradients by module within 0.1 relative L2 (0.05 over all),
+     or twice the CPU's own chaos floor from a 1e-5 weight nudge;
+28d. the DKT step as shipped (bf16, frozen BN) at B=8: base_gc.json at the
+     CLI's 320x720, cgi/base.json at 320x736 (its hourglass, like IGEV's,
+     needs multiples of 32): 1 warm-up and 5 timed steps with the device
+     time of each part, ok on every step, every student tensor with a
+     gradient moved, the teacher and BN statistics bit-identical, peak
+     memory and a profile of one step
+     (chiprun_out/chip_smoke_{gwc_gc,cgi}_train_profile.txt);
  29. the eval path: a synthetic KITTI-2015 tree of 56 frames at KITTI's
      375x1242 written with data/png.py (shifted pairs, uint16 disp_occ_0
      maps with invalid pixels) and a seeded random RAFT .pth written with
@@ -209,7 +232,9 @@ out-of-tolerance result raises and exits non-zero:
      within 5e-3 px of 3 px);
  30. IGEV pallas.json and PCVNet base.json through cli.eval.main, seeded
      random .pth files, one frame, 32 iterations: finite metrics, exactly
-     32 K4 and 32 K5 launches;
+     32 K4 and 32 K5 launches; GWCNet base_gc.json and CGI base.json on the
+     same frame from a .pth through cli.export's round trip (the seeded
+     .pth into a port checkpoint and back, bit for bit), no port kernel;
  31. cli.demo.main on 2 pairs with --save_numpy --save_ply (base.json, 32
      iterations): the PNG decodes to disp_to_color of the .npy, the .npy is
      -1 x the eval forward's output on the card within 1e-3 px, the PLY
@@ -246,9 +271,10 @@ The training side (phases 33-35, in the same temporary directory), then the
      the validators' keys; exactly 96 K1 and 16 K1-backward launches a
      step (the subprocess's counters are its own and not read);
  35. IGEV's ft_kitti.sh stage 1 (kitti_mix on phase 29's KITTI tree, batch
-     4, 320x736) and PCVNet base.json on the Scene Flow tree (batch 8,
-     320x720) through cli.train, 4 loader workers, 3 steps each: exactly 96 K4 and 16 dgeo,
-     and 80 K5 and 16 K5-backward launches a step; ms/step, wait, peak.
+     4, 320x736), and PCVNet base.json, GWCNet base_gc.json (both 320x720)
+     and CGI base.json (320x736) on the Scene Flow tree at batch 8, through
+     cli.train, 4 loader workers, 3 steps each: exactly 96 K4 and 16 dgeo,
+     80 K5 and 16 K5-backward, and no launch a step; ms/step, wait, peak.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
@@ -3244,6 +3270,262 @@ def phase_fused_train(torch, train_cfg, alt_cfg, pallas_cfg, card, unfused_ms):
     return paths
 
 
+GWC_CGI = (("gwc_g", "configs/gwcnet/base_g.json"), ("gwc_gc", "configs/gwcnet/base_gc.json"),
+           ("cgi", "configs/cgi/base.json"))
+GWC_CGI_TRAIN = GWC_CGI[1:]
+# the training crops: the CLI's default 320x720 for GWCNet; CGI's hourglass,
+# as IGEV's, needs multiples of 32 (320x720 fails in the JAX model too)
+GWC_CGI_CROP = {"gwc_gc": TRAIN_IMAGE, "cgi": IGEV_TRAIN_IMAGE}
+# the modules the reference builds and CGI's forward never runs
+# (dkt_stereo_tpu_torch/weights.py): no gradient, moved by AdamW's decay only
+CGI_UNUSED = ("feature.deconv32_16.", "hourglass_fusion.conv1_up.bn.")
+
+
+def _config(path):
+    return json.loads((ROOT / path).read_text())
+
+
+def calibrate_gwc(torch, model, img1, img2, rounds):
+    """GWCNet's batch norms made non-degenerate, as in the CPU tests
+    (tests/test_torch_gwcnet.py): every shift set to 1, then the running
+    statistics moved toward the images' own by the port's ``train_bn``
+    update (flax's momentum 0.9), ``rounds`` times. With unit statistics
+    and random weights the trunk's features grow until the softmax over
+    disparity is one-hot: the gradients vanish, and fp32 reordering flips
+    whole bins. ``img1``/``img2``: NHWC in [0, 255] on the model's device."""
+    import dataclasses
+
+    from dkt_stereo_tpu_torch.models.gwcnet import GWCNet
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d)):
+                m.bias.fill_(1.0)
+    updating = GWCNet(dataclasses.replace(model.cfg, train_bn=True), test_mode=False)
+    updating.load_state_dict(model.state_dict())
+    updating.to(img1.device).train()
+    with torch.no_grad():
+        for _ in range(rounds):
+            updating(img1, img2)
+    model.load_state_dict(updating.state_dict())
+    return model
+
+
+def phase_gwc_parity(torch):
+    """Phase 28a: GWCNet base_g and base_gc and CGI-Stereo base.json, the
+    card vs the CPU from the same seeded weights, fp32 with TF32 off,
+    1x256x512, maxdisp 192; GWCNet's batch norms calibrated on the card
+    (``calibrate_gwc``, 30 rounds on this pair). No kernel of the port is on
+    either model's path: every launch counter must stay 0."""
+    from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
+    from dkt_stereo_tpu_torch.models.registry import create_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(30)
+    img1, img2 = (rng.uniform(0, 255, (256, 512, 3)).astype(np.float32) for _ in range(2))
+    for name, path in GWC_CGI:
+        gpu = create_model({**_config(path), "mixed_precision": False}, device="cuda", seed=0)
+        if name != "cgi":
+            calibrate_gwc(torch, gpu, *(torch.tensor(x, device="cuda")[None] for x in (img1, img2)),
+                          rounds=30)
+        cpu = copy.deepcopy(gpu).to("cpu")
+        costs = {}
+        if name == "cgi":
+            for dev, m in (("cuda", gpu), ("cpu", cpu)):
+                m.hourglass_fusion.register_forward_hook(
+                    lambda mod, i, o, d=dev: costs.__setitem__(d, o[:, 0].float().cpu().numpy()))
+        zero_counts()
+        d_gpu, _ = _run_one(make_forward_fn(gpu, device="cuda"), img1, img2)
+        launches = kernel_counts()
+        t0 = time.perf_counter()
+        d_cpu, _ = _run_one(make_forward_fn(cpu, device="cpu"), img1, img2)
+        cpu_s = time.perf_counter() - t0
+        check(not any(launches.values()), f"{name} parity launched port kernels: {launches}")
+        check(d_gpu.shape == d_cpu.shape == (256, 512) and np.isfinite(d_gpu).all(),
+              f"{name} parity: shape {d_gpu.shape} or non-finite")
+        diff = np.abs(d_gpu - d_cpu)
+        head = (f"{name} parity ({path}, fp32, TF32 off, 1x256x512, maxdisp 192), card vs CPU: "
+                f"disp max_abs {diff.max():.3e} px, p90 {np.percentile(diff, 90):.3e}, max "
+                f"|disp| {np.abs(d_cpu).max():.1f} px")
+        if name == "cgi":
+            cerr = float(np.abs(costs["cuda"] - costs["cpu"]).max())
+            scale = float(np.abs(costs["cpu"]).max())
+            print(f"{head} | pre-regression cost max_abs {cerr:.3e} (scale {scale:.3e}; tol "
+                  f"5e-4, tests/test_cgi_parity.py:82-83) | disparity by the tie-flip rule: p90 "
+                  f"<= 1e-4, max < 4 px + 1e-3 | CPU forward {cpu_s:.1f} s")
+            check(cerr <= 5e-4, f"CGI cost {cerr} > 5e-4")
+            check(np.percentile(diff, 90) <= 1e-4 and diff.max() < 4 + 1e-3,
+                  f"CGI disparity outside the tie-flip rule: {diff.max()}")
+        else:
+            frac = np.abs(d_cpu - np.round(d_cpu))
+            print(f"{head} (tol 5e-2 px, tests/test_gwcnet.py:165) | the soft-argmin's distance "
+                  f"to the nearest bin: mean {frac.mean():.3f} px | CPU forward {cpu_s:.1f} s")
+            check(diff.max() <= 5e-2, f"{name} parity {diff.max()} > 5e-2")
+        del gpu, cpu
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_gwc_main(torch, card):
+    """Phase 28b: the three configs as shipped (bf16), B=1, 736x1280 (the JAX
+    zoo bench's geometry), seeded random weights, through
+    make_forward_fn/_run_one: 1 warm-up and MAIN_FRAMES timed frames, no
+    port kernel launched, peak memory and a profile of one frame."""
+    from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
+    from dkt_stereo_tpu_torch.models.registry import create_model
+
+    rng = np.random.default_rng(31)
+    img1, img2 = (rng.uniform(0, 255, (736, 1280, 3)).astype(np.float32) for _ in range(2))
+    paths = {}
+    for name, path in GWC_CGI:
+        forward = make_forward_fn(create_model(_config(path), seed=0))
+        _run_one(forward, img1, img2)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        times = []
+        for _ in range(MAIN_FRAMES):
+            disp, dt = _run_one(forward, img1, img2)
+            times.append(dt)
+        launches = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(disp.shape == (736, 1280) and bool(np.isfinite(disp).all()),
+              f"{name}: disparity {disp.shape} or non-finite")
+        check(not any(launches.values()), f"{name} launched port kernels: {launches}")
+        ms = 1e3 * np.asarray(times)
+        print(f"{name} main path ({path} as shipped, bf16, 1x736x1280, {MAIN_FRAMES} frames): "
+              f"ms/frame median {np.median(ms):.2f} mean {ms.mean():.2f} min {ms.min():.2f} max "
+              f"{ms.max():.2f} | frames/s {1e3 / ms.mean():.3f} | peak mem {peak:.2f} GiB | disp "
+              f"range [{disp.min():.2f}, {disp.max():.2f}] | {card}")
+        wall, busy, lines, buckets = device_profile(
+            torch, lambda: _run_one(forward, img1, img2)[1], f"chip_smoke_{name}_profile.txt")
+        print(f"profile of one {name} frame (profiler on): wall {wall:.2f} ms, kernels "
+              f"{busy:.2f} ms, device idle share {1 - busy / wall:.3f}; by bucket: {buckets}; "
+              "top kernels:")
+        for line in lines[:8]:
+            print("  " + line[:160])
+        paths[f"{name}_inference"] = launches
+        del forward
+        torch.cuda.empty_cache()
+    return paths
+
+
+def phase_gwc_train_parity(torch):
+    """Phase 28c: one DKT step of GWCNet base_gc and of CGI base.json on the
+    card vs the CPU, from the same weights, batch and draws, fp32 with TF32
+    off, 1x64x128, maxdisp 192 (GWCNet's batch norms calibrated on the
+    batch's clean pair); losses and gradients by module, with the CPU's
+    chaos floor from a 1e-5 weight nudge."""
+    from dkt_stereo_tpu_torch.train.dkt_step import (
+        create_dkt_state, fande_draws, make_dkt_train_step)
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hyper = DKTHyperParams()
+    for name, path in GWC_CGI_TRAIN:
+        cfg = {**_config(path), "mixed_precision": False}
+        gen = torch.Generator().manual_seed(32)
+        batch = _train_batch(torch, gen, 1, 64, 128, "cpu")
+        draws = fande_draws(1, "cpu", gen)
+        seed_state = create_dkt_state(cfg, hyper, seed=0, device="cuda")
+        if name != "cgi":
+            calibrate_gwc(torch, seed_state.student, batch["img1_clean"].cuda(),
+                          batch["img2_clean"].cuda(), rounds=30)
+        params = seed_state.student.state_dict()
+        to_cpu = {k: v.to("cpu", copy=True) for k, v in params.items()}
+        gpu = create_dkt_state(cfg, hyper, params=params, device="cuda")
+        cpu = create_dkt_state(cfg, hyper, params=to_cpu, device="cpu")
+        del seed_state
+        step = make_dkt_train_step(cfg, hyper)
+        zero_counts()
+        gpu, m_gpu = step(gpu, {k: v.cuda() for k, v in batch.items()},
+                          draws={k: v.cuda() for k, v in draws.items()})
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        cpu, m_cpu = step(cpu, batch, draws=draws)
+        noise = torch.Generator().manual_seed(7)
+        nudged = {k: v * (1 + 1e-5 * torch.randn(v.shape, generator=noise))
+                  if v.is_floating_point() else v for k, v in to_cpu.items()}
+        cpu2, _ = step(create_dkt_state(cfg, hyper, params=nudged, device="cpu"), batch,
+                       draws=draws)
+        check(m_gpu["ok"] == m_cpu["ok"] == 1.0, f"{name} ok gpu {m_gpu['ok']} cpu {m_cpu['ok']}")
+        check(not any(launches.values()), f"{name} step launched port kernels: {launches}")
+        loss_err = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+                    for k in ("loss", "loss_GT", "loss_PL")}
+        for k, e in loss_err.items():
+            check(e <= 1e-3, f"{name} train parity {k}: relative {e} > 1e-3")
+        want_grads = dict(cpu.student.named_parameters())
+        rel = _grad_rel(gpu.student.named_parameters(), want_grads)
+        floor = _grad_rel(cpu2.student.named_parameters(), want_grads)
+        # IGEV's bounds (phase 14), or twice the CPU's own floor where fp32
+        # reordering alone comes near them (phase 12's rule)
+        tol = {g: max(0.05 if g == "all" else 0.1, 2 * floor[g]) for g in rel}
+        for g, e in rel.items():
+            check(e <= tol[g], f"{name} train parity gradient of {g}: {e} > {tol[g]}")
+        print(f"{name} train-step parity ({path}, fp32, TF32 off, 1x64x128), card vs CPU: loss "
+              f"{m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f}, relative errors "
+              + " ".join(f"{k} {e:.2e}" for k, e in loss_err.items()) + " (tol 1e-3) | gradient "
+              "relative L2 error by module " + " ".join(f"{g} {e:.2e}" for g, e in rel.items())
+              + " (tol 0.1 per module, 0.05 all, or twice the chaos floor on the CPU from a "
+              "1e-5 weight nudge: " + " ".join(f"{g} {e:.2e}" for g, e in floor.items()) + ")")
+        del gpu, cpu, cpu2
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_gwc_train(torch, card):
+    """Phase 28d: the DKT step of GWCNet base_gc and CGI base.json as shipped
+    (bf16, frozen batch norm) at B=8, 320x720, the CLI's default crop (CGI
+    320x736, ``GWC_CGI_CROP``): 1 warm-up and TRAIN_STEPS timed steps with
+    the device time of each part, no port kernel launched, every student
+    tensor with a gradient moved, the teacher and the BN statistics
+    bit-identical, peak memory and a profile of one step. GWCNet's batch
+    norms are calibrated on a batch first (``calibrate_gwc``, 10 rounds),
+    so that its gradients do not vanish."""
+    from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    hyper = DKTHyperParams()
+    paths = {}
+    for name, path in GWC_CGI_TRAIN:
+        B, H, W = GWC_CGI_CROP[name]
+        cfg = _config(path)
+        gen = torch.Generator(device="cuda").manual_seed(33)
+        state = create_dkt_state(cfg, hyper, seed=0)
+        if name != "cgi":
+            b = _train_batch(torch, gen, B, H, W, "cuda")
+            calibrate_gwc(torch, state.student, b["img1_clean"], b["img2_clean"], rounds=10)
+            state = create_dkt_state(cfg, hyper, params=state.student.state_dict())
+        step = make_dkt_train_step(cfg, hyper)
+        before = snapshot(state, name)
+        state, run = timed_steps(torch, state, step, gen, (B, H, W), name)
+        check(all(not any(c.values()) for c in run["per_step"]),
+              f"{name} steps launched port kernels: {run['per_step']}")
+        unused = CGI_UNUSED if name == "cgi" else ()
+        params = dict(state.student.named_parameters())
+        graded = [k for k in params if not k.startswith(unused)]
+        moment = {k: float(state.optimizer.state[params[k]]["exp_avg"].abs().max())
+                  for k in params}
+        check(all(moment[k] > 0 for k in graded),
+              f"{name} tensors without gradient: {[k for k in graded if moment[k] == 0][:5]}")
+        check(all(moment[k] == 0 for k in params if k not in graded),
+              f"{name}: a module the reference never runs got a gradient")
+        still = [k for k in graded if torch.equal(params[k], before["student"][k])]
+        check(all(moment[k] < 1e-8 for k in still),
+              f"{name} tensors with a gradient that did not move: "
+              f"{[(k, moment[k]) for k in still if moment[k] >= 1e-8][:5]}")
+        check_moved_and_frozen(torch, state, before, name, moved=False)
+        print(f"{name} training path ({path} as shipped, bf16, frozen BN, B={B} {H}x{W}, "
+              f"{TRAIN_STEPS} steps after 1 warm-up): {step_line(run)} | epe "
+              + ", ".join(f"{x['epe']:.3f}" for x in run["metrics"]) + f" | {len(graded)} "
+              f"student tensors with a gradient, {len(graded) - len(still)} moved | {card}")
+        profile_step(torch, state, step, gen, (B, H, W), run["ms"].mean(),
+                     f"chip_smoke_{name}_train_profile.txt", f"{name} training")
+        paths[f"{name}_training"] = run["launches"]
+        del state, step
+        torch.cuda.empty_cache()
+    return paths
+
 
 KITTI_IMAGE = (375, 1242)  # KITTI 2015's own frame size
 KITTI_FRAMES = 56  # the validator's 51 warm-up frames and 5 timed ones
@@ -3443,32 +3725,56 @@ def phase_eval(torch, card, tmp):
 
 
 def phase_eval_models(torch, card, tmp, data):
-    """IGEV pallas.json and PCVNet base.json through ``cli.eval.main`` on
-    one frame of the KITTI tree, 32 iterations, on the card: finite
-    metrics, exact K4 and K5 launches."""
+    """Phase 30: IGEV pallas.json and PCVNet base.json through
+    ``cli.eval.main`` on one frame of the KITTI tree, 32 iterations, on the
+    card: finite metrics, exact K4 and K5 launches; then GWCNet base_gc.json
+    and CGI base.json (no port kernel) from a reference-format .pth that
+    went through ``cli.export``'s round trip: the seeded .pth into a port
+    checkpoint (``create_dkt_state`` + ``save_checkpoint``) and back out
+    with itself as the template, bit for bit."""
     from dkt_stereo_tpu_torch.cli.config import load_model_config
     from dkt_stereo_tpu_torch.cli.eval import main as eval_main
+    from dkt_stereo_tpu_torch.cli.export import main as export_main
+    from dkt_stereo_tpu_torch.train.checkpoint import save_checkpoint
+    from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
 
     one = kitti_subset(data, tmp / "data1", 1)
     paths = {}
     for name, config, kernel in (("igev", "configs/igev_stereo/pallas.json", "geo_lookup"),
-                                 ("pcv", "configs/pcvnet/base.json", "gaussian_row_sample")):
+                                 ("pcv", "configs/pcvnet/base.json", "gaussian_row_sample"),
+                                 ("gwc_gc", "configs/gwcnet/base_gc.json", None),
+                                 ("cgi", "configs/cgi/base.json", None)):
         cfg = str(ROOT / config)
         pth = seeded_pth(torch, load_model_config(cfg), tmp / f"{name}.pth")
+        note = ""
+        if kernel is None:
+            seeded = torch.load(pth, map_location="cpu", weights_only=True)
+            state = create_dkt_state(load_model_config(cfg), DKTHyperParams(), params=seeded,
+                                     device="cpu")
+            ckpt = save_checkpoint(tmp / f"{name}_run", state)
+            exported = tmp / f"{name}_exported.pth"
+            export_main(["--restore_ckpt", ckpt, "--template", pth, "--out", str(exported)])
+            _equal_tree(torch, torch.load(exported, map_location="cpu", weights_only=True), seeded,
+                        f"{name} export round trip")
+            pth, note = str(exported), f" from cli.export's round trip ({len(seeded)} tensors)"
+            del state
         zero_counts()
         t0 = time.perf_counter()
         res = eval_main(["--config", cfg, "--restore_ckpt", pth, "--valid_iters",
                          str(EVAL_ITERS), "--datasets", "kitti-2015", "--data_root", str(one)])
         secs = time.perf_counter() - t0
         launches = kernel_counts()
-        want = {**dict.fromkeys(launches, 0), kernel: EVAL_ITERS}
+        want = {**dict.fromkeys(launches, 0), **({kernel: EVAL_ITERS} if kernel else {})}
         check(launches == want, f"eval {name} launch counts {launches} != {want}")
         check(all(np.isfinite(v) for v in res.values()), f"eval {name}: {res}")
         paths[f"eval_{name}"] = launches
+        iters = f"{EVAL_ITERS} iters, " if kernel else ""
         print(f"eval path (cli.eval, {config} fp32, 1 frame {KITTI_IMAGE[0]}x{KITTI_IMAGE[1]}, "
-              f"{EVAL_ITERS} iters, seeded random weights): EPE {res['kitti-2015-epe']:.3f} px "
-              f"D1 {res['kitti-2015-d1']:.2f} % | {kernel} launches {launches[kernel]} | "
-              f"{secs:.1f} s with the model's build | {card}", flush=True)
+              f"{iters}seeded random weights{note}): EPE {res['kitti-2015-epe']:.3f} px "
+              f"D1 {res['kitti-2015-d1']:.2f} % | {kernel or 'no port kernel'} launches "
+              f"{launches[kernel] if kernel else sum(launches.values())} | {secs:.1f} s with the "
+              f"model's build | {card}", flush=True)
     return paths
 
 
@@ -3953,9 +4259,10 @@ def phase_booster_recipe(torch, tmp, data, card):
 def phase_train_models(torch, kitti, data, card):
     """Phase 35: run_scripts/igev/ft_kitti.sh's stage 1 (IGEV train.json,
     kitti_mix on the KITTI tree, batch 4, 320x736, EMA 0.99) and PCVNet
-    base.json on Scene Flow at batch 8, 320x720, through cli.train from
-    seeded random .pth files, 4 loader workers, 3 steps each: exactly 96 K4
-    and 16 dgeo, and 80 K5 and 16 K5-backward launches a step."""
+    base.json, GWCNet base_gc.json and CGI base.json on Scene Flow at batch
+    8, 320x720 (CGI 320x736), through cli.train from seeded random .pth files, 4 loader
+    workers, 3 steps each: exactly 96 K4 and 16 dgeo, and 80 K5 and 16
+    K5-backward launches a step, none for GWCNet and CGI."""
     from dkt_stereo_tpu_torch.cli.config import load_model_config
 
     paths = {}
@@ -3968,7 +4275,11 @@ def phase_train_models(torch, kitti, data, card):
             ("pcv", "configs/pcvnet/base.json",
              ["--train_datasets", "sceneflow", "--data_root", str(data), "--batch_size", "8",
               "--image_size", "320", "720", "--num_workers", TRAIN_WORKERS],
-             {"gaussian_row_sample": 80, "gaussian_row_sample_bwd": 16})):
+             {"gaussian_row_sample": 80, "gaussian_row_sample_bwd": 16}),
+            *((name, path, ["--train_datasets", "sceneflow", "--data_root", str(data),
+                            "--batch_size", "8", "--image_size",
+                            *(str(x) for x in GWC_CGI_CROP[name][1:]), "--num_workers",
+                            TRAIN_WORKERS], {}) for name, path in GWC_CGI_TRAIN)):
         cfg = str(ROOT / config)
         pth = seeded_pth(torch, load_model_config(cfg), Path(data).parent / f"{name}_train.pth")
         argv = ["--config", cfg, *extra, "--num_steps", "2", "--validation_frequency",
@@ -4058,6 +4369,11 @@ def run():
                         "encoder_stage_bwd": 4})
     fused_paths = phase_fused_train(torch, train_cfg, alt_cfg, config, card, unfused_ms)
 
+    phase_gwc_parity(torch)
+    gwc_paths = phase_gwc_main(torch, card)
+    phase_gwc_train_parity(torch)
+    gwc_paths.update(phase_gwc_train(torch, card))
+
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
@@ -4078,6 +4394,7 @@ def run():
                    "pcv_fast_inference": pcv_fast.get(name, 0),
                    "pcv_training": pcv_train.get(name, 0),
                    **{path: c.get(name, 0) for path, c in fused_paths.items()},
+                   **{path: c.get(name, 0) for path, c in gwc_paths.items()},
                    **{path: c.get(name, 0) for path, c in eval_paths.items()}}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 

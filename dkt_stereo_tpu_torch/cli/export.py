@@ -15,8 +15,10 @@ shape and dtype must match. The template's ``state_dict`` nesting, its other
 entries and its ``module.`` prefixes are kept. Its tensors pass through
 verbatim where the port holds no state of its own, as the JAX package's
 ``export_reference_pth`` passes them (train/checkpoint.py:382-415): the
-``num_batches_tracked`` counters (the port's batch norms are frozen) and
-the batch norms the reference creates and never runs (``conv1_up.bn``).
+``num_batches_tracked`` counters (the port's batch norms are frozen), the
+batch norms the reference creates and never runs (``conv1_up.bn``) and
+CGI-Stereo's never-run ``feature.deconv32_16`` (a CGI state is told apart
+by its ``feature_up``; IGEV's ``feature.deconv32_16`` runs).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from dkt_stereo_tpu_torch.train.checkpoint import restore_variables
 
 _PASS_THROUGH = re.compile(r"num_batches_tracked$|(^|\.)conv1_up\.bn\.")
+_CGI_UNUSED = re.compile(r"^feature\.deconv32_16\.")
 
 
 def parse_args(argv=None):
@@ -53,13 +56,15 @@ def export_reference_pth(state: dict, template, path) -> dict:
             f"the checkpoint's keys differ from the template's: only in the checkpoint "
             f"{sorted(set(state) - set(bare))[:10]}, only in the template "
             f"{sorted(set(bare) - set(state))[:10]}")
+    cgi = any(k.startswith("feature_up.") for k in state)
     out = {}
     for name, key in bare.items():
         want, value = inner[key], state[name]
         if value.shape != want.shape or value.dtype != want.dtype:
             raise ValueError(f"{key}: checkpoint {tuple(value.shape)} {value.dtype} != template "
                              f"{tuple(want.shape)} {want.dtype}")
-        out[key] = want if _PASS_THROUGH.search(name) else value.detach().cpu().clone()
+        keep = _PASS_THROUGH.search(name) or (cgi and _CGI_UNUSED.search(name))
+        out[key] = want if keep else value.detach().cpu().clone()
     full = {**tmpl, "state_dict": out} if "state_dict" in tmpl else out
     torch.save(full, path)
     return full

@@ -82,8 +82,9 @@ def parse_args(argv=None):
         "and schedule included, overrides --restore_ckpt)",
     )
     p.add_argument("--pretrained_backbone", default=None,
-                   help="raw timm mobilenetv2_100 checkpoint (.pth/.npz) for IGEV's trunk "
-                        "(the reference's timm pretrained=True, extractor.py:330); applied "
+                   help="raw timm mobilenetv2_100 checkpoint (.pth/.npz) for IGEV's or CGI's "
+                        "trunk (the reference's timm pretrained=True, igev_stereo/extractor.py:330, "
+                        "cgi/CGI_Stereo.py:44); applied "
                         "when no --restore_ckpt is given")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--train_datasets", nargs="+", default=["sceneflow"])

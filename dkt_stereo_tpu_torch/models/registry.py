@@ -2,18 +2,23 @@
 (``dkt_stereo_tpu/models/registry.py``), the model factory and the loss
 adapter of the DKT step.
 
-RAFTStereo, IGEVStereo and PCVNet are ported in test and train mode, with
-their ``sequence_loss_raft``, ``sequence_loss_igev`` and
-``sequence_loss_pcvnet``; the other names of the JAX registries raise
-naming their ROADMAP.md queue entry."""
+The five model families of the JAX registry are ported in test and train
+mode: RAFTStereo, IGEVStereo, PCVNet, GWCNet and CGI_Stereo, with their
+``sequence_loss_raft``, ``sequence_loss_igev``, ``sequence_loss_pcvnet``,
+``loss_gwcnet`` and ``loss_cgi``. ``ns_loss`` raises naming its ROADMAP.md
+queue entry."""
 
 from __future__ import annotations
 
 import torch
 
 from dkt_stereo_tpu_torch.device import resolve_device
+from dkt_stereo_tpu_torch.losses.cgi import loss_cgi
+from dkt_stereo_tpu_torch.losses.gwc import loss_gwcnet
 from dkt_stereo_tpu_torch.losses.pcv import sequence_loss_pcvnet
 from dkt_stereo_tpu_torch.losses.sequence import sequence_loss_igev, sequence_loss_raft
+from dkt_stereo_tpu_torch.models.cgi_stereo import CGIStereo, CGIStereoConfig
+from dkt_stereo_tpu_torch.models.gwcnet import GWCNet, GWCNetConfig
 from dkt_stereo_tpu_torch.models.igev_stereo import IGEVStereo, IGEVStereoConfig
 from dkt_stereo_tpu_torch.models.pcvnet import PCVNet, PCVNetConfig
 from dkt_stereo_tpu_torch.models.raft_stereo import RAFTStereo, RAFTStereoConfig
@@ -22,29 +27,22 @@ MODELS: dict[str, tuple] = {
     "RAFTStereo": (RAFTStereo, RAFTStereoConfig),
     "IGEVStereo": (IGEVStereo, IGEVStereoConfig),
     "PCVNet": (PCVNet, PCVNetConfig),
-}
-
-_QUEUED = {
-    "GWCNet": "Queue 1 item 9",
-    "CGI_Stereo": "Queue 1 item 9",
+    "GWCNet": (GWCNet, GWCNetConfig),
+    "CGI_Stereo": (CGIStereo, CGIStereoConfig),
 }
 
 # the reference's ``__losses__`` names (meta_arch/__init__.py:15-21) and the
 # model defaults of the JAX registry
 DEFAULT_LOSS = {"RAFTStereo": "sequence_loss_raft", "IGEVStereo": "sequence_loss_igev",
-                "PCVNet": "sequence_loss_pcvnet"}
+                "PCVNet": "sequence_loss_pcvnet", "GWCNet": "loss_gwcnet",
+                "CGI_Stereo": "loss_cgi"}
 _QUEUED_LOSSES = {
-    "loss_gwcnet": "Queue 1 item 9",
-    "loss_cgi": "Queue 1 item 9",
     "ns_loss": "Queue 1 item 10",
 }
 
 
 def get_model(name: str):
     if name not in MODELS:
-        where = _QUEUED.get(name)
-        if where is not None:
-            raise KeyError(f"model {name!r} is not ported yet: ROADMAP.md {where}")
         raise KeyError(f"unknown model {name!r}; ported: {sorted(MODELS)}")
     return MODELS[name]
 
@@ -86,7 +84,7 @@ def make_loss_adapter(name: str, cfg: dict | None = None, loss_func: str | None 
     """The DKT step's loss interface, ``fn(outputs, flow_gt, valid) -> (loss,
     metrics, mask, ok)`` (``dkt_stereo_tpu/models/registry.py:43-79``).
     ``cfg`` is the model's config dict (IGEV's loss reads ``max_disp``,
-    192 without one); ``loss_func`` picks the loss by its reference name;
+    GWCNet's and CGI's ``maxdisp``, 192 without one); ``loss_func`` picks the loss by its reference name;
     None takes the model's default. Names not ported yet raise a KeyError
     naming their ROADMAP.md entry."""
     get_model(name)
@@ -100,8 +98,12 @@ def make_loss_adapter(name: str, cfg: dict | None = None, loss_func: str | None 
                                                      max_disp=max_disp)
     if loss_func == "sequence_loss_pcvnet":
         return lambda out, gt, v: sequence_loss_pcvnet(out["output_list"], gt, v)
+    if loss_func in ("loss_gwcnet", "loss_cgi"):
+        loss = loss_gwcnet if loss_func == "loss_gwcnet" else loss_cgi
+        maxdisp = (cfg or {}).get("maxdisp", 192)
+        return lambda out, gt, v: loss(out["disp_preds"], gt, v, maxdisp)
     where = _QUEUED_LOSSES.get(loss_func)
     if where is not None:
         raise KeyError(f"loss_func {loss_func!r} is not ported yet: ROADMAP.md {where}")
-    raise KeyError(f"unknown loss_func {loss_func!r}; ported: "
-                   "['sequence_loss_igev', 'sequence_loss_pcvnet', 'sequence_loss_raft']")
+    raise KeyError(f"unknown loss_func {loss_func!r}; ported: ['loss_cgi', 'loss_gwcnet', "
+                   "'sequence_loss_igev', 'sequence_loss_pcvnet', 'sequence_loss_raft']")

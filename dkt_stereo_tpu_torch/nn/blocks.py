@@ -123,8 +123,10 @@ def fused_fullres_layer1(x, stem_weight, layer1: nn.Sequential, norm_fn="instanc
 
 def _fused_gate(fused_fullres, downsample, norm_fn, x):
     """The JAX gate of the fused path (nn/blocks.py:329-334): downsample 2,
-    instance norm, even width."""
-    return fused_fullres and downsample == 2 and norm_fn == "instance" and x.shape[3] % 2 == 0
+    instance norm (``instance_fast`` too, whose stem and layer1 the fused
+    path then normalise with full statistics, as in JAX), even width."""
+    return (fused_fullres and downsample == 2 and norm_fn in ("instance", "instance_fast")
+            and x.shape[3] % 2 == 0)
 
 
 class BasicEncoder(nn.Module):

@@ -1,5 +1,6 @@
-"""Resizing / pooling with torch semantics, over NCHW tensors
-(``dkt_stereo_tpu/ops/resize.py``: ``interp_bilinear_align``,
+"""Resizing / pooling with torch semantics, over NCHW tensors and NCDHW
+volumes (``dkt_stereo_tpu/ops/resize.py``: ``interp_bilinear_align``,
+``interp_bilinear_halfpix``, ``interp_trilinear_halfpix``,
 ``interp_nearest``, ``avg_pool2d``, ``pool2x``). The JAX package writes
 these as matmuls and a depthwise conv for the TPU; here they are PyTorch
 operators and an index gather."""
@@ -16,6 +17,22 @@ def interp_bilinear_align(x: torch.Tensor, out_hw) -> torch.Tensor:
     if tuple(out_hw) == tuple(x.shape[2:]):
         return x
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=True)
+
+
+def interp_bilinear_halfpix(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear ``align_corners=False`` resize of NCHW ``x`` (torch's
+    default)."""
+    if tuple(out_hw) == tuple(x.shape[2:]):
+        return x
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
+
+
+def interp_trilinear_halfpix(x: torch.Tensor, out_dhw) -> torch.Tensor:
+    """Trilinear ``align_corners=False`` resize of NCDHW ``x`` to (Do, Ho,
+    Wo): GWCNet's cost upsample (gwc_main.py:248-263)."""
+    if tuple(out_dhw) == tuple(x.shape[2:]):
+        return x
+    return F.interpolate(x, size=tuple(out_dhw), mode="trilinear", align_corners=False)
 
 
 def interp_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Checkpoints of the port: torch-native save and resume of a DKT run
 (``dkt_stereo_tpu/train/checkpoint.py:484-535``), reference ``.pth`` state
-dicts, and timm's MobileNetV2 weights for IGEV's trunk (:286-382).
+dicts, and timm's MobileNetV2 weights for IGEV's and CGI's trunk (:286-382).
 
 A port checkpoint is a directory ``save_dir/step_N`` holding one file,
 ``dkt_state.pt``: a ``torch.save`` of ``{"step", "student", "ema",
@@ -119,7 +119,8 @@ def latest_checkpoint(save_dir) -> str | None:
 
 
 def _timm_to_igev(key: str) -> str:
-    """timm ``mobilenetv2_100`` name -> the port's IGEV trunk name."""
+    """timm ``mobilenetv2_100`` name -> the port's trunk name (IGEV's and
+    CGI's, both the reference's ``feature.``)."""
     if key.startswith("blocks."):
         _, stage, block, rest = key.split(".", 3)
         group, index = _IGEV_STAGE[int(stage)]
@@ -128,11 +129,12 @@ def _timm_to_igev(key: str) -> str:
 
 
 def import_timm_mobilenetv2(path_or_state, model: torch.nn.Module) -> dict:
-    """``model``'s state dict with its MobileNetV2 trunk (IGEV's ``feature.``
-    ``conv_stem``, ``bn1``, ``block0..4``) taken from a raw timm
+    """``model``'s state dict with its MobileNetV2 trunk (IGEV's or CGI's
+    ``feature.conv_stem``, ``bn1``, ``block0..4``) taken from a raw timm
     ``mobilenetv2_100`` checkpoint: the ImageNet-pretrained trunk the
     reference gets from ``timm.create_model(..., pretrained=True)``
-    (meta_arch/igev_stereo/extractor.py:330). Takes a ``.pth`` or ``.npz``
+    (meta_arch/igev_stereo/extractor.py:330, meta_arch/cgi/CGI_Stereo.py:44).
+    Takes a ``.pth`` or ``.npz``
     path or a dict of tensors or arrays.
 
     Strict against the manifest (``nn/mobilenetv2_manifest.py``): every

@@ -117,6 +117,11 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
     metrics (epe, 1px, 3px, 5px; IGEV's also init_epe; PCVNet's also bad1,
     bad2, bad5 and the seven ``*_final`` ones), ema_divergence,
     teacher_divergence, ok, learning_rate."""
+    if config.get("train_bn"):
+        raise NotImplementedError(
+            "train_bn in the DKT step: the JAX step applies the student without mutable batch "
+            "statistics (dkt_stereo_tpu/train/dkt_step.py), so it does not run there either; "
+            "the step freezes batch norm")
     loss_adapter = make_loss_adapter(config["model"], config, config.get("loss_func"))
     schedule = make_schedule(hyper)
 

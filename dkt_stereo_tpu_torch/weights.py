@@ -2,10 +2,10 @@
 checkpoints and the port's modules.
 
 The port's attribute names are the reference's torch names, so a reference
-state dict loads as it is. From the flax side, the RAFT, IGEV and PCVNet
-subsets of the name rules of ``dkt_stereo_tpu/train/checkpoint.py`` (:29-45,
-:63-92, :99-111 and :114-116, which map torch names to flax scopes) are kept
-here inverted, flax to torch.
+state dict loads as it is. From the flax side, the name rules of
+``dkt_stereo_tpu/train/checkpoint.py`` (:29-45 RAFT, :46-62 GWCNet, :63-98
+IGEV and CGI, :99-116 PCVNet, which map torch names to flax scopes) are
+kept here inverted, flax to torch, a list for each model family.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ _COMMON: list[tuple] = [
     (r"^step\.update_block\.", "update_block."),
     (r"context_zqr_convs_(\d+)\.", r"context_zqr_convs.\1."),
     (r"downsample_conv\.", "downsample.0."),
-    (r"\.BatchNorm_0\.", "."),
+    (r"\.(BatchNorm|GroupNorm)_0\.", "."),
 ]
 _RAFT = [
     (r"(outputs08|outputs16)_(\d+)\.res\.", r"\1.\2.0."),
@@ -64,11 +64,46 @@ _PCV = _RAFT + [
     (r"(low_level_conv|conv\d_out|conv_softmask|conv_disp)_(\d)\.", r"\1.\2."),
     (r"(^|\.)(conv\d)_(\d)\.", r"\1\2.\3."),
 ]
+# GWCNet: the reference's convbn is Sequential(conv, bn) and its blocks
+# Sequential(convbn, ReLU, ...), where the flax tree names conv and bn
+_CB = {"conv": "0", "bn": "1"}
+_GWC = [
+    (r"firstconv_(\d)\.(conv|bn)\.", lambda m: f"firstconv.{2 * int(m[1])}.{_CB[m[2]]}."),
+    (r"(layer\d)_(\d+)\.", r"\1.\2."),
+    (r"(\.layer\d\.\d+\.conv2)\.(conv|bn)\.", lambda m: f"{m[1]}.{_CB[m[2]]}."),
+    (r"(^|\.)(conv[1-4])\.(conv|bn)\.", lambda m: f"{m[1]}{m[2]}.0.{_CB[m[3]]}."),
+    (r"downsample_bn\.", "downsample.1."),
+    (r"lastconv_0\.(conv|bn)\.", lambda m: f"lastconv.0.{_CB[m[1]]}."),
+    (r"lastconv_1\.", "lastconv.2."),
+    (r"(dres[01])_(\d)\.(conv|bn)\.", lambda m: f"{m[1]}.{2 * int(m[2])}.{_CB[m[3]]}."),
+    (r"(conv[56])_deconv\.", r"\1.0."),
+    (r"(conv[56])_bn\.", r"\1.1."),
+    (r"(redir[12])\.(conv|bn)\.", lambda m: f"{m[1]}.{_CB[m[2]]}."),
+    (r"(classif\d)\.0\.(conv|bn)\.", lambda m: f"{m[1]}.0.{_CB[m[2]]}."),
+    (r"(classif\d)\.1\.", r"\1.2."),
+]
+# CGI-Stereo: the trunk at the top level of the flax tree (feature_trunk),
+# FeatUp's modules too (the reference's feature_up), and its Sequentials
+_CGI = [
+    (r"^feature_trunk\.blocks_(\d)_(\d+)\.",
+     lambda m: "feature.block{}.{}.{}.".format(*_IGEV_STAGE[int(m[1])], m[2])),
+    (r"^feature_trunk\.", "feature."),
+    (r"^(deconv32_16|deconv16_8|deconv8_4|conv4)\.", r"feature_up.\1."),
+    (r"^(stem_[24]|spx_4)_bn\.", r"\1.2."),
+    (r"^(stem_[24]|spx_4)_(\d)\.", r"\1.\2."),
+    (r"^spx_0\.", "spx.0."),
+    (r"(^|\.)(semantic|att)_(\d)\.", r"\1\2.\3."),
+    (r"(^|\.)(conv[123]|agg_[01])_(\d)\.", r"\1\2.\3."),
+]
 # the reference registers a ResidualBlock's norm3 twice (also as downsample.1)
 _ALIASES = [(re.compile(r"(^|\.)norm3\.$"), r"\1downsample.1.")]
 # batch norms the reference creates and never runs (its BasicConv with
 # bn=False): no flax state, so they keep BatchNorm's initial values
 _UNUSED_BN = re.compile(r"(^|\.)conv1_up\.conv\.weight$")
+# CGI's feature.deconv32_16, which the reference builds and never runs: no
+# flax state, so zero kernels and BatchNorm's initial values, in the shapes
+# of FeatUp's deconv32_16 (the same module)
+_CGI_UNUSED = ("feature_up.deconv32_16.", "feature.deconv32_16.")
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
@@ -108,20 +143,30 @@ def _is_pcv(params: dict) -> bool:
             or "low_level_conv_0" in params.get("cnet", {}))
 
 
+def _rules(scopes: dict, igev: bool | None) -> list:
+    if igev or (igev is None and "cost_agg" in scopes):
+        return _IGEV
+    if {"feature_extraction", "dres0_0", "dres2"} & set(scopes):
+        return _GWC
+    if {"feature_trunk", "hourglass_fusion"} & set(scopes):
+        return _CGI
+    return _PCV if _is_pcv(scopes) else _RAFT
+
+
 def state_dict_from_flax(variables: dict, igev: bool | None = None
                          ) -> "OrderedDict[str, torch.Tensor]":
     """The port's ``state_dict`` from the JAX package's ``{"params",
     "batch_stats"}`` tree of numpy arrays: conv kernels to torch's layout,
     ``scale`` -> ``weight``, ``mean``/``var`` -> ``running_mean``/
     ``running_var``, and a zero ``num_batches_tracked`` per BatchNorm.
-    ``igev`` picks IGEV-Stereo's name rules over RAFT-Stereo's; None tells
-    a whole model's tree apart by IGEV's ``cost_agg``. A PCVNet tree is told
-    apart by its own scopes (``refineNet``, ``step.FDM``, the encoder's
-    ``low_level_conv_0``)."""
-    params = variables.get("params", {})
-    if igev is None:
-        igev = "cost_agg" in params
-    rules = _COMMON + (_IGEV if igev else _PCV if _is_pcv(params) else _RAFT)
+    ``igev`` picks IGEV-Stereo's name rules; None tells a whole model's
+    tree apart by IGEV's ``cost_agg``. The other families are told apart by
+    their own scopes, a whole tree or one of its modules nested at its
+    place: GWCNet by ``feature_extraction``, ``dres0_0`` or ``dres2``, CGI by
+    ``feature_trunk`` or ``hourglass_fusion``, PCVNet by ``refineNet``,
+    ``step.FDM`` or the encoder's ``low_level_conv_0``; else RAFT."""
+    scopes = {**variables.get("batch_stats", {}), **variables.get("params", {})}
+    rules = _COMMON + _rules(scopes, igev)
     out: OrderedDict[str, torch.Tensor] = OrderedDict()
     for coll in ("params", "batch_stats"):
         for path, leaf in _walk(variables.get(coll, {})):
@@ -135,6 +180,11 @@ def state_dict_from_flax(variables: dict, igev: bool | None = None
                     out[prefix + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     for key in [k for k in out if _UNUSED_BN.search(k)]:
         out.update(_bn_init(key.removesuffix("conv.weight") + "bn.", out[key].shape[1]))
+    src, dst = _CGI_UNUSED
+    for key in [k for k in out if k.startswith(src) and k.endswith("conv.weight")]:
+        out[dst + key.removeprefix(src)] = torch.zeros_like(out[key])
+        bn = key.removesuffix("conv.weight") + "bn."
+        out.update(_bn_init(dst + bn.removeprefix(src), out[bn + "weight"].shape[0]))
     return out
 
 

@@ -145,8 +145,10 @@ def test_entry_points_default_to_the_gpu():
 
 def test_registry_and_unported_options():
     assert get_model("RAFTStereo")[0] is RAFTStereo
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 9"):
-        get_model("GWCNet")
+    # GWCNet and CGI-Stereo, once queued, are the port's own now
+    from dkt_stereo_tpu_torch.models.cgi_stereo import CGIStereo
+    from dkt_stereo_tpu_torch.models.gwcnet import GWCNet
+    assert get_model("GWCNet")[0] is GWCNet and get_model("CGI_Stereo")[0] is CGIStereo
     with pytest.raises(KeyError, match="unknown model"):
         get_model("NoSuchNet")
     for override in ({"corr_implementation": "cosine"}, {"backbone_type": "interpolate"},
