@@ -243,7 +243,7 @@ out-of-tolerance result raises and exits non-zero:
      iterations, 3 warm-up frames and 5 batches of 10), its JSON line
      printed.
 
-The training side (phases 33-35, in the same temporary directory), then the
+The training side (phases 33-38, in the same temporary directory), then the
 "kernels" JSON line and the card's line:
 
  33. the host data path: a synthetic Booster quarter-resolution tree
@@ -275,6 +275,29 @@ The training side (phases 33-35, in the same temporary directory), then the
      and CGI base.json (320x736) on the Scene Flow tree at batch 8, through
      cli.train, 4 loader workers, 3 steps each: exactly 96 K4 and 16 dgeo,
      80 K5 and 16 K5-backward, and no launch a step; ms/step, wait, peak.
+
+NeRF-Stereo training (configs/raft_stereo/ns.json, loss_func ns_loss):
+
+ 36. one NS step (nb = nt = 1 at 1x64x128 a modality, 2 iterations, fp32,
+     TF32 off) with K1 on the card vs the plain path on the CPU, and the
+     plain lookup on the card vs the CPU as the floor: the losses within
+     1e-3 relative, the gradients within 0.1 relative L2 per module and
+     0.05 over all (or twice the floor); exactly 2 K1 and 2 K1-backward
+     launches;
+ 37. ns.json as shipped (bf16, reg, no remat) in the NS step at B=8,
+     320x720, 16 iterations, all 8 rows trinocular and then nb = nt = 4:
+     1 warm-up and 5 timed steps each, ms/step, device ms of each part
+     (EMA, forward, loss, backward, clip and AdamW), peak memory, exactly
+     16 K1 and 16 K1-backward launches a step; a profile of one
+     all-trinocular step (chiprun_out/chip_smoke_ns_train_profile.txt), and
+     ns_loss's forward and backward alone at the step's shapes (time,
+     kernels, chiprun_out/chip_smoke_ns_loss_profile.txt);
+ 38. ns.json through cli.train (batch 8, 320x720, 4 loader workers, 3
+     steps from a seeded random .pth) on a synthetic NeRF-Stereo tree (8
+     triplets at 540x960, 16-bit disparity and confidence), then
+     nerf_stereo with phase 33's Scene Flow tree at --ns_num_tri 4: exactly
+     16 K1 and 16 K1-backward launches a step, ok and a finite loss, the
+     CLI's timing line, a checkpoint.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
@@ -945,6 +968,8 @@ BUCKETS = (
     ("casts/copies", r"copy_kernel|Memcpy|Memset|CatArray"),
     ("batch norm", r"batch_norm"),
     ("reductions", r"reduce_kernel"),
+    # the NS loss's disparity warps (gathers) and SSIM's reflection padding
+    ("gathers/reflection pads", r"scatter_gather|reflection_pad"),
     ("resize/pool/softmax", r"upsample|pool|SoftMax"),
     ("optimizer", r"Optimizer|multi_tensor"),
     ("other elementwise", r""),
@@ -1458,23 +1483,28 @@ def check_moved_and_frozen(torch, state, before, label, moved=True, still_ok=())
           f"{label} student BN running statistics changed")
 
 
-def timed_steps(torch, state, step, gen, image, label, steps=TRAIN_STEPS):
+def timed_steps(torch, state, step, gen, image, label, steps=TRAIN_STEPS, make_batch=None,
+                parts=TRAIN_PARTS, step_kw=None):
     """1 warm-up step, which must be ok, then ``steps`` timed DKT steps on
     seeded synthetic batches of ``image`` (B, H, W), all launch counters
     zeroed first. Returns the state and a dict: host ms per step, the mean
     device ms of each part (CUDA events from the step's ``mark`` hook),
     the launches of each step and of all of them, the metrics and the
-    peak memory in GiB of the timed steps."""
+    peak memory in GiB of the timed steps. ``make_batch``, ``parts`` and
+    ``step_kw`` serve another step (the NS step: its batches, its parts,
+    no F&E generator)."""
     B, H, W = image
-    state, m = step(state, _train_batch(torch, gen, B, H, W, "cuda"), generator=gen)
+    make_batch = make_batch or (lambda: _train_batch(torch, gen, B, H, W, "cuda"))
+    step_kw = {"generator": gen} if step_kw is None else step_kw
+    state, m = step(state, make_batch(), **step_kw)
     check(m["ok"] == 1.0, f"{label} warm-up step not ok: {m}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     zero_counts()
-    times, parts, per_step, metrics = [], {p: [] for p in TRAIN_PARTS}, [], []
+    times, part_ms, per_step, metrics = [], {p: [] for p in parts}, [], []
     for _ in range(steps):
-        batch = _train_batch(torch, gen, B, H, W, "cuda")
+        batch = make_batch()
         events = {}
 
         def mark(name):
@@ -1485,12 +1515,12 @@ def timed_steps(torch, state, step, gen, image, label, steps=TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mark("start")
-        state, m = step(state, batch, generator=gen, mark=mark)
+        state, m = step(state, batch, mark=mark, **step_kw)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         prev = "start"
-        for p in TRAIN_PARTS:
-            parts[p].append(events[prev].elapsed_time(events[p]))
+        for p in parts:
+            part_ms[p].append(events[prev].elapsed_time(events[p]))
             prev = p
         per_step.append(_diff(kernel_counts(), before))
         metrics.append(m)
@@ -1498,7 +1528,7 @@ def timed_steps(torch, state, step, gen, image, label, steps=TRAIN_STEPS):
           f"a {label} step was not ok: {[x['ok'] for x in metrics]}")
     check(all(np.isfinite(x["loss"]) for x in metrics), f"non-finite {label} loss")
     return state, dict(ms=1e3 * np.asarray(times),
-                       part_ms={p: float(np.mean(v)) for p, v in parts.items()},
+                       part_ms={p: float(np.mean(v)) for p, v in part_ms.items()},
                        per_step=per_step, launches=kernel_counts(), metrics=metrics,
                        peak=torch.cuda.max_memory_allocated() / 2**30)
 
@@ -1514,17 +1544,21 @@ def step_line(run):
             + ", ".join(f"{x['loss']:.3f}" for x in run["metrics"]))
 
 
-def profile_step(torch, state, step, gen, image, mean_ms, name, label):
-    """A profile of one more DKT step into the output directory's ``name``,
-    and an estimate of the untraced idle share against the timed steps'
+def profile_step(torch, state, step, gen, image, mean_ms, name, label, make_batch=None,
+                 step_kw=None):
+    """A profile of one more DKT step (or, with ``make_batch`` and
+    ``step_kw``, another step) into the output directory's ``name``, and an
+    estimate of the untraced idle share against the timed steps'
     ``mean_ms``."""
     B, H, W = image
+    make_batch = make_batch or (lambda: _train_batch(torch, gen, B, H, W, "cuda"))
+    step_kw = {"generator": gen} if step_kw is None else step_kw
 
     def one_step():
-        batch = _train_batch(torch, gen, B, H, W, "cuda")
+        batch = make_batch()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(state, batch, generator=gen)
+        step(state, batch, **step_kw)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -3914,15 +3948,23 @@ def write_training_trees(root):
 
 
 def _host_seconds(ds, n):
-    """Host seconds a sample takes in this process: reading its three files,
-    and the whole augmented ``get_sample`` (augmenting is the rest)."""
-    from dkt_stereo_tpu_torch.data import readers
+    """Host seconds a sample takes in this process: reading its files (a
+    pair and its disparity, or a NeRF-Stereo triplet and its two 16-bit
+    maps), and the whole augmented ``get_sample`` (augmenting is the
+    rest)."""
+    from dkt_stereo_tpu_torch.data import png, readers
 
     read, total = [], []
     for i in range(n):
         t0 = time.perf_counter()
-        ds.disparity_reader(ds.disparity_list[i % len(ds)])
-        for path in ds.image_list[i % len(ds)]:
+        paths = ds.image_list[i % len(ds)]
+        if hasattr(ds, "disparity_list"):
+            ds.disparity_reader(ds.disparity_list[i % len(ds)])
+        else:  # NerfStereo: three views, then disparity and confidence
+            paths, maps = paths[:3], paths[3:]
+            for path in maps:
+                png.read(path)
+        for path in paths:
             readers.read_image_rgb(path)
         t1 = time.perf_counter()
         ds.get_sample(i, np.random.default_rng(i))
@@ -4051,19 +4093,21 @@ def phase_data(torch, tmp, card):
 
 
 class _StepProbe:
-    """While entered, ``cli.train`` builds its step through a wrapper that
-    keeps a CPU copy of the state the first step is handed and the launch
-    counts and metrics of every step."""
+    """While entered, ``cli.train`` builds its step (``factory``, the DKT
+    step's or the NS step's) through a wrapper that keeps a CPU copy of the
+    state the first step is handed and the launch counts and metrics of
+    every step."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, factory="make_dkt_train_step"):
         from dkt_stereo_tpu_torch.cli import train as cli
 
-        self.torch, self.cli, self.orig = torch, cli, cli.make_dkt_train_step
+        self.torch, self.cli, self.factory = torch, cli, factory
+        self.orig = getattr(cli, factory)
         self.first, self.per_step, self.metrics = None, [], []
 
     def __enter__(self):
-        def make(config, hyper):
-            step = self.orig(config, hyper)
+        def make(config, hyper, **kw):
+            step = self.orig(config, hyper, **kw)
 
             def step_fn(state, batch, **kw):
                 if self.first is None:
@@ -4076,11 +4120,11 @@ class _StepProbe:
 
             return step_fn
 
-        self.cli.make_dkt_train_step = make
+        setattr(self.cli, self.factory, make)
         return self
 
     def __exit__(self, *exc):
-        self.cli.make_dkt_train_step = self.orig
+        setattr(self.cli, self.factory, self.orig)
 
 
 def _to_cpu(torch, x):
@@ -4131,14 +4175,15 @@ def _stage_line(label, timing, per_step, validation, card):
             f"| launches a step {launches} | validators {sorted(validation) or 'none run'} | {card}")
 
 
-def _in_process(torch, argv, label, want, card):
+def _in_process(torch, argv, label, want, card, factory="make_dkt_train_step"):
     """``cli.train.main(argv)`` on the card with every launch counter zeroed
-    first; each step must launch exactly ``want`` and be ok. Returns the
-    CLI's result, the probe and the counts of the whole run."""
+    first; each step (built by ``factory``) must launch exactly ``want`` and
+    be ok. Returns the CLI's result, the probe and the counts of the whole
+    run."""
     from dkt_stereo_tpu_torch.cli.train import main as train_main
 
     zero_counts()
-    with _StepProbe(torch) as probe:
+    with _StepProbe(torch, factory) as probe:
         res = train_main(argv)
     launches = kernel_counts()
     full = {**dict.fromkeys(launches, 0), **want}
@@ -4291,6 +4336,274 @@ def phase_train_models(torch, kitti, data, card):
         paths[f"train_cli_{name}"] = launches
     return paths
 
+NS_CONFIG = ROOT / "configs/raft_stereo/ns.json"
+NS_PARTS = ("ema", "forward", "loss", "backward", "optimizer")
+NS_SPLITS = ((0, 8), (4, 4))  # (nb, nt) of the timed steps: all trinocular, then mixed
+NS_TRIPLETS = 8
+NS_CLI_STEPS = "2"  # steps 0-2: 3 steps through cli.train
+
+
+def _nested(x, fn):
+    return {k: _nested(v, fn) for k, v in x.items()} if isinstance(x, dict) else fn(x)
+
+
+def _ns_batch(torch, gen, nb, nt, H, W, device):
+    """A synthetic batch in ``collate_mixed``'s form: the forward pair of
+    ``nb + nt`` rows in [0, 255]; ``nb`` binocular rows' negative disparity
+    in [-64, 0] and a valid mask of about 70 % ones; ``nt`` trinocular
+    rows' negative disparity in [-64, 0], confidence in [0, 1] and clean
+    triplet in [0, 255]."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=gen.device).to(device)
+
+    batch = {"im1_forward": 255 * rand(nb + nt, H, W, 3),
+             "im2_forward": 255 * rand(nb + nt, H, W, 3), "bi": {}, "tri": {}}
+    if nb:
+        batch["bi"] = {"flow": -64 * rand(nb, H, W), "valid": (rand(nb, H, W) < 0.7).float()}
+    if nt:
+        batch["tri"] = {"flow": -64 * rand(nt, H, W), "conf": rand(nt, H, W),
+                        **{k: 255 * rand(nt, H, W, 3) for k in ("im0", "im1", "im2")}}
+    return batch
+
+
+def phase_ns_parity(torch, ns_cfg):
+    """Phase 36: one NS step of ns.json (nb = nt = 1, 1x64x128 a modality,
+    2 iterations, fp32, TF32 off) with K1 on the card vs the plain path on
+    the CPU, from the same weights and batch: exactly 2 K1 and 2
+    K1-backward launches. The floor is the same step with the plain lookup
+    on the card vs the CPU. Bounds, the DKT step's: the losses 1e-3
+    relative; the gradients 0.1 relative L2 per module and 0.05 over all,
+    or twice the floor where that is larger."""
+    import dkt_stereo_tpu_torch.models.raft_stereo as raft
+    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup, corr_lookup_plain
+    from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state
+    from dkt_stereo_tpu_torch.train.ns_step import make_ns_train_step
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = {**ns_cfg, "mixed_precision": False, "corr_dtype": "float32"}
+    hyper = DKTHyperParams(train_iters=2)
+    seed_state = create_dkt_state(cfg, hyper, seed=0, device="cuda")
+    params = {k: v.detach().clone() for k, v in seed_state.student.state_dict().items()}
+    del seed_state
+    batch = _ns_batch(torch, torch.Generator().manual_seed(36), 1, 1, 64, 128, "cpu")
+    on_card = _nested(batch, lambda t: t.cuda())
+    step = make_ns_train_step(cfg, hyper, nb=1, nt=1)
+
+    gpu = create_dkt_state(cfg, hyper, params=params, device="cuda")
+    zero_counts()
+    gpu, m_gpu = step(gpu, on_card)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    raft.corr_lookup = (lambda pyr, c, r, dt:  # the plain lookup on the card, for the floor
+                        corr_lookup_plain(pyr, c, r).permute(0, 3, 1, 2).to(dt))
+    try:
+        plain, m_plain = step(create_dkt_state(cfg, hyper, params=params, device="cuda"),
+                              on_card)
+    finally:
+        raft.corr_lookup = corr_lookup
+    cpu, m_cpu = step(create_dkt_state(cfg, hyper, params={k: v.cpu() for k, v in
+                                                           params.items()}, device="cpu"),
+                      batch)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    check(m_gpu["ok"] == m_plain["ok"] == m_cpu["ok"] == 1.0,
+          f"NS parity ok: card {m_gpu['ok']} plain {m_plain['ok']} cpu {m_cpu['ok']}")
+    want = {**dict.fromkeys(launches, 0), "corr_lookup": 2, "corr_lookup_bwd": 2}
+    check(launches == want, f"NS parity launches {launches} != {want}")
+    losses = ("loss", "ns_loss", "bi_epe", "epe")
+
+    def loss_rel(a, b):
+        return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in losses}
+
+    err, floor_l = loss_rel(m_gpu, m_cpu), loss_rel(m_plain, m_cpu)
+    want_grads = dict(cpu.student.named_parameters())
+    rel = _grad_rel(gpu.student.named_parameters(), want_grads)
+    floor = _grad_rel(plain.student.named_parameters(), want_grads)
+    for k in losses:
+        tol = max(1e-3, 2 * floor_l[k])
+        check(err[k] <= tol, f"NS parity {k}: relative {err[k]} > {tol}")
+    for g, e in rel.items():
+        tol = max(0.05 if g == "all" else 0.1, 2 * floor[g])
+        check(e <= tol, f"NS parity gradient of {g}: relative {e} > {tol}")
+    print("NS step parity (ns.json, fp32, TF32 off, nb = nt = 1 at 64x128, 2 iters), K1 on "
+          "the card vs plain on the CPU: " + " ".join(
+              f"{k} {m_gpu[k]:.6f} vs {m_cpu[k]:.6f} (rel {err[k]:.2e}, floor "
+              f"{floor_l[k]:.2e})" for k in losses) + " (tol 1e-3) | gradient relative L2 "
+          "error by module " + " ".join(f"{g} {e:.2e}" for g, e in rel.items())
+          + " (tol 0.1 per module, 0.05 all; floor, the plain lookup on the card vs the CPU: "
+          + " ".join(f"{g} {e:.2e}" for g, e in floor.items()) + f") | launches {launches}",
+          flush=True)
+    del gpu, plain, cpu
+    torch.cuda.empty_cache()
+
+
+def _ns_loss_alone(torch, gen, B, H, W, iters):
+    """ns_loss's forward and backward alone at the step's shapes (``iters``
+    predictions of B x H x W): device ms from CUDA events (mean of 3 after a
+    warm-up), and the kernels of one call from a profile."""
+    from dkt_stereo_tpu_torch.losses.nerf import ns_loss
+
+    tri = _ns_batch(torch, gen, 0, B, H, W, "cuda")["tri"]
+    preds = (-64 * torch.rand(iters, B, H, W, generator=gen, device="cuda")).requires_grad_()
+
+    def once():
+        loss = ns_loss(preds, tri["flow"], tri["conf"], tri["im0"], tri["im1"], tri["im2"])[0]
+        loss.backward()
+
+    once()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        once()
+    end.record()
+    torch.cuda.synchronize()
+
+    def profiled():
+        t0 = time.perf_counter()
+        once()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    _, busy, lines, buckets = device_profile(torch, profiled, "chip_smoke_ns_loss_profile.txt")
+    launches = sum(int(line.split(" ms ")[1].split("x")[0]) for line in lines)
+    return start.elapsed_time(end) / 3, busy, launches, buckets
+
+
+def phase_ns_train(torch, ns_cfg, card):
+    """Phase 37: ns.json as shipped (bf16, reg, 3 GRU layers of 128, 4
+    levels of radius 4, no remat) in the NS step at B=8, 320x720, 16
+    iterations: all 8 rows trinocular, then nb = nt = 4; 1 warm-up and
+    TRAIN_STEPS timed steps each, with the device ms of each part (CUDA
+    events), peak memory and exactly 16 K1 and 16 K1-backward launches a
+    step; the student moves, batch norm and the teacher stay; a profile of
+    one all-trinocular step; ns_loss's forward and backward alone at the
+    step's shapes. A step that does not fit the card is reported and the
+    split is measured with remat_iters (32 K1 a step then)."""
+    from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state
+    from dkt_stereo_tpu_torch.train.ns_step import make_ns_train_step
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    B, H, W = TRAIN_IMAGE
+    hyper = DKTHyperParams(train_iters=16)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    paths = {}
+    for nb, nt in NS_SPLITS:
+        label = f"NS step nb={nb} nt={nt}"
+        for cfg in (ns_cfg, {**ns_cfg, "remat_iters": True}):
+            state = create_dkt_state(cfg, hyper, seed=0)
+            before = snapshot(state, "ns.json's cnet")
+            step = make_ns_train_step(cfg, hyper, nb=nb, nt=nt)
+            make = (lambda nb=nb, nt=nt: _ns_batch(torch, gen, nb, nt, H, W, "cuda"))
+            try:
+                state, run = timed_steps(torch, state, step, gen, (B, H, W), label,
+                                         make_batch=make, parts=NS_PARTS, step_kw={})
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                check(not cfg.get("remat_iters"), f"{label} with remat_iters: {e}")
+                print(f"{label} does not fit the card without remat_iters ({e}); measuring "
+                      "it with remat_iters", flush=True)
+                del state, step
+                torch.cuda.empty_cache()
+        fwd = 16 * (2 if cfg.get("remat_iters") else 1)
+        want = {**dict.fromkeys(run["launches"], 0), "corr_lookup": fwd, "corr_lookup_bwd": 16}
+        check(all(c == want for c in run["per_step"]),
+              f"{label} launches a step {run['per_step']} != {want}")
+        check_moved_and_frozen(torch, state, before, label)
+        m = run["metrics"][-1]
+        print(f"{label} (ns.json, bf16, reg, remat {bool(cfg.get('remat_iters'))}, B={B} "
+              f"{H}x{W}, {hyper.train_iters} iters, {TRAIN_STEPS} steps after 1 warm-up): "
+              f"{step_line(run)} | ns_loss {m.get('ns_loss', float('nan')):.4f} | lr "
+              f"{m['learning_rate']:.3e} | {card}", flush=True)
+        paths["ns_training" if nb == 0 else "ns_mixed_training"] = run["launches"]
+        if nb == 0:
+            profile_step(torch, state, step, gen, (B, H, W), run["ms"].mean(),
+                         "chip_smoke_ns_train_profile.txt", "NS (all trinocular)",
+                         make_batch=make, step_kw={})
+            loss_ms, loss_busy, loss_launches, loss_buckets = _ns_loss_alone(
+                torch, gen, B, H, W, hyper.train_iters)
+            print(f"ns_loss alone (16 x {B}x{H}x{W} predictions, forward and backward): "
+                  f"{loss_ms:.2f} ms of device time (CUDA events, mean of 3), "
+                  f"{loss_launches} kernels, {loss_busy:.2f} ms of them in the profile; "
+                  f"{loss_ms / run['ms'].mean():.3f} of the step's mean ms; by bucket: "
+                  f"{loss_buckets} | {card}", flush=True)
+        del state, step
+        torch.cuda.empty_cache()
+    return paths
+
+
+def write_ns_tree(root, rng):
+    """Under ``root``: a NeRF-Stereo tree of NS_TRIPLETS triplets at
+    Scene Flow's 540x960 (``core/stereo_datasets.py:374-401``'s layout):
+    textured views, the left and right ones displaced by a smooth disparity,
+    16-bit disparity (x 64) and confidence (x 65536) maps written by
+    ``data/png.py``, and ``trainingQ.txt``. Returns the seconds it took."""
+    from dkt_stereo_tpu_torch.data import png
+
+    t0 = time.perf_counter()
+    H, W = SCENEFLOW_IMAGE
+    yy, xx = np.mgrid[:H, :W]
+    base = Path(root) / "nerf-stereo"
+    lines = []
+    for s in range(NS_TRIPLETS):
+        d = base / "training_set" / f"scene{s}"
+        d.mkdir(parents=True)
+        disp = (12 + 50 * xx / W + 6 * np.sin(yy / 50 + s)).astype(np.float32)
+        left, center = _textured_pair(rng, H, W, disp)
+        _, right = _textured_pair(rng, H, W, 2 * disp)
+        for name, img in (("im0", left), ("im1", center), ("im2", right)):
+            png.write(d / f"{name}.png", img)
+        png.write(d / "disp.png", np.rint(disp * 64).astype(np.uint16))
+        conf = np.clip(0.3 + 0.7 * rng.random((H, W)), 0, 65535 / 65536)
+        png.write(d / "conf.png", np.rint(conf * 65536).astype(np.uint16))
+        lines.append(" ".join(f"scene{s}/{n}.png" for n in ("im0", "im1", "im2", "disp",
+                                                          "conf")))
+    (base / "trainingQ.txt").write_text("\n".join(lines) + "\n")
+    return time.perf_counter() - t0
+
+
+def phase_ns_cli(torch, train_data, card):
+    """Phase 38: ns.json as shipped through cli.train (batch 8, 320x720, 16
+    iterations, 4 loader workers, 3 steps from a seeded random .pth): on a
+    synthetic NeRF-Stereo tree alone (--train_datasets nerf_stereo), then
+    mixed with phase 33's Scene Flow tree at --ns_num_tri 4. Every step ok
+    with exactly 16 K1 and 16 K1-backward launches, a finite logged loss,
+    the CLI's timing line and a checkpoint at step_3; and the host seconds a
+    triplet takes to read and to augment on one worker."""
+    from dkt_stereo_tpu_torch.cli.config import load_model_config
+    from dkt_stereo_tpu_torch.data.datasets import fetch_dataset
+
+    write_s = write_ns_tree(train_data, np.random.default_rng(38))
+    read_s, aug_s = _host_seconds(fetch_dataset(["nerf_stereo"], (320, 720),
+                                                data_root=str(train_data)), HOST_SAMPLES)
+    print(f"NeRF-Stereo tree: {NS_TRIPLETS} triplets at {SCENEFLOW_IMAGE[0]}x"
+          f"{SCENEFLOW_IMAGE[1]}, 16-bit disparity and confidence, written in {write_s:.1f} s "
+          f"| a triplet on one worker, median of {HOST_SAMPLES}: read {read_s:.3f} s, augment "
+          f"to 320x720 {aug_s:.3f} s ({os.cpu_count()} CPUs)", flush=True)
+    pth = seeded_pth(torch, load_model_config(str(NS_CONFIG)), Path(train_data).parent /
+                     "ns_train.pth")
+    want = {"corr_lookup": 16, "corr_lookup_bwd": 16}
+    paths = {}
+    for name, datasets in (("ns", ["nerf_stereo"]),
+                           ("ns_mixed", ["nerf_stereo", "sceneflow", "--ns_num_tri", "4"])):
+        argv = ["--config", str(NS_CONFIG), "--train_datasets", *datasets, "--data_root",
+                str(train_data), "--batch_size", "8", "--image_size", "320", "720",
+                "--num_workers", TRAIN_WORKERS, "--num_steps", NS_CLI_STEPS,
+                "--validation_frequency", "100000", "--save_dir",
+                str(Path(train_data).parent / f"run_{name}"), "--restore_ckpt", pth]
+        res, probe, launches = _in_process(
+            torch, argv, f"{name} through cli.train (configs/raft_stereo/ns.json, "
+            f"{' '.join(datasets)})", want, card, factory="make_ns_train_step")
+        check(res["checkpoint"].endswith(f"step_{int(NS_CLI_STEPS) + 1}"),
+              f"{name} ended at {res['checkpoint']}")
+        check(all("ns_loss" in m for m in probe.metrics), f"{name}: no ns_loss metric")
+        paths[f"train_cli_{name}"] = launches
+    return paths
+
+
 
 def main():
     """Every phase, then every process the phases started is stopped."""
@@ -4385,6 +4698,11 @@ def run():
         train_data = phase_data(torch, tmp, card)
         eval_paths.update(phase_booster_recipe(torch, tmp, train_data, card))
         eval_paths.update(phase_train_models(torch, data, train_data, card))
+
+        ns_cfg = json.loads(NS_CONFIG.read_text())
+        phase_ns_parity(torch, ns_cfg)
+        eval_paths.update(phase_ns_train(torch, ns_cfg, card))
+        eval_paths.update(phase_ns_cli(torch, train_data, card))
 
     def launches(name):
         by_path = {"inference": infer.get(name, 0), "training": train.get(name, 0),

@@ -5,7 +5,16 @@ tools/ft_dkt.py), on the GPU:
       --train_datasets booster --restore_ckpt <step_N dir or .pth> ...
 
 The flags are the JAX CLI's. The host loop feeds the loader's batches to the
-DKT step (``train/dkt_step.py``), logs, validates and checkpoints:
+DKT step (``train/dkt_step.py``), logs, validates and checkpoints. A config
+with ``"loss_func": "ns_loss"`` (``configs/raft_stereo/ns.json``) trains on
+NeRF-Stereo triplets instead:
+
+  python -m dkt_stereo_tpu_torch.cli.train --config configs/raft_stereo/ns.json \\
+      --train_datasets nerf_stereo [sceneflow ...] [--ns_num_tri N] ...
+
+through ``data/loader.py::MixedStereoLoader`` (``nb`` binocular and ``nt``
+trinocular samples a batch, ``--ns_num_tri`` setting ``nt``) and
+``train/ns_step.py`` with ``--conf_threshold`` and ``--disp_threshold``.
 
   - ``--restore_ckpt`` takes a reference ``.pth`` (student, EMA and teacher
     from it; ``--restore_ckpt_T`` pins the teacher to another) or a port
@@ -24,8 +33,7 @@ DKT step (``train/dkt_step.py``), logs, validates and checkpoints:
     loop waited for the loader and the peak device memory.
 
 ``main(argv, device="cpu")`` runs on the CPU; without ``device`` it wants a
-CUDA device and raises when there is none. NeRF-Stereo training
-(``loss_func=ns_loss``, ``nerf_stereo``), ``--batched_teachers``, and the
+CUDA device and raises when there is none. ``--batched_teachers`` and the
 multi-process and profiler flags raise naming their ROADMAP.md item.
 """
 
@@ -42,7 +50,8 @@ import torch
 
 from dkt_stereo_tpu_torch.cli.config import load_model_config, merge_config
 from dkt_stereo_tpu_torch.data.datasets import fetch_dataset
-from dkt_stereo_tpu_torch.data.loader import StereoLoader
+from dkt_stereo_tpu_torch.data.loader import MixedStereoLoader, StereoLoader
+from dkt_stereo_tpu_torch.data.triplet import split_modalities
 from dkt_stereo_tpu_torch.device import resolve_device
 from dkt_stereo_tpu_torch.eval import validate
 from dkt_stereo_tpu_torch.models.registry import create_model
@@ -54,6 +63,7 @@ from dkt_stereo_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
+from dkt_stereo_tpu_torch.train.ns_step import make_ns_train_step
 from dkt_stereo_tpu_torch.train.state import DKTHyperParams, make_schedule
 from dkt_stereo_tpu_torch.utils.logging import Logger, save_images
 from dkt_stereo_tpu_torch.utils.visualization import disp_to_color
@@ -107,7 +117,7 @@ def parse_args(argv=None):
     p.add_argument("--do_flip", default=False, choices=["h", "v", False])
     p.add_argument("--spatial_scale", type=float, nargs="+", default=[-0.2, 0.4])
     p.add_argument("--noyjitter", action="store_true")
-    # NeRF-Stereo training (loss_func=ns_loss + nerf_stereo): not ported yet
+    # NeRF-Stereo training (loss_func=ns_loss + nerf_stereo)
     p.add_argument("--conf_threshold", type=float, default=0.5)
     p.add_argument("--disp_threshold", type=float, default=512.0)
     p.add_argument("--ns_num_tri", type=int, default=None)
@@ -145,10 +155,6 @@ def _refuse_unported(args, config):
             raise NotImplementedError(
                 f"--{flag}: multi-process training and the profiler are not ported yet: "
                 "ROADMAP.md Queue 1 item 11")
-    if config.get("loss_func") == "ns_loss" or "nerf_stereo" in args.train_datasets:
-        raise NotImplementedError(
-            "NeRF-Stereo training (loss_func=ns_loss, --train_datasets nerf_stereo) is not "
-            "ported yet: ROADMAP.md Queue 1 item 10")
 
 
 class StepTimes:
@@ -178,6 +184,13 @@ class StepTimes:
         if device.type == "cuda":
             out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
         return out
+
+
+def _to_device(batch, dev):
+    """The loader's (nested) batch of CPU tensors on ``dev``."""
+    if isinstance(batch, dict):
+        return {k: _to_device(v, dev) for k, v in batch.items()}
+    return batch.to(dev, non_blocking=True)
 
 
 def _restore(args, state):
@@ -248,9 +261,24 @@ def train(args, device=None) -> dict:
 
     dataset = fetch_dataset(args.train_datasets, tuple(args.image_size),
                             tuple(args.spatial_scale), args.saturation_range, args.img_gamma,
-                            args.do_flip, args.noyjitter, data_root=args.data_root)
-    loader = StereoLoader(dataset, batch_size=args.batch_size, num_workers=args.num_workers,
-                          seed=args.seed)
+                            args.do_flip, args.noyjitter, data_root=args.data_root,
+                            conf_threshold=args.conf_threshold,
+                            disp_threshold=args.disp_threshold)
+    ns_mode = config.get("loss_func") == "ns_loss"
+    bi_ds, tri_ds = split_modalities(dataset)
+    if ns_mode:
+        if tri_ds is None:
+            raise SystemExit("loss_func=ns_loss needs trinocular data: add nerf_stereo to "
+                             "--train_datasets")
+        loader = MixedStereoLoader(bi_ds, tri_ds, batch_size=args.batch_size,
+                                   num_tri=args.ns_num_tri, num_workers=args.num_workers,
+                                   seed=args.seed)
+    else:
+        if tri_ds is not None:
+            raise SystemExit("nerf_stereo training data needs loss_func=ns_loss in the config "
+                             "(the NS step consumes the trinocular batch contract)")
+        loader = StereoLoader(dataset, batch_size=args.batch_size,
+                              num_workers=args.num_workers, seed=args.seed)
     if len(loader) == 0:
         # an empty epoch would spin the training loop forever
         raise SystemExit(f"dataset too small for --batch_size {args.batch_size}: the loader "
@@ -258,13 +286,20 @@ def train(args, device=None) -> dict:
 
     state = create_dkt_state(config, hyper, seed=args.seed, device=dev)
     _restore(args, state)
-    step_fn = make_dkt_train_step(config, hyper)
+    generator = torch.Generator().manual_seed(args.seed)
+    if ns_mode:
+        step_fn = make_ns_train_step(config, hyper, nb=loader.nb, nt=loader.nt,
+                                     conf_threshold=args.conf_threshold,
+                                     disp_threshold=args.disp_threshold)
+        step_kw = {}
+    else:
+        step_fn = make_dkt_train_step(config, hyper)
+        step_kw = {"generator": generator}  # F&E's draws
     schedule = make_schedule(hyper)
     save_dir = Path(args.save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     lg = Logger(str(save_dir), get_lr=lambda: float(schedule(state.step)),
                 start_step=state.step)  # a resumed run logs at its true step
-    generator = torch.Generator().manual_seed(args.seed)
     times, cache, results = StepTimes(), {}, {}
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -278,17 +313,18 @@ def train(args, device=None) -> dict:
                 if cpu_batch is None:
                     break
                 t1 = time.perf_counter()
-                batch = {k: v.to(dev, non_blocking=True) for k, v in cpu_batch.items()}
-                state, metrics = step_fn(state, batch, generator=generator)
+                batch = _to_device(cpu_batch, dev)
+                state, metrics = step_fn(state, batch, **step_kw)
                 t2 = time.perf_counter()
                 total_steps = state.step
                 lg.writer.add_scalar("live_loss", metrics["loss"], total_steps)
                 lg.writer.add_scalar("learning_rate", metrics["learning_rate"], total_steps)
                 for k in ("ema_divergence", "teacher_divergence"):
-                    lg.writer.add_scalar(k, metrics[k], total_steps)
+                    if k in metrics:
+                        lg.writer.add_scalar(k, metrics[k], total_steps)
                 lg.push({k: metrics[k] for k in ("epe", "1px", "3px", "5px", "loss")
                          if k in metrics})
-                if total_steps % 100 == 0:
+                if total_steps % 100 == 0 and "flow" in cpu_batch:
                     # image dumps (ft_dkt.py:252-272): inputs and colormapped GT
                     gt_img, _ = disp_to_color(-cpu_batch["flow"][0].numpy())
                     save_images(lg.writer, "train", {

@@ -10,8 +10,8 @@ sample. The datasets, their replication factors in :func:`fetch_dataset`
 and the differences from the reference are the JAX package's: an explicit
 ``numpy.random.Generator`` instead of global random state, NHWC float32
 arrays, a ``kitti_mix`` branch that builds the mix split, no
-``KITTI_SubSet``. NeRF-Stereo's triplets are not ported yet (ROADMAP.md
-Queue 1 item 10).
+``KITTI_SubSet``. NeRF-Stereo's triplets are ``data/triplet.py``'s
+``NerfStereo``.
 """
 
 from __future__ import annotations
@@ -372,9 +372,11 @@ class Booster(StereoDataset):
 
 def fetch_dataset(train_datasets, image_size, spatial_scale=(-0.2, 0.4),
                   saturation_range=None, img_gamma=None, do_flip=False,
-                  noyjitter=False, data_root="data"):
+                  noyjitter=False, data_root="data", conf_threshold=0.5,
+                  disp_threshold=512.0):
     """Dataset composition with the reference's replication factors
-    (core/stereo_datasets.py:482-533), with the kitti_mix branch fixed."""
+    (core/stereo_datasets.py:482-533), with the kitti_mix branch fixed.
+    ``conf_threshold`` and ``disp_threshold`` are ``nerf_stereo``'s."""
     aug_params = {
         "crop_size": image_size,
         "min_scale": spatial_scale[0],
@@ -410,9 +412,19 @@ def fetch_dataset(train_datasets, image_size, spatial_scale=(-0.2, 0.4),
         elif name.startswith("tartan_air"):
             new = TartanAir(dict(aug_params), root=data_root, keywords=name.split("_")[2:])
         elif name == "nerf_stereo":
-            raise NotImplementedError(
-                "nerf_stereo (NeRF-Stereo triplets) is not ported yet: ROADMAP.md Queue 1 "
-                "item 10")
+            # core/stereo_datasets.py:528-533: the triplet augmentor's own
+            # scale range and flips; the thresholds come from the CLI (the
+            # reference's CLI never defines them) and the NS step applies
+            # them
+            from dkt_stereo_tpu_torch.data.triplet import NerfStereo
+
+            ns_aug = {"crop_size": image_size, "min_scale": -0.2, "max_scale": 0.5,
+                      "do_flip": True}
+            new = NerfStereo(
+                datapath=osp.join(data_root, "nerf-stereo", "training_set"),
+                training_file=osp.join(data_root, "nerf-stereo", "trainingQ.txt"),
+                conf_threshold=conf_threshold, disp_threshold=disp_threshold,
+                aug_params=ns_aug)
         else:
             raise ValueError(f"unknown dataset {name!r}")
         logging.info("Adding %d samples from %s", len(new), name)

@@ -22,10 +22,13 @@ epoch of that stream. A batch is a dict of CPU tensors (``img1``, ``img2``,
 ``img1_clean``, ``img2_clean`` (B, H, W, 3), ``flow``, ``valid`` (B, H,
 W), float32), pinned when a CUDA device exists, for the caller's
 ``.to(device, non_blocking=True)``. An exception in a
-worker reaches the consumer (the DataLoader re-raises it there). One
-process only: the JAX loader's ``num_hosts``/``host_id`` sharding and
-``MixedStereoLoader`` (NeRF-Stereo) are not ported (ROADMAP.md Queue 1
-items 11 and 10).
+worker reaches the consumer (the DataLoader re-raises it there).
+
+:class:`MixedStereoLoader` draws binocular and NeRF-Stereo triplet samples
+into batches of a static split, ``nb`` binocular rows then ``nt``
+trinocular ones, in ``data/triplet.py::collate_mixed``'s nested form. One
+process only: the JAX loader's ``num_hosts``/``host_id`` sharding is not
+ported (ROADMAP.md Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ import os
 import numpy as np
 import torch
 from torch.utils.data import DataLoader, Dataset, Sampler
+
+from dkt_stereo_tpu_torch.data.triplet import collate_mixed
 
 
 def _collate(samples: list[dict]) -> dict:
@@ -52,19 +57,25 @@ class _EpochBatches(Dataset):
         self.shuffle, self.seed = shuffle, seed
         self._epoch, self._indices = None, None
 
+    def epoch_indices(self, epoch: int) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.RandomState(self.seed + epoch).shuffle(idx)
+        return idx
+
     def indices(self, epoch: int) -> np.ndarray:
         if epoch != self._epoch:
-            idx = np.arange(len(self.dataset))
-            if self.shuffle:
-                np.random.RandomState(self.seed + epoch).shuffle(idx)
-            self._epoch, self._indices = epoch, idx
+            self._epoch, self._indices = epoch, self.epoch_indices(epoch)
         return self._indices
+
+    def collate(self, samples: list[dict]):
+        return _collate(samples)
 
     def __getitem__(self, item):
         epoch, b = item
         chunk = self.indices(epoch)[b * self.batch_size:(b + 1) * self.batch_size]
         rng = np.random.default_rng((self.seed, epoch, 0, b))
-        return _collate([self.dataset.get_sample(int(i), rng) for i in chunk])
+        return self.collate([self.dataset.get_sample(int(i), rng) for i in chunk])
 
 
 class _EpochSampler(Sampler):
@@ -111,18 +122,26 @@ class StereoLoader:
             context = multiprocessing.get_context("forkserver")
             context.set_forkserver_preload([__name__])
         self._loader = DataLoader(
-            _EpochBatches(dataset, batch_size, shuffle, seed), batch_size=None,
+            self._epoch_batches(shuffle), batch_size=None,
             sampler=_EpochSampler(self), num_workers=workers,
             pin_memory=torch.cuda.is_available(), prefetch_factor=2 if workers else None,
             multiprocessing_context=context,
             worker_init_fn=_worker_init)
         self._stream, self._at = None, None
 
+    def _epoch_batches(self, shuffle: bool) -> _EpochBatches:
+        return _EpochBatches(self.dataset, self.batch_size, shuffle, self.seed)
+
     def __len__(self):
         n = len(self.dataset) // self.batch_size
         if not self.drop_last and len(self.dataset) % self.batch_size:
             n += 1
         return n
+
+    def epoch_indices(self, epoch: int) -> np.ndarray:
+        """The dataset's indices in epoch ``epoch``'s order, cut into
+        batches by position."""
+        return self._loader.dataset.epoch_indices(epoch)
 
     def __iter__(self):
         if len(self) == 0:  # the stream would never yield an item
@@ -142,3 +161,95 @@ class StereoLoader:
         stream, self._stream, self._at = self._stream, None, None
         if stream is not None and hasattr(stream, "_shutdown_workers"):
             stream._shutdown_workers()
+
+
+class _MixedView:
+    """One index space over a binocular pool [0, n_bi) followed by a
+    trinocular pool [n_bi, n_bi + n_tri)."""
+
+    def __init__(self, bi_dataset, tri_dataset):
+        self.bi, self.tri = bi_dataset, tri_dataset
+        self.n_bi = len(bi_dataset) if bi_dataset is not None else 0
+        self.n_tri = len(tri_dataset) if tri_dataset is not None else 0
+
+    def get_sample(self, index, rng=None):
+        if index < self.n_bi:
+            return self.bi.get_sample(index, rng)
+        return self.tri.get_sample(index - self.n_bi, rng)
+
+    def __len__(self):
+        return self.n_bi + self.n_tri
+
+
+class _MixedEpochBatches(_EpochBatches):
+    """Batch ``b`` holds ``nb`` binocular indices, then ``nt`` trinocular
+    ones, each pool shuffled on its own."""
+
+    def __init__(self, view: _MixedView, batch_size: int, shuffle: bool, seed: int, nb: int,
+                 nt: int, nbatch: int):
+        super().__init__(view, batch_size, shuffle, seed)
+        self.nb, self.nt, self.nbatch = nb, nt, nbatch
+
+    def epoch_indices(self, epoch: int) -> np.ndarray:
+        rs = np.random.RandomState(self.seed + epoch)
+        bi = np.arange(self.dataset.n_bi)
+        tri = self.dataset.n_bi + np.arange(self.dataset.n_tri)
+        if self.shuffle:
+            rs.shuffle(bi)
+            rs.shuffle(tri)
+        out = np.empty((self.nbatch, self.batch_size), np.int64)
+        for b in range(self.nbatch):
+            out[b, :self.nb] = bi[b * self.nb:(b + 1) * self.nb]
+            out[b, self.nb:] = tri[b * self.nt:(b + 1) * self.nt]
+        return out.reshape(-1)
+
+    def collate(self, samples: list[dict]):
+        return collate_mixed(samples)[0]
+
+
+class MixedStereoLoader(StereoLoader):
+    """Binocular and trinocular samples in batches of a static split
+    (``dkt_stereo_tpu/data/loader.py::MixedStereoLoader``): every batch holds
+    ``nb`` binocular samples and then ``nt`` trinocular ones, drawn from the
+    two pools shuffled on their own (one ``RandomState(seed + epoch)``,
+    binocular first). The reference's ``NerfStereo.collate_fn``
+    (core/stereo_datasets.py:449-480) under torch's sampler gives a
+    different split in every batch; a static one keeps the step's shapes.
+    ``num_tri`` sets ``nt``; by default it is proportional to the pools'
+    sizes, within [1, batch_size - 1] when both are non-empty. An epoch is
+    as many batches as the scarcer pool fills. A batch is
+    ``{im1_forward, im2_forward, bi: {flow, valid}, tri: {flow, conf, im0,
+    im1, im2}}`` of CPU tensors (``data/triplet.py::collate_mixed``)."""
+
+    def __init__(self, bi_dataset, tri_dataset, batch_size: int, num_tri: int | None = None,
+                 **kw):
+        view = _MixedView(bi_dataset, tri_dataset)
+        if num_tri is None:
+            if view.n_bi == 0:
+                num_tri = batch_size
+            elif view.n_tri == 0:
+                num_tri = 0
+            else:
+                frac = view.n_tri / (view.n_bi + view.n_tri)
+                num_tri = int(np.clip(round(batch_size * frac), 1, batch_size - 1))
+        if not 0 <= num_tri <= batch_size:
+            raise ValueError(f"num_tri {num_tri} outside [0, {batch_size}]")
+        if (num_tri and view.n_tri == 0) or (batch_size - num_tri and view.n_bi == 0):
+            raise ValueError(
+                f"split nb={batch_size - num_tri}/nt={num_tri} draws from an "
+                f"empty pool (n_bi={view.n_bi}, n_tri={view.n_tri})")
+        self.nt = num_tri
+        self.nb = batch_size - num_tri
+        super().__init__(view, batch_size, **kw)
+
+    def _epoch_batches(self, shuffle: bool) -> _EpochBatches:
+        return _MixedEpochBatches(self.dataset, self.batch_size, shuffle, self.seed, self.nb,
+                                  self.nt, len(self))
+
+    def __len__(self):
+        n = []
+        if self.nb:
+            n.append(self.dataset.n_bi // self.nb)
+        if self.nt:
+            n.append(self.dataset.n_tri // self.nt)
+        return min(n)

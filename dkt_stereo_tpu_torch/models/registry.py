@@ -5,8 +5,9 @@ adapter of the DKT step.
 The five model families of the JAX registry are ported in test and train
 mode: RAFTStereo, IGEVStereo, PCVNet, GWCNet and CGI_Stereo, with their
 ``sequence_loss_raft``, ``sequence_loss_igev``, ``sequence_loss_pcvnet``,
-``loss_gwcnet`` and ``loss_cgi``. ``ns_loss`` raises naming its ROADMAP.md
-queue entry."""
+``loss_gwcnet`` and ``loss_cgi``. ``ns_loss`` is not a loss of this
+interface: it takes the trinocular batch, and ``train/ns_step.py`` calls
+it."""
 
 from __future__ import annotations
 
@@ -36,9 +37,6 @@ MODELS: dict[str, tuple] = {
 DEFAULT_LOSS = {"RAFTStereo": "sequence_loss_raft", "IGEVStereo": "sequence_loss_igev",
                 "PCVNet": "sequence_loss_pcvnet", "GWCNet": "loss_gwcnet",
                 "CGI_Stereo": "loss_cgi"}
-_QUEUED_LOSSES = {
-    "ns_loss": "Queue 1 item 10",
-}
 
 
 def get_model(name: str):
@@ -85,8 +83,8 @@ def make_loss_adapter(name: str, cfg: dict | None = None, loss_func: str | None 
     metrics, mask, ok)`` (``dkt_stereo_tpu/models/registry.py:43-79``).
     ``cfg`` is the model's config dict (IGEV's loss reads ``max_disp``,
     GWCNet's and CGI's ``maxdisp``, 192 without one); ``loss_func`` picks the loss by its reference name;
-    None takes the model's default. Names not ported yet raise a KeyError
-    naming their ROADMAP.md entry."""
+    None takes the model's default. ``ns_loss`` raises a ValueError that
+    points at the NS route; an unknown name a KeyError."""
     get_model(name)
     loss_func = loss_func or DEFAULT_LOSS[name]
     if loss_func == "sequence_loss_raft":
@@ -102,8 +100,13 @@ def make_loss_adapter(name: str, cfg: dict | None = None, loss_func: str | None 
         loss = loss_gwcnet if loss_func == "loss_gwcnet" else loss_cgi
         maxdisp = (cfg or {}).get("maxdisp", 192)
         return lambda out, gt, v: loss(out["disp_preds"], gt, v, maxdisp)
-    where = _QUEUED_LOSSES.get(loss_func)
-    if where is not None:
-        raise KeyError(f"loss_func {loss_func!r} is not ported yet: ROADMAP.md {where}")
+    if loss_func == "ns_loss":
+        # the trinocular batch (conf, im0/im1/im2) is not this interface's
+        # (outputs, gt, valid); the reference registers ns_loss with the
+        # same mismatch against ft_dkt.py:227's call
+        raise ValueError(
+            "ns_loss requires the trinocular batch contract; select it via a config with "
+            "loss_func='ns_loss' and --train_datasets nerf_stereo (cli/train.py routes that "
+            "to the NeRF-Stereo training step)")
     raise KeyError(f"unknown loss_func {loss_func!r}; ported: ['loss_cgi', 'loss_gwcnet', "
                    "'sequence_loss_igev', 'sequence_loss_pcvnet', 'sequence_loss_raft']")

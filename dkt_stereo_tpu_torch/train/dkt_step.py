@@ -32,7 +32,7 @@ from dkt_stereo_tpu_torch.train.state import (
     DKTHyperParams,
     DKTTrainState,
     applied_step_count,
-    clip_by_global_norm_,
+    apply_update_,
     make_optimizer,
     make_schedule,
 )
@@ -185,14 +185,7 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
         lr = schedule(applied_step_count(optimizer))
         applied = bool(ok)
         if applied:
-            params = [p for g in optimizer.param_groups for p in g["params"]]
-            for p in params:
-                if p.grad is None:  # unused in this forward: JAX's zero gradient
-                    p.grad = torch.zeros_like(p)
-            clip_by_global_norm_([p.grad for p in params], 1.0)
-            for group in optimizer.param_groups:
-                group["lr"] = lr
-            optimizer.step()
+            apply_update_(optimizer, lr)
         else:
             optimizer.zero_grad(set_to_none=True)
         mark("optimizer")

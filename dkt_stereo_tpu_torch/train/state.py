@@ -98,6 +98,20 @@ def clip_by_global_norm_(grads, max_norm: float = 1.0) -> torch.Tensor:
     return norm
 
 
+def apply_update_(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The optimizer chain of an applied step: a parameter the forward did
+    not use gets a zero gradient (JAX's), the gradients are clipped to
+    global norm 1.0, then AdamW steps at ``lr``."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    clip_by_global_norm_([p.grad for p in params], 1.0)
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
+
+
 def applied_step_count(optimizer: torch.optim.Optimizer) -> int:
     """Number of applied optimizer steps: AdamW's own step count. It differs
     from ``DKTTrainState.step`` once steps were skipped (ok=False), so the

@@ -312,7 +312,7 @@ def test_pretrained_backbone_into_cgi(tmp_path):
 def test_registry_builds_the_shipped_config():
     """cgi/base.json builds from the registry at full width, on the CPU
     when asked; ``make_loss_adapter`` serves loss_cgi with the config's
-    maxdisp; ns_loss stays queued."""
+    maxdisp; ns_loss raises the JAX registry's ValueError."""
     assert get_model("CGI_Stereo")[0] is CGIStereo
     model = create_model(BASE, device="cpu", seed=0)
     assert model.test_mode and model.cfg.maxdisp == 192 and model.cfg.mixed_precision
@@ -325,7 +325,7 @@ def test_registry_builds_the_shipped_config():
     gt[0, 1, 1] = -3.0
     loss, metrics, mask, ok = fn(preds, gt, torch.ones(1, 4, 4))
     assert bool(ok) and int(mask.sum()) == 15 and float(loss) == pytest.approx(0.3 * 0.5 + 0.5)
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 10"):
+    with pytest.raises(ValueError, match="trinocular batch contract"):
         make_loss_adapter("CGI_Stereo", BASE, "ns_loss")
 
 

@@ -368,7 +368,8 @@ def test_fetch_dataset_and_concat_match_jax(trees):
     """``fetch_dataset``'s composition (replication factors, part order,
     lengths) for every name the port builds, ``__mul__`` / ``__add__`` /
     ``ConcatStereoDataset`` dispatch and ``img_pad``, against the JAX
-    package; ``nerf_stereo`` raises naming ROADMAP.md Queue 1 item 10."""
+    package; ``nerf_stereo`` without its file list raises as the JAX
+    package's does."""
     names = ["sceneflow", "sintel_stereo", "falling_things", "tartan_air_hospital", "kitti_mix",
              "kitti_2015", "eth3d", "booster", "middlebury_H"]
     kw = dict(image_size=(32, 48), data_root=str(trees))
@@ -397,7 +398,9 @@ def test_fetch_dataset_and_concat_match_jax(trees):
     assert s["img1"].shape == (36, 54, 3) and s["img2_clean"].shape == (36, 54, 3)
     assert s["flow"].shape == (32, 48)
     _same_sample(s, jpadded.get_sample(0, np.random.default_rng(0)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(FileNotFoundError, match="trainingQ.txt"):
+        jds.fetch_dataset(["nerf_stereo"], **kw)
+    with pytest.raises(FileNotFoundError, match="trainingQ.txt"):
         datasets.fetch_dataset(["nerf_stereo"], **kw)
 
 

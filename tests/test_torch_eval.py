@@ -378,7 +378,8 @@ def test_eval_and_demo_cli_match_jax(cli_setup, monkeypatch):
 def test_cli_refusals(cli_setup, tmp_path):
     """What the slice does not port raises and names where it comes: a
     checkpoint path that is neither a ``.pth`` nor a port checkpoint,
-    ``--spatial_bands 2`` (item 11), NeRF-Stereo's dataset (item 10). The
+    ``--spatial_bands 2`` (item 11), NeRF-Stereo's dataset without its file
+    list (as the JAX package's). The
     training datasets the training side ported build: augmented samples
     and Scene Flow's training splits."""
     from dkt_stereo_tpu_torch.cli.eval import main as port_eval
@@ -391,7 +392,7 @@ def test_cli_refusals(cli_setup, tmp_path):
         port_eval(base + ["--restore_ckpt", str(tmp / "step_3")], device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         port_eval(base + ["--restore_ckpt", str(ckpt), "--spatial_bands", "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(FileNotFoundError, match="trainingQ.txt"):
         fetch_dataset(["nerf_stereo"], (32, 64), data_root=str(tmp))
     kitti = KITTI({"crop_size": (32, 64)}, root=str(tmp / "KITTI"), split="2015")
     assert kitti.get_sample(0, np.random.default_rng(0))["img1"].shape == (32, 64, 3)

@@ -531,12 +531,13 @@ def test_loss_adapter_and_unported_training_options():
         loss, metrics, _, ok = make_loss_adapter("RAFTStereo", cfg, "sequence_loss_igev")(
             igev, -3 * torch.ones(1, 4, 4), torch.ones(1, 4, 4))
         assert float(loss) == pytest.approx(want) and bool(ok) and "init_epe" in metrics
-    # loss_gwcnet by name serves the port's loss; ns_loss is still queued
+    # loss_gwcnet by name serves the port's loss; ns_loss raises the JAX
+    # registry's ValueError, which points at the NS route
     gwc = {"disp_preds": preds[-1:].expand(4, -1, -1, -1)}
     loss, _, _, ok = make_loss_adapter("RAFTStereo", None, "loss_gwcnet")(
         gwc, -3 * torch.ones(1, 4, 4), torch.ones(1, 4, 4))
     assert bool(ok) and float(loss) == pytest.approx((0.5 + 0.5 + 0.7 + 1.0) * 2.5)
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 10"):
+    with pytest.raises(ValueError, match="trinocular batch contract"):
         make_loss_adapter("RAFTStereo", None, "ns_loss")
     with pytest.raises(KeyError, match="unknown loss_func"):
         make_loss_adapter("RAFTStereo", None, "no_such_loss")

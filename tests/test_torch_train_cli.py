@@ -366,12 +366,14 @@ def test_eval_and_demo_read_port_checkpoints(runs, tmp_path):
 
 
 def test_train_cli_refusals(runs, tmp_path, monkeypatch):
-    """What is not ported raises naming its ROADMAP.md item: NeRF-Stereo
-    (``loss_func=ns_loss``, ``nerf_stereo``; item 10), ``--batched_teachers``
-    (item 5), the multi-process and profiler flags (item 11). A
-    FallingThings JPEG without PIL raises naming the file; a JAX package
-    (Orbax) checkpoint given to the eval CLI raises pointing at its export
-    CLI; without ``device`` the train CLI wants a CUDA device."""
+    """The JAX CLI's two NeRF-Stereo exits (``loss_func=ns_loss`` without
+    ``nerf_stereo`` data; ``nerf_stereo`` data under ``train.json``'s
+    ``sequence_loss_raft``); what is not ported raises naming its ROADMAP.md
+    item: ``--batched_teachers`` (item 5), the multi-process and profiler
+    flags (item 11). A FallingThings JPEG without PIL raises naming the
+    file; a JAX package (Orbax) checkpoint given to the eval CLI raises
+    pointing at its export CLI; without ``device`` the train CLI wants a
+    CUDA device."""
     from dkt_stereo_tpu.train.checkpoint import save_checkpoint as jsave
     from dkt_stereo_tpu_torch.cli.eval import main as eval_main
     from dkt_stereo_tpu_torch.data import datasets
@@ -380,10 +382,14 @@ def test_train_cli_refusals(runs, tmp_path, monkeypatch):
     ns_cfg = tmp_path / "ns.json"
     ns_cfg.write_text(json.dumps({**json.loads(TRAIN_JSON.read_text()), "loss_func": "ns_loss"}))
     argv = _args(data, save)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(SystemExit, match="needs trinocular data"):
         train_cli.main(argv[:1] + [str(ns_cfg)] + argv[2:], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        train_cli.main(argv + ["--train_datasets", "booster", "nerf_stereo"], device="cpu")
+    ns_list = tmp_path / "nerf-stereo" / "trainingQ.txt"  # the file list is all it reads
+    ns_list.parent.mkdir()
+    ns_list.write_text("s/im0.png s/im1.png s/im2.png s/disp.png s/conf.png\n")
+    with pytest.raises(SystemExit, match="needs loss_func=ns_loss"):
+        train_cli.main(argv + ["--train_datasets", "nerf_stereo", "--data_root", str(tmp_path)],
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         train_cli.main(argv + ["--batched_teachers"], device="cpu")
     for flag, value in (("--coordinator_address", "localhost:1234"), ("--num_processes", "2"),
