@@ -299,11 +299,47 @@ NeRF-Stereo training (configs/raft_stereo/ns.json, loss_func ns_loss):
      16 K1 and 16 K1-backward launches a step, ok and a finite loss, the
      CLI's timing line, a checkpoint.
 
+The profiler, banded evaluation and multi-process training (ROADMAP.md
+Queue 1 item 11):
+
+ 39. train.json through cli.train on phase 33's Scene Flow tree (batch 8,
+     320x720, 4 loader workers, 4 steps) with --profile_start 1
+     --profile_steps 2: the trace holds exactly 2 ProfilerStep ranges and
+     2 x 96 K1 forward and 2 x 16 K1 backward kernel events; the window's
+     device-busy share, the top 15 device operations by time
+     (chiprun_out/chip_smoke_cli_train_trace_top.txt) and the step's own
+     host time traced and untraced;
+ 40. sequential banded evaluation (eval/tiled.py::banded_forward) of
+     alt_pallas.json at 1x1984x2880, fp32, 32 iterations, halo 64: one band
+     within 1e-5 px of the unbanded frame; 2 and 4 bands with ms/frame, peak
+     memory, exactly 32 K3 and 4 K2 a band, and max/mean |d| against the
+     unbanded frame (approximate by design);
+ 41. exact banded evaluation (banded_forward_exact) on two ranks that share
+     cuda:0 over gloo (parallel/mesh.py::run_ranks; NCCL refuses two ranks
+     on one device), fp32, TF32 off: alt_pallas.json with pallas_encoder
+     off at 1x1984x2880, halo 128, 2 iterations (flow head damped by 0.02,
+     the JAX test's protocol) within max 1e-3 and mean 1e-4 px of the
+     unbanded frame; 32 iterations with ms/frame, each rank's peak memory
+     and 32 K3 a band; IGEV pallas.json at 1x736x1280, 2 iterations, halo
+     64 (disparity head scaled by 0.05), max below 0.02 x its scale + 1 px,
+     2 K4 a band;
+ 42. (a) in the same two ranks, one DKT step (train.json, fp32, 1x64x128 a
+     rank, 2 + 2 iterations) and one NS step (ns.json, nb = nt = 2 global),
+     rank 1's valid half zeros, against one process's step on the global
+     batch on the card: losses within 1e-3 relative, gradients within 0.1
+     relative L2 a module and 0.05 over all, both ranks' weights
+     bit-identical, 8/2 and 2/2 K1 launches a rank; (b) train.json at
+     8x320x720 in a process group of one over NCCL (the step's collectives
+     run), 1 warm-up and 3 timed steps, 96 K1 and 16 K1 backward a step,
+     beside phase 9's one-process step; then cli.train's broadcast of the
+     state from rank 0 (parallel/mesh.py::replicate), bit-identical.
+
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
 result. Whatever the outcome, every process the phases started (the
 loaders' forkserver, workers and resource tracker, the killed stage 1's
-orphans, which this process adopts) is stopped and reaped before it exits.
+orphans, which this process adopts, the ranks of phases 41-42) is stopped
+and reaped before it exits.
 """
 
 from __future__ import annotations
@@ -312,6 +348,7 @@ import copy
 import ctypes
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -4605,6 +4642,475 @@ def phase_ns_cli(torch, train_data, card):
 
 
 
+# --- item 11: the profiler, banded evaluation, multi-process training (39-42) ----------
+
+PROFILE_TOP = 15
+BAND_COUNTS = (1, 2, 4)  # phase 40's sequential bands
+BAND_HALO = 64
+EXACT_HALO = 128  # phase 41's halo: JAX's for the shipped 3-GRU config
+IGEV_BAND_IMAGE = (736, 1280)
+RANK_TIMEOUT = 600  # seconds a group of ranks may take
+
+
+def _trace_window(path):
+    """From a ``cli.train`` trace: its ProfilerStep ranges, the kernel
+    events and the device's busy share of the window (the union of its
+    kernels', copies' and sets' intervals over the window's span)."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    steps = [e for e in events if str(e.get("name", "")).startswith("ProfilerStep#")
+             and not str(e.get("cat", "")).startswith("gpu_")]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not steps:
+        return steps, device, float("nan"), 0.0
+    t0 = min(e["ts"] for e in steps)
+    t1 = max(e["ts"] + e["dur"] for e in steps)
+    busy, end = 0.0, t0
+    for s, d in sorted((e["ts"], e["dur"]) for e in device):
+        s, f = max(s, end), min(s + d, t1)
+        if f > s:
+            busy += f - s
+            end = f
+    return steps, device, busy / (t1 - t0), (t1 - t0) / 1e3
+
+
+def phase_profiled_train(torch, train_data, card):
+    """Phase 39: train.json through cli.train at the recipe's 8x320x720 on
+    the Scene Flow tree, 4 loader workers, 4 steps, --profile_start 1
+    --profile_steps 2: the trace holds exactly 2 ProfilerStep ranges, 2 x 96
+    K1 forward and 2 x 16 K1 backward kernels; the window's device-busy
+    share, the top device operations by time (also in
+    chiprun_out/chip_smoke_cli_train_trace_top.txt) and the step's own host
+    time inside the window and after it."""
+    import re
+
+    trace_dir = Path(train_data).parent / "trace"
+    argv = ["--config", str(ROOT / "configs/raft_stereo/train.json"), "--train_datasets",
+            "sceneflow", "--data_root", str(train_data), "--batch_size", "8", "--image_size",
+            "320", "720", "--num_workers", TRAIN_WORKERS, "--num_steps", "3",
+            "--validation_frequency", "100000", "--save_dir",
+            str(Path(train_data).parent / "run_profiled"), "--profile_dir", str(trace_dir),
+            "--profile_start", "1", "--profile_steps", "2"]
+    res, probe, launches = _in_process(
+        torch, argv, "profiled cli.train (train.json, Scene Flow, 8x320x720, steps 1-2 traced)",
+        {"corr_lookup": 96, "corr_lookup_bwd": 16}, card)
+    check(res["trace"] is not None and Path(res["trace"]).exists(), f"no trace: {res['trace']}")
+    steps, device, busy, span_ms = _trace_window(res["trace"])
+    names = sorted(e["name"] for e in steps)
+    check(names == ["ProfilerStep#1", "ProfilerStep#2"], f"trace steps {names}")
+    k1 = sum(1 for e in device if e.get("cat") == "kernel"
+             and re.search(r"corr_lookup_kernel", e["name"]))
+    k1b = sum(1 for e in device if e.get("cat") == "kernel"
+              and re.search(r"corr_lookup_bwd_kernel", e["name"]))
+    check((k1, k1b) == (2 * 96, 2 * 16), f"trace K1 kernels {k1} fwd, {k1b} bwd != 192, 32")
+    by_name = {}
+    for e in device:
+        t, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (t + e["dur"] / 1e3, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    lines = [f"{t:9.3f} ms {n:6d}x  {name}" for name, (t, n) in ranked]
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_cli_train_trace_top.txt").write_text("\n".join(lines) + "\n")
+    own = 1e3 * np.asarray(res["step_seconds"])
+    size_mb = Path(res["trace"]).stat().st_size / 1e6
+    print(f"profiled cli.train window: {len(steps)} ProfilerStep ranges {names}, K1 kernels "
+          f"{k1} fwd / {k1b} bwd (2 x 96 / 2 x 16), window {span_ms:.1f} ms, device busy share "
+          f"{busy:.3f} (idle {1 - busy:.3f}), {sum(n for _, n in by_name.values())} device "
+          f"ops, trace {size_mb:.1f} MB | the step's own host ms: warm-up {own[0]:.1f}, traced "
+          f"{own[1]:.1f} {own[2]:.1f}, untraced {own[3]:.1f} (profiler overhead "
+          f"{np.mean(own[1:3]) / own[3] - 1:+.1%}) | by bucket: {bucket_line(by_name)} | "
+          f"{card}; top {PROFILE_TOP} device ops:", flush=True)
+    for line in lines[:PROFILE_TOP]:
+        print("  " + line[:160])
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    return {"profiled_training": launches}
+
+
+def phase_banded(torch, alt_cfg, card):
+    """Phase 40: sequential banded evaluation (eval/tiled.py::banded_forward)
+    of alt_pallas.json at 1x1984x2880, fp32 (the eval protocol), 32
+    iterations, halo 64. One band hands the model the unbanded eval's
+    padded frame bit for bit; its output is reported against the unbanded
+    frame beside the unbanded frame's own run-to-run difference (K2's
+    statistics are fp32 atomics, and random-weight RAFT amplifies that over
+    32 iterations). 2 and 4 bands with ms/frame, peak memory, launches (32
+    K3 and 4 K2 a band) and their difference from the unbanded frame,
+    which is approximate by design (no cross-band statistics)."""
+    from dkt_stereo_tpu_torch.eval.tiled import banded_forward
+    from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
+    from dkt_stereo_tpu_torch.models.registry import create_model
+    from dkt_stereo_tpu_torch.ops.pad import pad_input
+
+    iters = 32
+    H, W = ALT_IMAGE
+    model_forward = make_forward_fn(create_model({**alt_cfg, "mixed_precision": False},
+                                                 iters=iters, seed=0))
+    seen = []
+
+    def forward(x1, x2):
+        seen.append((x1, x2))
+        return model_forward(x1, x2)
+
+    forward.device = model_forward.device
+    rng = np.random.default_rng(40)
+    img1, img2 = (rng.uniform(0, 255, (H, W, 3)).astype(np.float32) for _ in range(2))
+
+    def run(fn):
+        fn()  # warm-up at this band shape
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+        return out, 1e3 * dt, torch.cuda.max_memory_allocated() / 2**30, kernel_counts()
+
+    full, full_ms, full_peak, full_counts = run(lambda: _run_one(forward, img1, img2)[0])
+    want = {**dict.fromkeys(full_counts, 0), "corr_lookup_alt": iters, "encoder_stage": 4}
+    check(full_counts == want, f"unbanded fp32 launches {full_counts} != {want}")
+    check(bool(np.isfinite(full).all()), "unbanded fp32 frame not finite")
+    floor = np.abs(_run_one(forward, img1, img2)[0] - full)
+    rows = [f"unbanded {full_ms:.1f} ms, peak {full_peak:.2f} GiB, run to run |d| max "
+            f"{floor.max():.4g} mean {floor.mean():.4g} px"]
+    launches = {}
+    for n in BAND_COUNTS:
+        seen.clear()
+        disp, ms, peak, counts = run(lambda: banded_forward(forward, img1, img2, n_bands=n,
+                                                            halo=BAND_HALO))
+        want = {**dict.fromkeys(counts, 0), "corr_lookup_alt": iters * n, "encoder_stage": 4 * n}
+        check(counts == want, f"{n} bands: launches {counts} != {want}")
+        check(disp.shape == (H, W) and bool(np.isfinite(disp).all()), f"{n} bands: bad output")
+        err = np.abs(disp - full)
+        if n == 1:
+            for x, img in zip(seen[-1], (img1, img2)):
+                padded, _ = pad_input(torch.as_tensor(img, device="cuda")[None], 32, "sintel")
+                check(torch.equal(x, padded), "one band is not the unbanded eval's padded frame")
+        launches[f"banded_{n}_alt_inference"] = counts
+        rows.append(f"{n} band{'s' if n > 1 else ''}: {ms:.1f} ms, peak {peak:.2f} GiB "
+                    f"({peak / full_peak:.2f}x), K3 {counts['corr_lookup_alt']} K2 "
+                    f"{counts['encoder_stage']}, |d| vs unbanded max {err.max():.4g} mean "
+                    f"{err.mean():.4g} px")
+    print(f"sequential banded eval (alt_pallas.json, fp32, 1x{H}x{W}, {iters} iters, halo "
+          f"{BAND_HALO}; one warm-up at each band shape; one band is the unbanded padded "
+          f"frame bit for bit): " + " | ".join(rows) + f" | {card}", flush=True)
+    del forward, model_forward, seen
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _damped(model, damp):
+    """Scale the parameters whose name holds ``damp[0]`` by ``damp[1]``."""
+    import torch
+
+    if damp:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if damp[0] in name:
+                    p.mul_(damp[1])
+    return model
+
+
+def _frame(seed, H, W):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(0, 255, (H, W, 3)).astype(np.float32) for _ in range(2)]
+
+
+def _exact_case(torch, case):
+    """One exact-banding case on this rank: ``reps`` frames after one
+    warm-up, their host ms, this process's peak memory and its launches
+    a frame."""
+    from dkt_stereo_tpu_torch.eval.tiled import banded_forward_exact
+    from dkt_stereo_tpu_torch.models.registry import create_model
+
+    model = _damped(create_model(case["config"], iters=case["iters"], seed=0),
+                    case.get("damp"))
+    img1, img2 = _frame(case["seed"], *case["image"])
+    disp = banded_forward_exact(model, img1, img2, halo=case["halo"])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for _ in range(case["reps"]):
+        t0 = time.perf_counter()
+        disp = banded_forward_exact(model, img1, img2, halo=case["halo"])
+        times.append(1e3 * (time.perf_counter() - t0))
+    counts = {k: v // case["reps"] for k, v in kernel_counts().items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model
+    torch.cuda.empty_cache()
+    return disp, times, peak, counts
+
+
+def _dp_step(torch, kind, cfg, batch_seed, rank, size):
+    """One data-parallel step (the DKT step of ``cfg`` or the NS step) on
+    this rank's rows of a seeded global batch, from the state of seed 0:
+    metrics, the student's gradients (CPU), a digest of its weights and
+    the launches."""
+    import hashlib
+
+    from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
+    from dkt_stereo_tpu_torch.train.ns_step import make_ns_train_step
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    hyper = DKTHyperParams(train_iters=2, teacher_iters=2)
+    state = create_dkt_state(cfg, hyper, seed=0, device="cuda")
+    zero_counts()
+    if kind == "dkt":
+        batch = _dp_batch(torch, batch_seed)
+        local = {k: v.chunk(size)[rank].contiguous().cuda() for k, v in batch.items()}
+        state, m = make_dkt_train_step(cfg, hyper)(
+            state, local, generator=torch.Generator().manual_seed(11))
+    else:
+        blocks = _dp_ns_blocks(torch, batch_seed, size)
+        state, m = make_ns_train_step(cfg, hyper, nb=2, nt=2)(
+            state, _nested(blocks[rank], lambda t: t.cuda()))
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    digest = hashlib.sha256()
+    for v in state.student.state_dict().values():
+        digest.update(v.detach().cpu().numpy().tobytes())
+    grads = {k: p.grad.detach().cpu() for k, p in state.student.named_parameters()
+             if p.grad is not None}
+    return m, grads, digest.hexdigest(), counts
+
+
+def _dp_batch(torch, seed, B=2, H=64, W=128):
+    """The global DKT batch of phase 42(a), on the CPU: rank 1's row has no
+    valid pixel in its top half, so the ranks' valid counts differ."""
+    gen = torch.Generator().manual_seed(seed)
+    b = _train_batch(torch, gen, B, H, W, "cpu")
+    b["valid"][1, :H // 2] = 0
+    return b
+
+
+def _dp_ns_blocks(torch, seed, size, H=64, W=128):
+    """The global NS batch of nb = nt = 2 on the CPU as ``size`` host blocks
+    (each: its binocular rows, then its trinocular rows; one block is one
+    process's layout), rank 1's binocular valid half zeros."""
+    batch = _ns_batch(torch, torch.Generator().manual_seed(seed), 2, 2, H, W, "cpu")
+    batch["bi"]["valid"][1, :H // 2] = 0
+    nb_l = nt_l = 2 // size
+    blocks = []
+    for r in range(size):
+        rows = list(range(r * nb_l, (r + 1) * nb_l)) + [2 + i for i in range(r * nt_l,
+                                                                             (r + 1) * nt_l)]
+        blocks.append({"im1_forward": batch["im1_forward"][rows],
+                       "im2_forward": batch["im2_forward"][rows],
+                       "bi": {k: v[r * nb_l:(r + 1) * nb_l] for k, v in batch["bi"].items()},
+                       "tri": {k: v[r * nt_l:(r + 1) * nt_l] for k, v in batch["tri"].items()}})
+    return blocks
+
+
+def _rank_jobs(rank, jobs):
+    """A rank of phases 41 and 42(a), on cuda:0 beside the other rank (gloo
+    runs all_reduce on CUDA tensors; NCCL refuses two ranks on one device):
+    fp32 with TF32 off; every job's result in order."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for kind, arg in jobs:
+        if kind == "exact":
+            out.append(_exact_case(torch, arg))
+        else:
+            out.append(_dp_step(torch, kind, arg[0], arg[1], rank, dist.get_world_size()))
+    return out
+
+
+def _unbanded(torch, case):
+    """The unbanded frame of an exact-banding case, in this process."""
+    from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
+    from dkt_stereo_tpu_torch.models.registry import create_model
+
+    model = _damped(create_model(case["config"], iters=case["iters"], seed=0), case.get("damp"))
+    forward = make_forward_fn(model)
+    disp, _ = _run_one(forward, *_frame(case["seed"], *case["image"]))
+    del model, forward
+    torch.cuda.empty_cache()
+    return disp
+
+
+def phase_exact_and_dp(torch, alt_cfg, igev_cfg, train_cfg, ns_cfg, card):
+    """Phases 41 and 42(a) in one group of two ranks sharing cuda:0 over
+    gloo (parallel/mesh.py::run_ranks), fp32 with TF32 off.
+
+    41: banded_forward_exact of alt_pallas.json with pallas_encoder off at
+    1x1984x2880, halo 128: at 2 iterations with the flow head damped by 0.02
+    (the JAX test's protocol, tests/test_parallel.py:276-330) within max
+    1e-3 and mean 1e-4 px of the unbanded frame; at 32 iterations ms/frame,
+    each rank's peak memory and 32 K3 a band; IGEV pallas.json at
+    1x736x1280, 2 iterations, halo 64, its disparity head scaled by 0.05
+    (as phase 12): max < 0.02 x scale + 1 px (JAX's bound; the 3-D
+    hourglass exchanges no halo), K4 2 a band.
+
+    42(a): one DKT step (train.json, 1x64x128 a rank, 2 + 2 iterations) and
+    one NS step (ns.json, nb = nt = 2 global), rank 1's valid half zeros,
+    against the one-process step on the global batch on the card: losses
+    within 1e-3 relative, gradients within 0.1 relative L2 a module and
+    0.05 over all (phase 8's bounds); both ranks' weights bit-identical."""
+    from dkt_stereo_tpu_torch.parallel.mesh import run_ranks
+
+    H, W = ALT_IMAGE
+    exact_cfg = {**alt_cfg, "pallas_encoder": False, "mixed_precision": False}
+    cases = {
+        "raft_2it": dict(config=exact_cfg, iters=2, seed=41, image=(H, W), halo=EXACT_HALO,
+                         damp=("flow_head", 0.02), reps=1),
+        "raft_32it": dict(config=exact_cfg, iters=32, seed=41, image=(H, W), halo=EXACT_HALO,
+                          reps=2),
+        "igev": dict(config={**igev_cfg, "mixed_precision": False}, iters=2, seed=42,
+                     image=IGEV_BAND_IMAGE, halo=BAND_HALO,
+                     damp=("update_block.disp_head.conv2.weight", 0.05), reps=1),
+    }
+    fp32 = lambda c: {**c, "mixed_precision": False, "corr_dtype": "float32"}  # noqa: E731
+    jobs = [("exact", c) for c in cases.values()] + [
+        ("dkt", (fp32(train_cfg), 420)), ("ns", (fp32(ns_cfg), 421))]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(_rank_jobs, 2, jobs, backend="gloo", timeout=RANK_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paths = {}
+    try:
+        for i, (name, case) in enumerate(cases.items()):
+            (d0, t0_, p0, c0), (d1, t1_, p1, c1) = ranks[0][i], ranks[1][i]
+            check(np.array_equal(d0, d1), f"{name}: the ranks assembled different frames")
+            iters = case["iters"]
+            kernel = "geo_lookup" if name == "igev" else "corr_lookup_alt"
+            want = {**dict.fromkeys(c0, 0), kernel: iters}
+            check(c0 == c1 == want, f"{name}: launches a band {c0} / {c1} != {want}")
+            paths[f"exact_banded_{name}"] = {k: c0[k] + c1[k] for k in c0}
+            line = (f"exact banded {name} (2 ranks on cuda:0 over gloo, fp32, TF32 off, "
+                    f"1x{case['image'][0]}x{case['image'][1]}, {iters} iters, halo "
+                    f"{case['halo']}): ms/frame {' '.join(f'{t:.1f}' for t in t0_)} (rank 0) "
+                    f"{' '.join(f'{t:.1f}' for t in t1_)} (rank 1) | peak rank 0 {p0:.2f} "
+                    f"rank 1 {p1:.2f} GiB | {kernel} a band {c0[kernel]}")
+            if name != "raft_32it":
+                full = _unbanded(torch, case)
+                err, scale = np.abs(d0 - full), float(np.abs(full).max())
+                if name == "igev":
+                    mid = err[case["image"][0] // 2 - 4:case["image"][0] // 2 + 4].max()
+                    check(err.max() < 0.02 * scale + 1.0,
+                          f"igev banded max {err.max()} >= 0.02 x {scale} + 1")
+                    line += (f" | vs unbanded max {err.max():.4g} mean {err.mean():.4g} px on "
+                             f"a {scale:.1f} px scale (bound {0.02 * scale + 1:.3f}), at the "
+                             f"boundary {mid:.4g}, top rows {err[:32].max():.4g}")
+                else:
+                    check(err.max() <= 1e-3 and err.mean() <= 1e-4,
+                          f"exact banded RAFT max {err.max()} mean {err.mean()} px")
+                    # where the worst pixel lies against the bands' boundary
+                    # (the padded frame's row 992 at 1984 rows, two bands)
+                    row = int(np.unravel_index(err.argmax(), err.shape)[0])
+                    edge = -(-H // 64) * 32
+                    far = np.abs(np.arange(H) - edge) > case["halo"]
+                    line += (f" | vs unbanded max {err.max():.4g} mean {err.mean():.4g} px "
+                             f"(bound 1e-3 / 1e-4) on a {scale:.3f} px scale, worst at row "
+                             f"{row} (boundary {edge}), beyond the halo of the boundary max "
+                             f"{err[far].max():.4g}")
+            print(line + f" | {card}", flush=True)
+
+        for j, kind in enumerate(("dkt", "ns"), start=len(cases)):
+            (m0, g0, h0, c0), (m1, g1, h1, c1) = ranks[0][j], ranks[1][j]
+            check(h0 == h1, f"{kind}: the ranks' weights differ after the step")
+            check(m0 == m1, f"{kind}: the ranks' metrics differ {m0} / {m1}")
+            m, grads, _, counts = _dp_step(torch, kind, jobs[j][1][0], jobs[j][1][1], 0, 1)
+            check(m0["ok"] == m["ok"] == 1.0, f"{kind}: ok {m0['ok']} / {m['ok']}")
+            keys = ("loss", "loss_GT", "loss_PL") if kind == "dkt" else ("loss", "ns_loss")
+            loss_err = {k: abs(m0[k] - m[k]) / max(abs(m[k]), 1e-12) for k in keys}
+            check(all(e <= 1e-3 for e in loss_err.values()), f"{kind} losses {loss_err}")
+            rel = _grad_rel([(k, _Grad(v)) for k, v in g0.items()],
+                            {k: _Grad(v) for k, v in grads.items()})
+            for g, e in rel.items():
+                check(e <= (0.05 if g == "all" else 0.1), f"{kind} gradient of {g}: {e}")
+            # DKT: teachers 2 + 2, student 2, its remat recompute 2; NS: 2 (no
+            # remat); 2 backward either way
+            want = {**dict.fromkeys(c0, 0), "corr_lookup": 8 if kind == "dkt" else 2,
+                    "corr_lookup_bwd": 2}
+            check(c0 == c1 == want, f"{kind} launches a rank {c0} / {c1} != {want}")
+            paths[f"dp_{kind}_step"] = {k: c0[k] + c1[k] for k in c0}
+            print(f"data-parallel {kind} step (2 ranks on cuda:0 over gloo, fp32, TF32 off, "
+                  f"1x64x128 a rank, rank 1's valid half zeros) vs one process on the global "
+                  f"batch: losses relative " + " ".join(f"{k} {e:.2e}" for k, e in
+                                                      loss_err.items())
+                  + " (tol 1e-3) | gradient relative L2 by module "
+                  + " ".join(f"{g} {e:.2e}" for g, e in rel.items())
+                  + f" (tol 0.1, 0.05 all) | weights bit-identical on both ranks | launches a "
+                  f"rank {c0} | {card}", flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    print(f"phases 41 and 42(a) ranks: {ranks_s:.1f} s (two processes, start-up included)",
+          flush=True)
+    # cli.eval --spatial_bands N wants N devices, one a rank; this card has one
+    from dkt_stereo_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        make_mesh(torch.cuda.device_count() + 1)
+        check(False, "make_mesh accepted more ranks than devices")
+    except ValueError as e:
+        print(f"cli.eval --spatial_bands {torch.cuda.device_count() + 1} on this machine: "
+              f"refused ({e})", flush=True)
+    return paths
+
+
+class _Grad:
+    """A gradient held as a parameter's ``.grad`` for ``_grad_rel``."""
+
+    def __init__(self, grad):
+        self.grad = grad
+
+
+def phase_dp_world_of_one(torch, train_cfg, card, unfused_ms, tmp):
+    """Phase 42(b): train.json at full width (8x320x720, 16/32 iterations,
+    bf16) in a process group of one over NCCL, so that the step's
+    collectives run (the gradients' all_reduce, ok and the loss values, the
+    losses' counts): 1 warm-up and 3 timed steps, 96 K1 and 16 K1 backward a
+    step, beside phase 9's one-process step; then the state broadcast from
+    rank 0 (cli.train's replicate), bit-identical."""
+    import torch.distributed as dist
+
+    from dkt_stereo_tpu_torch.parallel.mesh import replicate
+    from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'world_of_one'}", world_size=1,
+                            rank=0)
+    try:
+        hyper = DKTHyperParams(train_iters=16, teacher_iters=32)
+        state = create_dkt_state(train_cfg, hyper, seed=0)
+        step = make_dkt_train_step(train_cfg, hyper)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        state, run = timed_steps(torch, state, step, gen, TRAIN_IMAGE, "RAFT (world of one)",
+                                 steps=3)
+        want = {**dict.fromkeys(run["launches"], 0), "corr_lookup": 96, "corr_lookup_bwd": 16}
+        check(all(c == want for c in run["per_step"]),
+              f"world-of-one launches a step {run['per_step']} != {want}")
+        # cli.train's broadcast of the state from rank 0 over NCCL, the
+        # optimizer's CPU step counts through the card: a no-op for one rank
+        before = _state_to_cpu(torch, state)
+        t0 = time.perf_counter()
+        replicate(state.student, state.ema, state.teacher, state.optimizer)
+        torch.cuda.synchronize()
+        replicate_ms = 1e3 * (time.perf_counter() - t0)
+        _equal_tree(torch, _state_to_cpu(torch, state), before, "replicated state")
+        print(f"training path in a process group of one over NCCL (train.json, bf16, B=8 "
+              f"320x720, 16/32 iters, 3 steps after 1 warm-up): {step_line(run)} | phase 9's "
+              f"one-process mean {unfused_ms:.2f} ms/step, this {run['ms'].mean():.2f} "
+              f"({run['ms'].mean() / unfused_ms - 1:+.1%}) | replicate of the state "
+              f"{replicate_ms:.1f} ms, bit-identical | {card}", flush=True)
+        launches = run["launches"]
+        del state, step
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {"world_of_one_training": launches}
+
+
 def main():
     """Every phase, then every process the phases started is stopped."""
     adopt_orphans()
@@ -4703,6 +5209,11 @@ def run():
         phase_ns_parity(torch, ns_cfg)
         eval_paths.update(phase_ns_train(torch, ns_cfg, card))
         eval_paths.update(phase_ns_cli(torch, train_data, card))
+
+        eval_paths.update(phase_profiled_train(torch, train_data, card))
+        eval_paths.update(phase_banded(torch, alt_cfg, card))
+        eval_paths.update(phase_exact_and_dp(torch, alt_cfg, igev_cfg, train_cfg, ns_cfg, card))
+        eval_paths.update(phase_dp_world_of_one(torch, train_cfg, card, unfused_ms, tmp))
 
     def launches(name):
         by_path = {"inference": infer.get(name, 0), "training": train.get(name, 0),

@@ -31,15 +31,31 @@ trinocular samples a batch, ``--ns_num_tri`` setting ``nt``) and
   - F&E draws from a ``torch.Generator`` seeded with ``--seed``.
   - Each save and the end log the host's seconds a step, the time the
     loop waited for the loader and the peak device memory.
+  - ``--profile_dir`` traces the steps ``[step + --profile_start, step +
+    --profile_start + --profile_steps)``, counted from the step the run
+    starts at (a resumed run's too), into a Chrome/TensorBoard trace
+    (``train/profiling.py::TraceWindow``), on rank 0.
+  - Multi-process data parallelism, one process a device: the same command
+    on every process with ``--coordinator_address host:port`` (rank 0's;
+    any ``init_method`` URL, ``file://...`` too), ``--num_processes N`` and
+    a distinct ``--process_id``. The backend is NCCL on GPUs (rank k on
+    ``cuda:k`` of its host's devices) and gloo on the CPU. ``--batch_size``
+    is the global batch and must divide by N; each rank loads its rows
+    (``data/loader.py``), the state is broadcast from rank 0 once, and the
+    step sums the gradients over the ranks (``parallel/mesh.py``). Rank 0
+    logs, saves and validates; every rank waits at a barrier after each
+    save and after each validation.
 
 ``main(argv, device="cpu")`` runs on the CPU; without ``device`` it wants a
-CUDA device and raises when there is none. ``--batched_teachers`` and the
-multi-process and profiler flags raise naming their ROADMAP.md item.
+CUDA device and raises when there is none. ``--batched_teachers`` raises
+naming its ROADMAP.md item; ``--profile_port`` raises: JAX's live profiler
+server has no PyTorch counterpart (ROADMAP.md, "Not to port, by design").
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import time
@@ -55,6 +71,12 @@ from dkt_stereo_tpu_torch.data.triplet import split_modalities
 from dkt_stereo_tpu_torch.device import resolve_device
 from dkt_stereo_tpu_torch.eval import validate
 from dkt_stereo_tpu_torch.models.registry import create_model
+from dkt_stereo_tpu_torch.parallel.mesh import (
+    default_backend,
+    initialize_multihost,
+    rank_and_size,
+    replicate,
+)
 from dkt_stereo_tpu_torch.train.checkpoint import (
     import_timm_mobilenetv2,
     latest_checkpoint,
@@ -64,6 +86,7 @@ from dkt_stereo_tpu_torch.train.checkpoint import (
 )
 from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
 from dkt_stereo_tpu_torch.train.ns_step import make_ns_train_step
+from dkt_stereo_tpu_torch.train.profiling import TraceWindow
 from dkt_stereo_tpu_torch.train.state import DKTHyperParams, make_schedule
 from dkt_stereo_tpu_torch.utils.logging import Logger, save_images
 from dkt_stereo_tpu_torch.utils.visualization import disp_to_color
@@ -125,23 +148,28 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--num_workers", type=int, default=16)
     p.add_argument("--validation_frequency", type=int, default=1000)
-    # multi-process training and the profiler: not ported yet (ROADMAP.md
-    # Queue 1 item 11)
-    p.add_argument("--coordinator_address", default=None)
+    # multi-process data parallelism: one process a device, the same command
+    # and a distinct --process_id on every process
+    p.add_argument("--coordinator_address", default=None,
+                   help="rank 0's host:port (or an init_method URL such as file:///path)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
-    p.add_argument("--profile_dir", default=None)
-    p.add_argument("--profile_start", type=int, default=3)
+    # observability (train/profiling.py)
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace (host ops, and CUDA kernels on the GPU; "
+                        "Chrome/TensorBoard JSON) of steps [step + --profile_start, step + "
+                        "--profile_start + --profile_steps), counted from the run's first step")
+    p.add_argument("--profile_start", type=int, default=3,
+                   help="first step to trace, after the run's first (skip warm-up)")
     p.add_argument("--profile_steps", type=int, default=3)
-    p.add_argument("--profile_port", type=int, default=None)
+    p.add_argument("--profile_port", type=int, default=None,
+                   help="JAX's live profiler server: not ported, by design (it raises)")
     p.add_argument("--remat", action="store_true",
                    help="recompute each refinement iteration in the backward pass "
                         "(remat_iters): activation memory O(1) in train_iters")
     return p.parse_args(argv)
 
 
-_UNPORTED_FLAGS = ("coordinator_address", "num_processes", "process_id", "profile_dir",
-                   "profile_port")
 _VALIDATORS = (("validate_eth3d", "ETH3D", {}),
                ("validate_middlebury", "Middlebury", {"resolution": "H"}),
                ("validate_kitti", "KITTI", {"split": "2012"}),
@@ -149,12 +177,19 @@ _VALIDATORS = (("validate_eth3d", "ETH3D", {}),
                ("validate_booster", "Booster_dataset", {"resolution": "Q"}))
 
 
-def _refuse_unported(args, config):
-    for flag in _UNPORTED_FLAGS:
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag}: multi-process training and the profiler are not ported yet: "
-                "ROADMAP.md Queue 1 item 11")
+def _check_flags(args):
+    """Refuse ``--profile_port`` and a global batch that cannot split over
+    the processes, before any process group is joined."""
+    if args.profile_port is not None:
+        raise NotImplementedError(
+            "--profile_port: not to port, by design: PyTorch has no in-process profiler "
+            "server for TensorBoard to attach to (JAX's jax.profiler.start_server); trace a "
+            "window of steps with --profile_dir instead (ROADMAP.md, \"Not to port, by "
+            "design\")")
+    n = args.num_processes or 1
+    if args.batch_size % n:
+        raise SystemExit(f"--batch_size {args.batch_size} must be divisible by --num_processes "
+                         f"{n} (the global batch is split over the processes)")
 
 
 class StepTimes:
@@ -241,13 +276,47 @@ def _validate(args, config, state, dev, cache) -> dict:
     return results
 
 
+def _log_step(lg, metrics, cpu_batch, total_steps):
+    """Rank 0's scalars and, every 100 steps, its image dumps."""
+    lg.writer.add_scalar("live_loss", metrics["loss"], total_steps)
+    lg.writer.add_scalar("learning_rate", metrics["learning_rate"], total_steps)
+    for k in ("ema_divergence", "teacher_divergence"):
+        if k in metrics:
+            lg.writer.add_scalar(k, metrics[k], total_steps)
+    lg.push({k: metrics[k] for k in ("epe", "1px", "3px", "5px", "loss") if k in metrics})
+    if total_steps % 100 == 0 and "flow" in cpu_batch:
+        # image dumps (ft_dkt.py:252-272): inputs and colormapped GT
+        gt_img, _ = disp_to_color(-cpu_batch["flow"][0].numpy())
+        save_images(lg.writer, "train", {
+            "image1": cpu_batch["img1"].numpy().transpose(0, 3, 1, 2),
+            "image1_clean": cpu_batch["img1_clean"].numpy().transpose(0, 3, 1, 2),
+            "disp_gt": gt_img}, total_steps)
+
+
 def train(args, device=None) -> dict:
     """Run the fine-tune; returns ``{"checkpoint": the last step_N path,
-    "timing": StepTimes.summary, "validation": the last validators'
-    results}``."""
+    "timing": StepTimes.summary, "step_seconds": each step's own host
+    seconds, "validation": the last validators' results, "trace": the
+    profiler trace's path or None}``. With ``--num_processes`` > 1 this
+    process is one rank; rank 0 alone writes the checkpoints, logs and the
+    trace, and every rank returns the same checkpoint path."""
     config = load_model_config(args.config)
-    _refuse_unported(args, config)
+    _check_flags(args)
     dev = resolve_device(device)
+    joined = initialize_multihost(args.coordinator_address, args.num_processes,
+                                  args.process_id, default_backend(dev))
+    try:
+        return _train(args, config, dev)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, config, dev) -> dict:
+    rank, size = rank_and_size()
+    if dev.type == "cuda" and size > 1:  # one process a device
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
     # strict-disjoint check (ft_dkt.py:347-350); batched_teachers may come
     # from either surface
     merge_config(args, config, allow=("batched_teachers",))
@@ -272,13 +341,14 @@ def train(args, device=None) -> dict:
                              "--train_datasets")
         loader = MixedStereoLoader(bi_ds, tri_ds, batch_size=args.batch_size,
                                    num_tri=args.ns_num_tri, num_workers=args.num_workers,
-                                   seed=args.seed)
+                                   seed=args.seed, num_hosts=size, host_id=rank)
     else:
         if tri_ds is not None:
             raise SystemExit("nerf_stereo training data needs loss_func=ns_loss in the config "
                              "(the NS step consumes the trinocular batch contract)")
         loader = StereoLoader(dataset, batch_size=args.batch_size,
-                              num_workers=args.num_workers, seed=args.seed)
+                              num_workers=args.num_workers, seed=args.seed, num_hosts=size,
+                              host_id=rank)
     if len(loader) == 0:
         # an empty epoch would spin the training loop forever
         raise SystemExit(f"dataset too small for --batch_size {args.batch_size}: the loader "
@@ -286,24 +356,33 @@ def train(args, device=None) -> dict:
 
     state = create_dkt_state(config, hyper, seed=args.seed, device=dev)
     _restore(args, state)
+    # every rank built the same state; rank 0's is the one all ranks train
+    replicate(state.student, state.ema, state.teacher, state.optimizer)
+    # F&E's draws: the global batch's, the same on every rank
     generator = torch.Generator().manual_seed(args.seed)
     if ns_mode:
         step_fn = make_ns_train_step(config, hyper, nb=loader.nb, nt=loader.nt,
                                      conf_threshold=args.conf_threshold,
-                                     disp_threshold=args.disp_threshold)
+                                     disp_threshold=args.disp_threshold, num_hosts=size)
         step_kw = {}
     else:
         step_fn = make_dkt_train_step(config, hyper)
-        step_kw = {"generator": generator}  # F&E's draws
+        step_kw = {"generator": generator}
     schedule = make_schedule(hyper)
     save_dir = Path(args.save_dir)
-    save_dir.mkdir(parents=True, exist_ok=True)
-    lg = Logger(str(save_dir), get_lr=lambda: float(schedule(state.step)),
-                start_step=state.step)  # a resumed run logs at its true step
+    lg = window = None
+    if rank == 0:
+        save_dir.mkdir(parents=True, exist_ok=True)
+        lg = Logger(str(save_dir), get_lr=lambda: float(schedule(state.step)),
+                    start_step=state.step)  # a resumed run logs at its true step
+        if args.profile_dir is not None:
+            window = TraceWindow(args.profile_dir, state.step + args.profile_start,
+                                 args.profile_steps, dev)
     times, cache, results = StepTimes(), {}, {}
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    logging.info("training %s for %d steps on %s", config["model"], args.num_steps, dev)
+    logging.info("training %s for %d steps on %s (rank %d of %d)", config["model"],
+                 args.num_steps, dev, rank, size)
     try:
         while state.step <= args.num_steps:
             batches = iter(loader)
@@ -313,41 +392,54 @@ def train(args, device=None) -> dict:
                 if cpu_batch is None:
                     break
                 t1 = time.perf_counter()
-                batch = _to_device(cpu_batch, dev)
-                state, metrics = step_fn(state, batch, **step_kw)
+                with window.step(state.step) if window else contextlib.nullcontext():
+                    batch = _to_device(cpu_batch, dev)
+                    state, metrics = step_fn(state, batch, **step_kw)
                 t2 = time.perf_counter()
                 total_steps = state.step
-                lg.writer.add_scalar("live_loss", metrics["loss"], total_steps)
-                lg.writer.add_scalar("learning_rate", metrics["learning_rate"], total_steps)
-                for k in ("ema_divergence", "teacher_divergence"):
-                    if k in metrics:
-                        lg.writer.add_scalar(k, metrics[k], total_steps)
-                lg.push({k: metrics[k] for k in ("epe", "1px", "3px", "5px", "loss")
-                         if k in metrics})
-                if total_steps % 100 == 0 and "flow" in cpu_batch:
-                    # image dumps (ft_dkt.py:252-272): inputs and colormapped GT
-                    gt_img, _ = disp_to_color(-cpu_batch["flow"][0].numpy())
-                    save_images(lg.writer, "train", {
-                        "image1": cpu_batch["img1"].numpy().transpose(0, 3, 1, 2),
-                        "image1_clean": cpu_batch["img1_clean"].numpy().transpose(0, 3, 1, 2),
-                        "disp_gt": gt_img}, total_steps)
+                if lg is not None:
+                    _log_step(lg, metrics, cpu_batch, total_steps)
                 times.add(time.perf_counter() - t0, t1 - t0, t2 - t1)
+                if window is not None and total_steps >= window.last:
+                    window.close()  # the window is done: write its trace
 
                 if total_steps % args.validation_frequency == args.validation_frequency - 1:
-                    path = save_checkpoint(save_dir, state, total_steps + 1)
-                    logging.info("saved %s", path)
-                    logging.info("timing %s", json.dumps(times.summary(dev)))
-                    results = _validate(args, config, state, dev, cache)
-                    logging.info("validation %s", json.dumps(results))
-                    lg.write_dict(results)
-        final = save_checkpoint(save_dir, state)
+                    if rank == 0:
+                        path = save_checkpoint(save_dir, state, total_steps + 1)
+                        logging.info("saved %s", path)
+                        logging.info("timing %s", json.dumps(times.summary(dev)))
+                    _barrier(size)
+                    if rank == 0:
+                        results = _validate(args, config, state, dev, cache)
+                        logging.info("validation %s", json.dumps(results))
+                        lg.write_dict(results)
+                    _barrier(size)
+        if rank == 0:
+            final = save_checkpoint(save_dir, state)
+        else:
+            final = str(save_dir.absolute() / f"step_{state.step}")
+        _barrier(size)
     finally:
         loader.close()
-        lg.close()
+        if window is not None:
+            window.close()
+        if lg is not None:
+            lg.close()
+    if window is not None and window.path:
+        logging.info("profiler trace written to %s", window.path)
     timing = times.summary(dev)
     logging.info("timing %s", json.dumps(timing))
     logging.info("FINISHED TRAINING -> %s", final)
-    return {"checkpoint": final, "timing": timing, "validation": results}
+    return {"checkpoint": final, "timing": timing, "step_seconds": list(times.step),
+            "validation": results, "trace": window.path if window else None}
+
+
+def _barrier(size: int) -> None:
+    """Every rank waits here (a no-op for one process): after rank 0's save
+    and after its validation, so that no rank runs ahead into the next
+    step's collectives while rank 0 is busy."""
+    if size > 1:
+        torch.distributed.barrier()
 
 
 def main(argv=None, device=None):

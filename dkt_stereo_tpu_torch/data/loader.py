@@ -6,7 +6,7 @@ A ``torch.utils.data.DataLoader`` runs over a dataset of *batches*
 the dataset's indices shuffled by ``np.random.RandomState(seed + e)`` and
 cut into ``batch_size`` pieces, each sample augmented with
 ``np.random.default_rng((seed, e, 0, b))``. That is the JAX loader's process
-mode (``_proc_batch``, one host), so every batch is deterministic, equal to
+mode (``_proc_batch``), so every batch is deterministic, equal to
 the JAX one, and independent of which worker builds it. (The JAX threaded
 mode seeds each worker instead, so its batches depend on scheduling; the
 port does not follow it.)
@@ -26,9 +26,14 @@ worker reaches the consumer (the DataLoader re-raises it there).
 
 :class:`MixedStereoLoader` draws binocular and NeRF-Stereo triplet samples
 into batches of a static split, ``nb`` binocular rows then ``nt``
-trinocular ones, in ``data/triplet.py::collate_mixed``'s nested form. One
-process only: the JAX loader's ``num_hosts``/``host_id`` sharding is not
-ported (ROADMAP.md Queue 1 item 11).
+trinocular ones, in ``data/triplet.py::collate_mixed``'s nested form.
+
+With ``num_hosts`` > 1 (one loader a rank of multi-process training),
+``batch_size`` is the global batch and host ``host_id`` gets rows
+``[host_id * B / N, (host_id + 1) * B / N)`` of each batch, augmented with
+``default_rng((seed, e, host_id, b))``: the JAX loader's process mode for
+that host, the job key included. A mixed batch is then host blocks of
+``nb / N`` binocular and ``nt / N`` trinocular rows, as in JAX.
 """
 
 from __future__ import annotations
@@ -50,11 +55,14 @@ def _collate(samples: list[dict]) -> dict:
 
 
 class _EpochBatches(Dataset):
-    """Item ``(epoch, b)``: batch ``b`` of that epoch's shuffled indices."""
+    """Item ``(epoch, b)``: this host's rows of batch ``b`` of that epoch's
+    shuffled indices (``batch_size`` is the global batch)."""
 
-    def __init__(self, dataset, batch_size: int, shuffle: bool, seed: int):
+    def __init__(self, dataset, batch_size: int, shuffle: bool, seed: int, num_hosts: int = 1,
+                 host_id: int = 0):
         self.dataset, self.batch_size = dataset, batch_size
         self.shuffle, self.seed = shuffle, seed
+        self.num_hosts, self.host_id = num_hosts, host_id
         self._epoch, self._indices = None, None
 
     def epoch_indices(self, epoch: int) -> np.ndarray:
@@ -74,7 +82,9 @@ class _EpochBatches(Dataset):
     def __getitem__(self, item):
         epoch, b = item
         chunk = self.indices(epoch)[b * self.batch_size:(b + 1) * self.batch_size]
-        rng = np.random.default_rng((self.seed, epoch, 0, b))
+        local = self.batch_size // self.num_hosts
+        chunk = chunk[self.host_id * local:(self.host_id + 1) * local]
+        rng = np.random.default_rng((self.seed, epoch, self.host_id, b))
         return self.collate([self.dataset.get_sample(int(i), rng) for i in chunk])
 
 
@@ -110,11 +120,17 @@ class StereoLoader:
     loader does."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, num_workers: int = 8,
-                 drop_last: bool = True, seed: int = 1234):
+                 drop_last: bool = True, seed: int = 1234, num_hosts: int = 1, host_id: int = 0):
+        if batch_size % num_hosts:
+            raise ValueError(f"the global batch {batch_size} must divide across {num_hosts} "
+                             "hosts")
+        if not 0 <= host_id < num_hosts:
+            raise ValueError(f"host_id {host_id} outside [0, {num_hosts})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.drop_last = drop_last
         self.seed = seed
+        self.num_hosts, self.host_id = num_hosts, host_id
         self.epoch = 0
         workers = max(0, num_workers)
         context = None
@@ -130,11 +146,14 @@ class StereoLoader:
         self._stream, self._at = None, None
 
     def _epoch_batches(self, shuffle: bool) -> _EpochBatches:
-        return _EpochBatches(self.dataset, self.batch_size, shuffle, self.seed)
+        return _EpochBatches(self.dataset, self.batch_size, shuffle, self.seed, self.num_hosts,
+                             self.host_id)
 
     def __len__(self):
         n = len(self.dataset) // self.batch_size
-        if not self.drop_last and len(self.dataset) % self.batch_size:
+        # several hosts: a ragged tail cannot split into equal rows a host,
+        # so it is dropped whatever drop_last says (the JAX loader's rule)
+        if not self.drop_last and len(self.dataset) % self.batch_size and self.num_hosts == 1:
             n += 1
         return n
 
@@ -186,8 +205,8 @@ class _MixedEpochBatches(_EpochBatches):
     ones, each pool shuffled on its own."""
 
     def __init__(self, view: _MixedView, batch_size: int, shuffle: bool, seed: int, nb: int,
-                 nt: int, nbatch: int):
-        super().__init__(view, batch_size, shuffle, seed)
+                 nt: int, nbatch: int, num_hosts: int = 1, host_id: int = 0):
+        super().__init__(view, batch_size, shuffle, seed, num_hosts, host_id)
         self.nb, self.nt, self.nbatch = nb, nt, nbatch
 
     def epoch_indices(self, epoch: int) -> np.ndarray:
@@ -197,10 +216,15 @@ class _MixedEpochBatches(_EpochBatches):
         if self.shuffle:
             rs.shuffle(bi)
             rs.shuffle(tri)
-        out = np.empty((self.nbatch, self.batch_size), np.int64)
+        # a batch is host blocks [host 0: nb/N bi, nt/N tri | host 1: ...],
+        # so that each host's rows have the static composition
+        nb_l, nt_l = self.nb // self.num_hosts, self.nt // self.num_hosts
+        out = np.empty((self.nbatch, self.num_hosts, nb_l + nt_l), np.int64)
         for b in range(self.nbatch):
-            out[b, :self.nb] = bi[b * self.nb:(b + 1) * self.nb]
-            out[b, self.nb:] = tri[b * self.nt:(b + 1) * self.nt]
+            for h in range(self.num_hosts):
+                bsrc, tsrc = b * self.nb + h * nb_l, b * self.nt + h * nt_l
+                out[b, h, :nb_l] = bi[bsrc:bsrc + nb_l]
+                out[b, h, nb_l:] = tri[tsrc:tsrc + nt_l]
         return out.reshape(-1)
 
     def collate(self, samples: list[dict]):
@@ -240,11 +264,16 @@ class MixedStereoLoader(StereoLoader):
                 f"empty pool (n_bi={view.n_bi}, n_tri={view.n_tri})")
         self.nt = num_tri
         self.nb = batch_size - num_tri
+        hosts = kw.get("num_hosts", 1)
+        if self.nb % hosts or self.nt % hosts:
+            raise ValueError(f"modality split nb={self.nb}/nt={self.nt} must divide across "
+                             f"{hosts} hosts (each host's rows need the same static "
+                             "composition)")
         super().__init__(view, batch_size, **kw)
 
     def _epoch_batches(self, shuffle: bool) -> _EpochBatches:
         return _MixedEpochBatches(self.dataset, self.batch_size, shuffle, self.seed, self.nb,
-                                  self.nt, len(self))
+                                  self.nt, len(self), self.num_hosts, self.host_id)
 
     def __len__(self):
         n = []

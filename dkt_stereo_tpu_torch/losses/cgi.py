@@ -10,6 +10,7 @@ import torch
 
 from dkt_stereo_tpu_torch.losses.gwc import epe_metrics, smooth_l1
 from dkt_stereo_tpu_torch.losses.sequence import _masked_mean
+from dkt_stereo_tpu_torch.parallel.mesh import all_sum
 
 _WEIGHTS = (0.3, 1.0)
 
@@ -23,6 +24,8 @@ def loss_cgi(disp_preds, flow_gt: torch.Tensor, valid: torch.Tensor, maxdisp: fl
     p_q, p_f = (p.float() for p in disp_preds)
     ok = (torch.isfinite(torch.where(m, flow_gt, 0.0)).all() & torch.isfinite(p_q).all()
           & torch.isfinite(p_f).all())
-    loss = (_WEIGHTS[0] * _masked_mean(smooth_l1(p_q - gt_q), m_q)
-            + _WEIGHTS[1] * _masked_mean(smooth_l1(p_f - flow_gt), m))
-    return torch.where(ok, loss, 0.0), epe_metrics(p_f, flow_gt, m), m, ok
+    # both masks' global counts in one all_reduce
+    counts = all_sum(torch.stack([m_q.sum(), m.sum()]).float()).clamp_min(1.0)
+    loss = (_WEIGHTS[0] * _masked_mean(smooth_l1(p_q - gt_q), m_q, counts[0])
+            + _WEIGHTS[1] * _masked_mean(smooth_l1(p_f - flow_gt), m, counts[1]))
+    return torch.where(ok, loss, 0.0), epe_metrics(p_f, flow_gt, m, counts[1]), m, ok

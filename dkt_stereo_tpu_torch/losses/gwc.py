@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from dkt_stereo_tpu_torch.losses.sequence import _masked_mean
+from dkt_stereo_tpu_torch.losses.sequence import _masked_mean, masked_count
 
 _WEIGHTS = (0.5, 0.5, 0.7, 1.0)
 
@@ -18,14 +18,18 @@ def smooth_l1(x: torch.Tensor) -> torch.Tensor:
     return torch.where(ax < 1.0, 0.5 * x * x, ax - 0.5)
 
 
-def epe_metrics(pred: torch.Tensor, flow_gt: torch.Tensor, m: torch.Tensor) -> dict:
-    """EPE and the 1/3/5 px rates of ``pred`` over the mask ``m``."""
+def epe_metrics(pred: torch.Tensor, flow_gt: torch.Tensor, m: torch.Tensor,
+                count: torch.Tensor | None = None) -> dict:
+    """EPE and the 1/3/5 px rates of ``pred`` over the mask ``m`` (whose
+    global count is ``count``, counted here when not given)."""
+    if count is None:
+        count = masked_count(m)
     epe = (pred - flow_gt).abs()
     return {
-        "epe": _masked_mean(epe, m),
-        "1px": _masked_mean((epe < 1).float(), m),
-        "3px": _masked_mean((epe < 3).float(), m),
-        "5px": _masked_mean((epe < 5).float(), m),
+        "epe": _masked_mean(epe, m, count),
+        "1px": _masked_mean((epe < 1).float(), m, count),
+        "3px": _masked_mean((epe < 3).float(), m, count),
+        "5px": _masked_mean((epe < 5).float(), m, count),
     }
 
 
@@ -38,6 +42,7 @@ def loss_gwcnet(disp_preds: torch.Tensor, flow_gt: torch.Tensor, valid: torch.Te
     preds = disp_preds.float()
     m = (valid >= 0.5) & (flow_gt.abs() < maxdisp)
     ok = torch.isfinite(torch.where(m, flow_gt, 0.0)).all() & torch.isfinite(preds).all()
-    loss = sum(w * _masked_mean(smooth_l1(preds[i] - flow_gt), m)
+    count = masked_count(m)
+    loss = sum(w * _masked_mean(smooth_l1(preds[i] - flow_gt), m, count)
                for i, w in enumerate(_WEIGHTS[: preds.shape[0]]))
-    return torch.where(ok, loss, 0.0), epe_metrics(preds[-1], flow_gt, m), m, ok
+    return torch.where(ok, loss, 0.0), epe_metrics(preds[-1], flow_gt, m, count), m, ok

@@ -6,14 +6,17 @@ A confidence-weighted disparity L1 plus a trinocular photometric term
 reconstructions, automasked) with a gamma decay over the iterations.
 Disparities are negative throughout (the reference's own comment at :129).
 The reference's ``binocular_loss`` reads an undefined ``valid`` (:120, dead
-code); only the trinocular path is ported, as in the JAX package.
+code); only the trinocular path is ported, as in the JAX package. Its masked
+means divide by global counts, as :mod:`losses.sequence`'s do.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dkt_stereo_tpu_torch.losses.sequence import masked_count
 from dkt_stereo_tpu_torch.ops.warp import disp_warp, ssim
+from dkt_stereo_tpu_torch.parallel.mesh import all_sum
 
 
 def photometric_loss(im1: torch.Tensor, im2: torch.Tensor) -> torch.Tensor:
@@ -24,12 +27,8 @@ def photometric_loss(im1: torch.Tensor, im2: torch.Tensor) -> torch.Tensor:
     return 0.15 * l1 + 0.85 * s
 
 
-def trinocular_loss(disp, im1, im2, im3, uncertainty, valid, loss_2=None):
-    """loss.py:92-109. ``disp`` (B, H, W, 1) negative; images (B, H, W, 3);
-    ``uncertainty`` and ``valid`` (B, H, W). ``loss_2``, the automask's
-    photometric loss of the unwarped neighbours, does not depend on
-    ``disp``: a caller that scores several disparities passes it once
-    (:func:`automask_reference`)."""
+def _trinocular_terms(disp, im1, im2, im3, uncertainty, valid, loss_2=None):
+    """:func:`trinocular_loss`'s numerator and this rank's automask count."""
     rec12, mask12 = disp_warp(im1, disp, r2l=True)
     rec23, mask23 = disp_warp(im3, disp, r2l=False)
     pl12 = photometric_loss(im2, mask12 * rec12)
@@ -38,8 +37,18 @@ def trinocular_loss(disp, im1, im2, im3, uncertainty, valid, loss_2=None):
     if loss_2 is None:
         loss_2 = automask_reference(im1, im2, im3)
     automask = (loss_warp < loss_2) & (valid >= 0.5)
-    num = torch.where(automask, loss_warp * uncertainty, 0.0).sum()
-    return num / automask.sum().float().clamp_min(1.0)
+    return torch.where(automask, loss_warp * uncertainty, 0.0).sum(), automask.sum().float()
+
+
+def trinocular_loss(disp, im1, im2, im3, uncertainty, valid, loss_2=None):
+    """loss.py:92-109. ``disp`` (B, H, W, 1) negative; images (B, H, W, 3);
+    ``uncertainty`` and ``valid`` (B, H, W). ``loss_2``, the automask's
+    photometric loss of the unwarped neighbours, does not depend on
+    ``disp``: a caller that scores several disparities passes it once
+    (:func:`automask_reference`). The automask's count is the global one
+    (the module docstring of :mod:`losses.sequence`)."""
+    num, count = _trinocular_terms(disp, im1, im2, im3, uncertainty, valid, loss_2)
+    return num / all_sum(count).clamp_min(1.0)
 
 
 def automask_reference(im1, im2, im3) -> torch.Tensor:
@@ -70,16 +79,21 @@ def ns_loss(pred_disps, target_disp, conf, im0, im1, im2, alpha_disp_loss: float
     ok = torch.isfinite(torch.where(m, target, 0.0)).all() & torch.isfinite(preds).all()
 
     gamma_adj = loss_gamma ** (15.0 / (n - 1)) if n > 1 else 1.0
-    count = m.sum().float().clamp_min(1.0)
+    count = masked_count(m)
     loss_2 = automask_reference(im0, im1, im2) if alpha_photometric != 0.0 else None
     disp_loss = photo_loss = 0.0
+    photo_terms = []
     for i in range(n):
         w = gamma_adj ** (n - 1 - i)
         diff = (preds[i] - target).abs() * conf
         disp_loss = disp_loss + w * (torch.where(m, diff, 0.0).sum() / count)
         if alpha_photometric != 0.0:
-            photo_loss = photo_loss + w * trinocular_loss(
-                preds[i][..., None], im0, im1, im2, 1.0 - conf, m.float(), loss_2)
+            photo_terms.append((w, *_trinocular_terms(
+                preds[i][..., None], im0, im1, im2, 1.0 - conf, m.float(), loss_2)))
+    if photo_terms:  # every iteration's automask count over the ranks, one all_reduce
+        counts = all_sum(torch.stack([c for _, _, c in photo_terms])).clamp_min(1.0)
+        for (w, num, _), c in zip(photo_terms, counts):
+            photo_loss = photo_loss + w * (num / c)
     loss = alpha_disp_loss * disp_loss + alpha_photometric * photo_loss
     loss = torch.where(ok, loss, 0.0)
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from dkt_stereo_tpu_torch.losses.sequence import _masked_mean
+from dkt_stereo_tpu_torch.losses.sequence import _masked_mean, masked_count
 
 _I_WEIGHTS = (0.4, 0.6, 0.8, 1.0, 1.2, 1.4)
 
@@ -45,21 +45,22 @@ def sequence_loss_pcvnet(output_list, flow_gt: torch.Tensor, valid: torch.Tensor
     ok = (torch.isfinite(torch.where(m, disp_gt, 0.0)).all() & torch.isfinite(disp_seq).all()
           & torch.isfinite(mu_seq).all() & torch.isfinite(refined).all())
 
+    count = masked_count(m)
     loss = 0.0
     for i in range(n):
         wgt = _I_WEIGHTS[min(i, len(_I_WEIGHTS) - 1)]
-        l1 = _masked_mean((disp_seq[i] - disp_gt).abs(), m)
-        l2 = _masked_mean((mu_seq[i] - disp_gt[..., None]).abs().mean(-1), m)
+        l1 = _masked_mean((disp_seq[i] - disp_gt).abs(), m, count)
+        l2 = _masked_mean((mu_seq[i] - disp_gt[..., None]).abs().mean(-1), m, count)
         loss = loss + wgt * (l1 + l2)
-    loss = loss + 1.4 * _masked_mean(_smooth_l1(refined - disp_gt), m)
+    loss = loss + 1.4 * _masked_mean(_smooth_l1(refined - disp_gt), m, count)
     loss = torch.where(ok, loss, 0.0)
 
     metrics = {}
     for suffix, err in (("", (disp_seq[min(3, n - 1)] - disp_gt).abs()),
                         ("_final", (refined - disp_gt).abs())):
-        metrics["epe" + suffix] = _masked_mean(err, m)
+        metrics["epe" + suffix] = _masked_mean(err, m, count)
         for t in (1, 3, 5):
-            metrics[f"{t}px{suffix}"] = _masked_mean((err < t).float(), m)
+            metrics[f"{t}px{suffix}"] = _masked_mean((err < t).float(), m, count)
         for t in (1, 2, 5):
-            metrics[f"bad{t}{suffix}"] = _masked_mean((err > t).float(), m)
+            metrics[f"bad{t}{suffix}"] = _masked_mean((err > t).float(), m, count)
     return loss, metrics, m, ok

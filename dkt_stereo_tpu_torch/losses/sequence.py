@@ -6,16 +6,34 @@ The reference returns ``(None, None, None)`` on non-finite GT or
 predictions, and the training loop then skips the step. Here, as in the JAX
 package, the loss comes back with a 0-dim bool ``ok`` and is zeroed when not
 ok; the DKT step skips the update on ``ok`` without a graph break.
+
+Every masked mean divides by the mask's count over all ranks of the
+process group (``parallel/mesh.py::all_sum``; the mask's own count in one
+process): JAX's sharded step divides a global sum by a global count, and a
+rank's loss is then its own numerators over that count, so that the ranks'
+losses and gradients add up to the global batch's. An average of the
+ranks' own means would differ wherever their valid pixels differ in number.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dkt_stereo_tpu_torch.parallel.mesh import all_sum
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    denom = mask.sum().float().clamp_min(1.0)
-    return torch.where(mask, x, 0.0).sum() / denom
+
+def masked_count(mask: torch.Tensor) -> torch.Tensor:
+    """The true entries of ``mask`` on every rank, at least 1: the
+    denominator of a masked mean."""
+    return all_sum(mask.sum().float()).clamp_min(1.0)
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, count: torch.Tensor | None = None):
+    """The sum of ``x`` where ``mask`` holds over ``count`` (by default
+    :func:`masked_count` of ``mask``; pass it to share one count)."""
+    if count is None:
+        count = masked_count(mask)
+    return torch.where(mask, x, 0.0).sum() / count
 
 
 def sequence_loss_raft(disp_preds: torch.Tensor, flow_gt: torch.Tensor, valid: torch.Tensor,
@@ -39,15 +57,16 @@ def sequence_loss_raft(disp_preds: torch.Tensor, flow_gt: torch.Tensor, valid: t
     weights = torch.tensor([gamma_adj ** (n - 1 - i) for i in range(n)], dtype=torch.float32,
                            device=preds.device)
     abs_err = (preds - flow_gt[None]).abs()
-    per_iter = torch.stack([_masked_mean(abs_err[i], m) for i in range(n)])
+    count = masked_count(m)
+    per_iter = torch.stack([_masked_mean(abs_err[i], m, count) for i in range(n)])
     loss = torch.where(ok, (weights * per_iter).sum(), 0.0)
 
     epe = (preds[-1] - flow_gt).abs()
     metrics = {
-        "epe": _masked_mean(epe, m),
-        "1px": _masked_mean((epe < 1).float(), m),
-        "3px": _masked_mean((epe < 3).float(), m),
-        "5px": _masked_mean((epe < 5).float(), m),
+        "epe": _masked_mean(epe, m, count),
+        "1px": _masked_mean((epe < 1).float(), m, count),
+        "3px": _masked_mean((epe < 3).float(), m, count),
+        "5px": _masked_mean((epe < 5).float(), m, count),
     }
     return loss, metrics, m, ok
 
@@ -81,15 +100,16 @@ def sequence_loss_igev(disp_preds: torch.Tensor, init_disp: torch.Tensor, flow_g
     weights = torch.tensor([gamma_adj ** (n - 1 - i) for i in range(n)], dtype=torch.float32,
                            device=preds.device)
     abs_err = (preds - flow_gt[None]).abs()
-    per_iter = torch.stack([_masked_mean(abs_err[i], m) for i in range(n)])
-    loss = torch.where(ok, _masked_mean(smooth_l1, m) + (weights * per_iter).sum(), 0.0)
+    count = masked_count(m)
+    per_iter = torch.stack([_masked_mean(abs_err[i], m, count) for i in range(n)])
+    loss = torch.where(ok, _masked_mean(smooth_l1, m, count) + (weights * per_iter).sum(), 0.0)
 
     epe = (preds[-1] - flow_gt).abs()
     metrics = {
-        "epe": _masked_mean(epe, m),
-        "init_epe": _masked_mean(err0, m),
-        "1px": _masked_mean((epe < 1).float(), m),
-        "3px": _masked_mean((epe < 3).float(), m),
-        "5px": _masked_mean((epe < 5).float(), m),
+        "epe": _masked_mean(epe, m, count),
+        "init_epe": _masked_mean(err0, m, count),
+        "1px": _masked_mean((epe < 1).float(), m, count),
+        "3px": _masked_mean((epe < 3).float(), m, count),
+        "5px": _masked_mean((epe < 5).float(), m, count),
     }
     return loss, metrics, m, ok

@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dkt_stereo_tpu_torch.nn.blocks import BasicEncoder, MultiBasicEncoder
 from dkt_stereo_tpu_torch.nn.gru import BasicMultiUpdateBlock
+from dkt_stereo_tpu_torch.nn.norms import band_refresh
 from dkt_stereo_tpu_torch.ops.corr import corr_lookup_alt as corr_lookup_alt_plain
 from dkt_stereo_tpu_torch.ops.corr import corr_pyramid_fused, fmap_pyramid
 from dkt_stereo_tpu_torch.ops.cuda.corr_alt import corr_lookup_alt
@@ -194,6 +195,11 @@ class RAFTStereo(nn.Module):
             )
         # stereo: only the x component of the delta survives
         coords1 = coords1 + delta[:, 0:1].float().permute(0, 2, 3, 1)
+        # exact banded eval (the identity otherwise): refresh the carried
+        # state's halo rows every iteration, so that the GRUs' reach across
+        # a band's edge never accumulates over the loop
+        net = [band_refresh(h) for h in net]
+        coords1 = band_refresh(coords1, dim=1)
         if upsample:
             disp = (coords1 - coords0).permute(0, 3, 1, 2)
             return net, coords1, convex_upsample(disp, mask.float(), 2**cfg.n_downsample)[:, 0]

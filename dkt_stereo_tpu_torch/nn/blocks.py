@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dkt_stereo_tpu_torch.nn.norms import Norm
+from dkt_stereo_tpu_torch.nn.norms import Norm, band_refresh
 from dkt_stereo_tpu_torch.ops.cuda.encoder_conv import encoder_stage, in_affine
 
 
@@ -153,8 +153,11 @@ class BasicEncoder(nn.Module):
         else:
             x = self.relu1(self.norm1(self.conv1(x)))
             x = self.layer1(x)
-        x = self.layer2(x)
-        x = self.layer3(x)
+        # band_refresh: the identity except in exact banded eval
+        # (eval/tiled.py), where it exchanges the halo rows between bands
+        x = band_refresh(x)
+        x = band_refresh(self.layer2(x))
+        x = band_refresh(self.layer3(x))
         return self.conv2(x)
 
 
@@ -200,11 +203,12 @@ class MultiBasicEncoder(nn.Module):
         else:
             x = self.relu1(self.norm1(self.conv1(x)))
             x = self.layer1(x)
-        x = self.layer2(x)
-        x = self.layer3(x)
+        x = band_refresh(x)  # exact banded eval only; the identity otherwise
+        x = band_refresh(self.layer2(x))
+        x = band_refresh(self.layer3(x))
         heads = [getattr(self, n) for n in self.head_names]
         out = [[f(x) for f in heads[0]]]
         for i, layer in enumerate((self.layer4, self.layer5)[: self.num_layers - 1]):
-            x = layer(x)
+            x = band_refresh(layer(x))
             out.append([f(x) for f in heads[i + 1]])
         return tuple(out)

@@ -19,9 +19,109 @@ in train mode and update the running ones as flax does; only GWCNet's
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+# --- cross-band instance-norm statistics (exact banded eval) ---------------
+#
+# eval/tiled.py::banded_forward_exact runs the model on one horizontal band
+# of the padded frame a rank. Under :func:`cross_band_stats` every
+# InstanceNorm takes its statistics over its band's interior rows only,
+# sums them over the ranks and normalises with the global mean and
+# variance: the full frame's statistics, since the interiors tile it. The
+# context is read at each call (eager torch has no trace time), is
+# re-entrant, and is what :func:`band_refresh` reads too.
+_BAND: dict | None = None
+
+
+@contextlib.contextmanager
+def cross_band_stats(group, tensor_h: int, halo: int, band_h: int, full_h: int,
+                     n_bands: int = 0):
+    """All heights at stride 1 (input resolution) and multiples of 32, so
+    that the interiors stay integral at every encoder stride. ``group`` is
+    the process group of the bands (None: the default one), this rank's
+    band its rank there. ``n_bands`` (the group's size) turns on
+    :func:`band_refresh`'s halo exchange."""
+    global _BAND
+    prev = _BAND
+    _BAND = dict(group=group, rank=dist.get_rank(group), th=tensor_h, halo=halo, bh=band_h,
+                 fh=full_h, n=n_bands)
+    try:
+        yield
+    finally:
+        _BAND = prev
+
+
+def _win0(i: int, ctx: dict) -> int:
+    """Band ``i``'s window start in the padded frame (``eval/tiled.py``)."""
+    return min(max(i * ctx["bh"] - ctx["halo"], 0), ctx["fh"] - ctx["th"])
+
+
+def band_refresh(x: torch.Tensor, dim: int = 2) -> torch.Tensor:
+    """Halo exchange for exact banded eval (the JAX ``band_refresh``):
+    replace each band's top and bottom ``halo`` rows (at ``x``'s stride) by
+    its neighbours' values for the same global rows, which are exact there,
+    so that convolutions' reach across a band's edge never accumulates past
+    the halo. ``dim`` is the row axis: 2 for NCHW features, 1 for the NHWC
+    coordinates.
+
+    The rows travel by one all_reduce into zeroed slots, two a boundary
+    (the upper band's rows for the lower band's top, the lower band's for
+    the upper band's bottom): an all-gather in the one collective every
+    backend runs on CUDA tensors. The image's own top and bottom keep their
+    rows. The identity outside the context, for one band, without a halo,
+    and for a tensor whose height is not the band's at a stride or too
+    short to carry the halo."""
+    ctx = _BAND
+    if ctx is None or ctx["halo"] == 0 or ctx["n"] <= 1 or x.dim() != 4:
+        return x
+    th, halo, k, n = ctx["th"], ctx["halo"], ctx["rank"], ctx["n"]
+    h = x.shape[dim]
+    if th % h:
+        return x
+    s = th // h
+    hs = halo // s
+    if hs < 1 or h < 2 * hs + 1:
+        return x
+
+    w_k = _win0(k, ctx)
+    slots = x.new_zeros((n - 1, 2) + x.narrow(dim, 0, hs).shape)
+    if k < n - 1:  # rows [win0(k+1), win0(k+1) + halo): the lower band's top
+        off = min(max((_win0(k + 1, ctx) - w_k) // s, 0), h - hs)
+        slots[k, 0] = x.narrow(dim, off, hs)
+    if k > 0:  # rows [win0(k-1) + th - halo, win0(k-1) + th): the upper band's bottom
+        off = min(max((_win0(k - 1, ctx) + th - halo - w_k) // s, 0), h - hs)
+        slots[k - 1, 1] = x.narrow(dim, off, hs)
+    dist.all_reduce(slots, group=ctx["group"])
+    top = slots[k - 1, 0] if k > 0 else x.narrow(dim, 0, hs)
+    bot = slots[k, 1] if k < n - 1 else x.narrow(dim, h - hs, hs)
+    return torch.cat([top, x.narrow(dim, hs, h - 2 * hs), bot], dim)
+
+
+def _banded_instance_stats(x: torch.Tensor, ctx: dict, eps: float) -> torch.Tensor:
+    """``x`` (B, C, h, W) normalised with the statistics of all bands'
+    interiors: this band's interior rows summed in fp32 (sum, sum of
+    squares, count), one all_reduce, then the single-pass variance, as in
+    JAX. The halo and padding rows count for nothing."""
+    th, halo, bh, fh, k = ctx["th"], ctx["halo"], ctx["bh"], ctx["fh"], ctx["rank"]
+    h = x.shape[2]
+    s = th // h  # the feature's stride against the input
+    off = k * bh - _win0(k, ctx)  # the interior's offset in the window
+    ilen = min(max(fh - k * bh, 0), bh)  # interior rows (the last band may be short)
+    inner = x[:, :, off // s:off // s + ilen // s].float()
+    B, C = x.shape[:2]
+    count = x.new_full((1,), inner.shape[2] * inner.shape[3], dtype=torch.float32)
+    sums = torch.cat([inner.sum((2, 3)).reshape(-1), inner.square().sum((2, 3)).reshape(-1),
+                      count])
+    dist.all_reduce(sums, group=ctx["group"])
+    mean = (sums[:B * C] / sums[-1]).view(B, C, 1, 1)
+    var = (sums[B * C:2 * B * C] / sums[-1]).view(B, C, 1, 1) - mean.square()
+    scale = torch.rsqrt(var + eps).to(x.dtype)
+    return (x - mean.to(x.dtype)) * scale
 
 
 class InstanceNorm(nn.Module):
@@ -32,13 +132,23 @@ class InstanceNorm(nn.Module):
     bf16 path) and keep the elementwise math in bf16. The single-pass
     variance is clamped at 0 before ``rsqrt``: cancellation can make it
     slightly negative, where the JAX form gives NaN (a deliberate divergence,
-    logged in ROADMAP.md Queue 3)."""
+    logged in ROADMAP.md Queue 3).
+
+    Under :func:`cross_band_stats` (exact banded eval) the statistics are
+    the global ones of all bands' interiors."""
 
     def __init__(self, eps: float = 1e-5, stats_stride: int = 1):
         super().__init__()
         self.eps, self.stats_stride = eps, stats_stride
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _BAND is not None:
+            # exact banded eval: the global statistics, always at stride 1
+            # (a subsample would take a band-shifted grid)
+            if x.dim() != 4:
+                raise ValueError("cross-band instance-norm statistics are defined for 2-D "
+                                 f"feature maps (B, C, H, W); got rank {x.dim()}")
+            return _banded_instance_stats(x, _BAND, self.eps)
         s = self.stats_stride
         t = x[:, :, ::s, ::s] if s > 1 else x
         if x.dtype == torch.bfloat16:

@@ -10,13 +10,49 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from dkt_stereo_tpu_torch.nn import norms
+
+
+def _interp_rows_banded(x: torch.Tensor, Ho: int, ctx: dict) -> torch.Tensor:
+    """The rows of an ``align_corners=True`` resize under exact banded eval
+    (the JAX ``_interp_rows_banded``): output row o of the whole frame reads
+    input position ``o * (Hin - 1) / (Hout - 1)`` of the whole frame's
+    heights, a map that depends on the frame's height, so a band's own
+    resize would differ everywhere, not only at its edges. Here the band's
+    rows take the frame's positions, shifted by the window's offset (the
+    sources stay inside the band: a x2 exchange moves them by far less than
+    the halo). The position is ``scale * o`` in fp32, as PyTorch's kernel
+    computes it, so the weights are the frame's to the bit."""
+    th, fh = ctx["th"], ctx["fh"]
+    H = x.shape[2]
+    s_in, s_out = th // H, th // Ho
+    w0 = norms._win0(ctx["rank"], ctx)
+    hin, hout = fh // s_in, fh // s_out
+    scale = torch.tensor((hin - 1) / max(hout - 1, 1), dtype=torch.float32)
+    o = torch.arange(Ho, dtype=torch.float32) + float(w0 // s_out)
+    p = o * scale - float(w0 // s_in)
+    p0 = p.floor().long().clamp(0, H - 2)
+    w = (p - p0.float()).to(device=x.device, dtype=x.dtype)[None, None, :, None]
+    p0 = p0.to(x.device)
+    return x.index_select(2, p0) * (1 - w) + x.index_select(2, p0 + 1) * w
+
 
 def interp_bilinear_align(x: torch.Tensor, out_hw) -> torch.Tensor:
     """Bilinear ``align_corners=True`` resize of NCHW ``x`` to (Ho, Wo)
-    (core/update.py:93-95)."""
-    if tuple(out_hw) == tuple(x.shape[2:]):
+    (core/update.py:93-95). Under exact banded eval
+    (``nn/norms.py::cross_band_stats``) the rows are resized as the whole
+    frame's would be (:func:`_interp_rows_banded`)."""
+    H, W = x.shape[2:]
+    Ho, Wo = out_hw
+    if (Ho, Wo) == (H, W):
         return x
-    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=True)
+    ctx = norms._BAND
+    if (ctx is not None and H != Ho and ctx["th"] % H == 0 and ctx["th"] % Ho == 0
+            and ctx["fh"] % (ctx["th"] // H) == 0 and ctx["fh"] % (ctx["th"] // Ho) == 0):
+        x = _interp_rows_banded(x, Ho, ctx)
+        if Wo == W:
+            return x
+    return F.interpolate(x, size=(Ho, Wo), mode="bilinear", align_corners=True)
 
 
 def interp_bilinear_halfpix(x: torch.Tensor, out_hw) -> torch.Tensor:

@@ -15,6 +15,14 @@ One call of the step function:
      the parameters, the optimizer state and the schedule position stay as
      they were, while the EMA update of 1. stands, as in the JAX step.
 
+Data parallel: in a process group (``parallel/mesh.py``) each rank runs the
+step on its rows of the global batch with the same state. The losses divide
+by global counts, the gradients and loss values are summed over the ranks
+and ``ok`` is agreed before 5., so every rank applies the same update. The
+F&E draws of the global batch are made on every rank from one generator
+(each rank passes one seeded alike) and each rank takes its rows: N ranks
+give one process's step on the global batch.
+
 The state is updated in place. Batch norm is frozen throughout
 (``nn/norms.py::FrozenBatchNorm2d``): its running statistics are buffers
 that nothing writes, its affine parameters train.
@@ -28,6 +36,7 @@ from dkt_stereo_tpu_torch.device import resolve_device
 from dkt_stereo_tpu_torch.dkt.ema import ema_update
 from dkt_stereo_tpu_torch.dkt.fande import fande_ensemble, fande_filter
 from dkt_stereo_tpu_torch.models.registry import create_model, make_loss_adapter
+from dkt_stereo_tpu_torch.parallel.mesh import rank_and_size, reduce_step
 from dkt_stereo_tpu_torch.train.state import (
     DKTHyperParams,
     DKTTrainState,
@@ -35,6 +44,7 @@ from dkt_stereo_tpu_torch.train.state import (
     apply_update_,
     make_optimizer,
     make_schedule,
+    student_params,
 )
 
 
@@ -130,7 +140,11 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
         student, optimizer = state.student, state.optimizer
         img1, img2 = batch["img1"], batch["img2"]
         if draws is None:
-            draws = fande_draws(img1.shape[0], img1.device, generator)
+            # the global batch's draws on every rank, then this rank's rows
+            rank, size = rank_and_size()
+            B = img1.shape[0]
+            draws = fande_draws(B * size, img1.device, generator)
+            draws["filter_gt"] = draws["filter_gt"][rank * B:(rank + 1) * B]
 
         # 1. EMA update, before the forwards (ft_dkt.py:179)
         ema_update(state.ema, student, hyper.ema_decay)
@@ -181,9 +195,13 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
         loss.backward()
         mark("student")
 
-        # 5. clip + AdamW, only when ok; the logged rate is the applied one
+        # 5. over the ranks (with a process group): the gradients and the
+        # loss values summed, ok agreed; then clip + AdamW, only when ok;
+        # the logged rate is the applied one
+        values = {**metrics, "loss": loss.detach(), "loss_GT": loss_gt.detach(),
+                  "loss_PL": loss_pl.detach()}
+        applied, values = reduce_step(student_params(optimizer), ok, values)
         lr = schedule(applied_step_count(optimizer))
-        applied = bool(ok)
         if applied:
             apply_update_(optimizer, lr)
         else:
@@ -191,14 +209,8 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
         mark("optimizer")
 
         with torch.no_grad():
-            values = {
-                **metrics,
-                "loss": loss.detach(),
-                "loss_GT": loss_gt.detach(),
-                "loss_PL": loss_pl.detach(),
-                "ema_divergence": _l2_dist(student, state.ema),
-                "teacher_divergence": _l2_dist(student, state.teacher),
-            }
+            values["ema_divergence"] = _l2_dist(student, state.ema)
+            values["teacher_divergence"] = _l2_dist(student, state.teacher)
             numbers = torch.stack([v.float() for v in values.values()]).tolist()
         metrics = dict(zip(values, numbers), ok=float(applied), learning_rate=lr)
         state.step += 1

@@ -27,35 +27,50 @@ import torch
 from dkt_stereo_tpu_torch.dkt.ema import ema_update
 from dkt_stereo_tpu_torch.losses.nerf import ns_loss
 from dkt_stereo_tpu_torch.losses.sequence import sequence_loss_raft
+from dkt_stereo_tpu_torch.parallel.mesh import rank_and_size, reduce_step
 from dkt_stereo_tpu_torch.train.state import (
     DKTHyperParams,
     DKTTrainState,
     applied_step_count,
     apply_update_,
     make_schedule,
+    student_params,
 )
 
 
 def make_ns_train_step(config: dict, hyper: DKTHyperParams, nb: int, nt: int,
                        conf_threshold: float = 0.5, disp_threshold: float = 512.0,
-                       alpha_photometric: float = 0.1, num_hosts: int = 1):
+                       alpha_photometric: float = 0.1, num_hosts: int | None = None):
     """Returns ``step_fn(state, batch, mark=None) -> (state, metrics)``.
 
     ``batch`` is ``data/triplet.py::collate_mixed``'s on the state's device:
     ``im1_forward``/``im2_forward`` (nb + nt, H, W, 3), ``bi: {flow,
     valid}`` (nb, H, W), ``tri: {flow, conf}`` (nt, H, W) and ``tri: {im0,
-    im1, im2}`` (nt, H, W, 3). ``nb``/``nt`` are the loader's static split.
+    im1, im2}`` (nt, H, W, 3). ``nb``/``nt`` are the loader's static split
+    of the global batch. ``num_hosts`` (by default the process group's size,
+    1 without one) must be that size: each rank then holds ``nb /
+    num_hosts`` binocular rows and then ``nt / num_hosts`` trinocular ones,
+    its block of the JAX step's host-block order
+    (``data/loader.py::MixedStereoLoader`` with ``num_hosts``), and the
+    losses divide by global counts; the gradients and loss values are
+    summed over the ranks and ``ok`` agreed before the update.
     ``mark(name)``, when given, is called as each part has been issued
     ("ema", "forward", "loss", "backward", "optimizer"). ``metrics`` are
     Python floats: ``bi_*`` (the binocular loss's epe, 1px, 3px, 5px),
     epe, 1px, 3px, 5px (the trinocular ones when nt > 0), ns_loss, loss,
     ok, learning_rate."""
-    if num_hosts != 1:
-        raise NotImplementedError(
-            f"num_hosts={num_hosts}: multi-process NS training (the JAX step's re-slicing "
-            "of host blocks) is not ported yet: ROADMAP.md Queue 1 item 11")
     if nb < 0 or nt < 0 or nb + nt == 0:
         raise ValueError(f"modality split nb={nb}/nt={nt}")
+    size = rank_and_size()[1]
+    if num_hosts is None:
+        num_hosts = size
+    if num_hosts != size:
+        raise ValueError(f"num_hosts={num_hosts} needs a process group of {num_hosts} ranks "
+                         f"(this process is in one of {size})")
+    if nb % num_hosts or nt % num_hosts:
+        raise ValueError(f"modality split nb={nb}/nt={nt} must divide across {num_hosts} "
+                         "ranks (each rank's rows need the same static composition)")
+    nb, nt = nb // num_hosts, nt // num_hosts  # this rank's rows of each modality
     schedule = make_schedule(hyper)
 
     def step_fn(state: DKTTrainState, batch: dict, mark=None):
@@ -90,15 +105,15 @@ def make_ns_train_step(config: dict, hyper: DKTHyperParams, nb: int, nt: int,
         loss.backward()
         mark("backward")
 
+        values["loss"] = loss
+        applied, values = reduce_step(student_params(optimizer), ok, values)
         lr = schedule(applied_step_count(optimizer))
-        applied = bool(ok)
         if applied:
             apply_update_(optimizer, lr)
         else:
             optimizer.zero_grad(set_to_none=True)
         mark("optimizer")
 
-        values["loss"] = loss
         with torch.no_grad():
             numbers = torch.stack([v.detach().float() for v in values.values()]).tolist()
         metrics = dict(zip(values, numbers), ok=float(applied), learning_rate=lr)

@@ -98,11 +98,16 @@ def clip_by_global_norm_(grads, max_norm: float = 1.0) -> torch.Tensor:
     return norm
 
 
+def student_params(optimizer: torch.optim.Optimizer) -> list:
+    """The parameters the optimizer steps, in its order."""
+    return [p for g in optimizer.param_groups for p in g["params"]]
+
+
 def apply_update_(optimizer: torch.optim.Optimizer, lr: float) -> None:
     """The optimizer chain of an applied step: a parameter the forward did
     not use gets a zero gradient (JAX's), the gradients are clipped to
     global norm 1.0, then AdamW steps at ``lr``."""
-    params = [p for g in optimizer.param_groups for p in g["params"]]
+    params = student_params(optimizer)
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)

@@ -10,6 +10,7 @@ iterations, fp32 (the eval protocol), through one JAX compile that the eval
 and demo CLIs share.
 """
 
+import functools
 import io
 import json
 import os
@@ -375,23 +376,32 @@ def test_eval_and_demo_cli_match_jax(cli_setup, monkeypatch):
         assert f"element vertex {int((np.abs(ours_d) > 0).sum())}" in header
 
 
-def test_cli_refusals(cli_setup, tmp_path):
+def test_cli_refusals(cli_setup, tmp_path, monkeypatch):
     """What the slice does not port raises and names where it comes: a
     checkpoint path that is neither a ``.pth`` nor a port checkpoint,
-    ``--spatial_bands 2`` (item 11), NeRF-Stereo's dataset without its file
-    list (as the JAX package's). The
+    NeRF-Stereo's dataset without its file list (as the JAX package's);
+    ``--spatial_bands 2`` runs (two ranks, EPE within 1e-4 px of the
+    unbanded eval's). The
     training datasets the training side ported build: augmented samples
     and Scene Flow's training splits."""
     from dkt_stereo_tpu_torch.cli.eval import main as port_eval
     from dkt_stereo_tpu_torch.data.datasets import fetch_dataset
+    from dkt_stereo_tpu_torch.parallel import mesh
 
     tmp, cfg, ckpt = cli_setup
     base = ["--config", str(cfg), "--valid_iters", "2", "--datasets", "kitti-2015",
             "--data_root", str(tmp)]
     with pytest.raises(FileNotFoundError, match="neither a port checkpoint"):
         port_eval(base + ["--restore_ckpt", str(tmp / "step_3")], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        port_eval(base + ["--restore_ckpt", str(ckpt), "--spatial_bands", "2"], device="cpu")
+    # --spatial_bands 2: two ranks over gloo on the CPU (this 60 x 100 frame
+    # is too small to band at the default halo, so each rank runs it whole
+    # under the cross-band statistics), against the unbanded eval
+    monkeypatch.setattr(mesh, "run_ranks", functools.partial(mesh.run_ranks, timeout=120))
+    banded = port_eval(base + ["--restore_ckpt", str(ckpt), "--spatial_bands", "2"],
+                       device="cpu")
+    unbanded = port_eval(base + ["--restore_ckpt", str(ckpt)], device="cpu")
+    assert set(banded) == set(unbanded) == {"kitti-2015-epe", "kitti-2015-d1"}
+    assert abs(banded["kitti-2015-epe"] - unbanded["kitti-2015-epe"]) <= 1e-4
     with pytest.raises(FileNotFoundError, match="trainingQ.txt"):
         fetch_dataset(["nerf_stereo"], (32, 64), data_root=str(tmp))
     kitti = KITTI({"crop_size": (32, 64)}, root=str(tmp / "KITTI"), split="2015")

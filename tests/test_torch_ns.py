@@ -346,5 +346,6 @@ def test_ns_step_skips_update_when_not_ok(ns_setup):
     assert not state.optimizer.state
     assert any(not torch.equal(v, ema[k]) for k, v in state.ema.state_dict().items()
                if v.is_floating_point())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    # num_hosts must be the process group's size (1 without a group)
+    with pytest.raises(ValueError, match="needs a process group of 2 ranks"):
         make_ns_train_step(TINY, hyper, nb=2, nt=2, num_hosts=2)

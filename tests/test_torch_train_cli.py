@@ -369,8 +369,10 @@ def test_train_cli_refusals(runs, tmp_path, monkeypatch):
     """The JAX CLI's two NeRF-Stereo exits (``loss_func=ns_loss`` without
     ``nerf_stereo`` data; ``nerf_stereo`` data under ``train.json``'s
     ``sequence_loss_raft``); what is not ported raises naming its ROADMAP.md
-    item: ``--batched_teachers`` (item 5), the multi-process and profiler
-    flags (item 11). A FallingThings JPEG without PIL raises naming the
+    item: ``--batched_teachers`` (item 5); ``--profile_port`` raises by
+    design; a global batch that does not split over ``--num_processes``, a
+    missing coordinator and a process id out of range raise before any
+    process group is joined. A FallingThings JPEG without PIL raises naming the
     file; a JAX package (Orbax) checkpoint given to the eval CLI raises
     pointing at its export CLI; without ``device`` the train CLI wants a
     CUDA device."""
@@ -392,11 +394,20 @@ def test_train_cli_refusals(runs, tmp_path, monkeypatch):
                        device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         train_cli.main(argv + ["--batched_teachers"], device="cpu")
-    for flag, value in (("--coordinator_address", "localhost:1234"), ("--num_processes", "2"),
-                        ("--process_id", "0"), ("--profile_dir", str(tmp_path)),
-                        ("--profile_port", "9012")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            train_cli.main(argv + [flag, value], device="cpu")
+    # --profile_port stays refused by design; the multi-process flags are
+    # checked before any process group is joined (the working runs:
+    # tests/test_torch_profiling.py, tests/test_torch_parallel.py)
+    with pytest.raises(NotImplementedError, match="Not to port, by design"):
+        train_cli.main(argv + ["--profile_port", "9012"], device="cpu")
+    with pytest.raises(SystemExit, match="must be divisible by --num_processes 2"):
+        train_cli.main(argv + ["--num_processes", "2", "--coordinator_address", "localhost:1234",
+                               "--process_id", "0"], device="cpu")
+    argv2 = [v if v != "1" or argv[i - 1] != "--batch_size" else "2" for i, v in enumerate(argv)]
+    for extra, match in ((["--num_processes", "2"], "needs --coordinator_address"),
+                         (["--num_processes", "2", "--coordinator_address", "localhost:1234",
+                           "--process_id", "2"], "outside")):
+        with pytest.raises(ValueError, match=match):
+            train_cli.main(argv2 + extra, device="cpu")
 
     ft = tmp_path / "FallingThings"
     (ft / "scene").mkdir(parents=True)
