@@ -334,6 +334,39 @@ Queue 1 item 11):
      beside phase 9's one-process step; then cli.train's broadcast of the
      state from rank 0 (parallel/mesh.py::replicate), bit-identical.
 
+RAFT-Stereo's remaining options, batched teachers, GWCNet's ptrans head and
+the confidence tools (ROADMAP.md Queue 1 items 1 and 2):
+
+ 43. RAFT's options in test mode on pallas.json ({**pallas.json, option} in
+     memory): cosine, mix_fmap_image, interpolate with reg_cuda and with
+     alt_cuda, shared_backbone and fast_in_stats (with pallas_encoder),
+     each card vs plain on the CPU, fp32, TF32 off, 1x256x512, 2 iterations
+     (5e-3 px), with exact launches (2 K1 or 2 K3; 4 K2 where the fnet runs
+     fused); K1 on a cosine pyramid (values in [-1, 1]) and K3 at D 3 vs
+     their plain twins at 1x184x320; then cosine and interpolate + alt_cuda
+     at 1x736x1280, 32 iterations, bf16, 20 frames, and fast_in_stats 5
+     frames, with exact counts (32 K1 + 4 K2, 32 K3, 32 K1 + 4 K2 a frame);
+ 44. the DKT step with the new options, train.json at 8x320x720, 16/32
+     iterations: (a) mix_fmap_image, one step card vs CPU at 1x64x128 with
+     the draws fixed (phase 8's bounds), then 1 warm-up + 5 timed steps
+     with 96 K1 and 16 K1 backward a step; (b) batched_teachers: the two
+     slots bit-identical from equal weights (2 K1 launches for both
+     teachers' 2 iterations), one batched step against the unbatched one
+     (loss 1e-3 relative, weights within 2.5 x the first AdamW move), then
+     1 + 5 timed steps with 64 K1 (the teachers' 2 x 32 in 32 launches) and
+     16 backward a step, beside phase 9's step, a profile of one
+     (chiprun_out/chip_smoke_batched_train_profile.txt), and the teachers'
+     forward alone, the two models in turn against the batched one, timed
+     in turns and profiled by bucket; (c) cli.train
+     --batched_teachers, 3 steps on phase 33's Scene Flow tree, 64/16 a
+     step;
+ 45. GWCNet base_gc.json with ptrans in train mode: card vs CPU at
+     1x64x128 (z_ps within 1e-4, unit rows within 1e-5, disparities within
+     5e-2 px); B=8 at 320x720 with 32 patches x 4 views of 64x64 a side,
+     ms and peak; PTrans's host seconds a 320x720 sample; the confidence
+     tools card vs CPU at 2x320x720 (1e-4 of the values' scale; uniqueness
+     and agreement exact).
+
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
 result. Whatever the outcome, every process the phases started (the
@@ -5111,6 +5144,570 @@ def phase_dp_world_of_one(torch, train_cfg, card, unfused_ms, tmp):
     return {"world_of_one_training": launches}
 
 
+# --- phases 43-45: RAFT's remaining options, batched teachers, ptrans ----
+
+OPTION_CASES = (
+    ("cosine", {"corr_implementation": "cosine"}),
+    ("mix_fmap_image", {"corr_implementation": "mix_fmap_image"}),
+    ("interpolate_reg_cuda", {"backbone_type": "interpolate", "corr_implementation": "reg_cuda"}),
+    ("interpolate_alt_cuda", {"backbone_type": "interpolate", "corr_implementation": "alt_cuda"}),
+    ("shared_backbone", {"shared_backbone": True}),
+    ("fast_in_stats", {"fast_in_stats": True}),
+)
+# the options timed at full width, full depth, and their frames
+OPTION_TIMED = (("cosine", MAIN_FRAMES), ("interpolate_alt_cuda", MAIN_FRAMES),
+                ("fast_in_stats", 5))
+
+
+def _option_launches(model, iters):
+    """The launches a test-mode frame of ``model`` must make: the lookup
+    (K3 for alt_cuda, else K1) every iteration, and K2's four stages where
+    the fnet runs fused."""
+    cfg = model.cfg
+    lookup = "corr_lookup_alt" if cfg.corr_implementation == "alt_cuda" else "corr_lookup"
+    fused = hasattr(model, "fnet") and cfg.pallas_encoder
+    return {**dict.fromkeys(kernel_counts(), 0), lookup: iters, "encoder_stage": 4 * fused}
+
+
+def phase_options(torch, config, card):
+    """Phase 43: RAFT's options in test mode on pallas.json ({**pallas.json,
+    option} in memory). Parity of each, kernels on the card vs the plain path
+    on the CPU, fp32, TF32 off, 1x256x512, 2 iterations, with its exact
+    launches; K1 on a cosine pyramid and K3 at D = 3 vs their plain twins at
+    the 1/4 grid of 736x1280; then cosine, interpolate + alt_cuda and
+    fast_in_stats at 1x736x1280, 32 iterations, bf16, timed with exact
+    launch counts."""
+    from dkt_stereo_tpu_torch.eval.validate import _run_one, make_forward_fn
+    from dkt_stereo_tpu_torch.models.registry import create_model
+    from dkt_stereo_tpu_torch.ops.corr import corr_pyramid_fused, fmap_pyramid
+    from dkt_stereo_tpu_torch.ops.cuda.corr_alt import corr_lookup_alt, corr_lookup_alt_plain
+    from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup, corr_lookup_plain
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    iters = 2
+    rng = np.random.default_rng(43)
+    img1, img2 = (rng.uniform(0, 255, (256, 512, 3)).astype(np.float32) for _ in range(2))
+    rows = []
+    for name, override in OPTION_CASES:
+        cfg = {**config, **override, "mixed_precision": False, "corr_dtype": "float32"}
+        gpu = create_model(cfg, iters=iters, device="cuda", seed=0)
+        cpu = copy.deepcopy(gpu).to("cpu")
+        zero_counts()
+        d_gpu, _ = _run_one(make_forward_fn(gpu, device="cuda"), img1, img2)
+        launches = kernel_counts()
+        d_cpu, _ = _run_one(make_forward_fn(cpu, device="cpu"), img1, img2)
+        want = _option_launches(gpu, iters)
+        check(launches == want, f"{name} parity: launches {launches} != {want}")
+        err = float(np.abs(d_gpu - d_cpu).max())
+        # RAFT's kernels-vs-plain bound (phase 4)
+        check(np.isfinite(d_gpu).all() and err <= 5e-3, f"{name} parity {err} > 5e-3")
+        rows.append(f"{name} {err:.3e} px (max |disp| {np.abs(d_cpu).max():.1f})")
+        del gpu, cpu
+    print("RAFT options parity (pallas.json + option, fp32, TF32 off, 1x256x512, 2 iters), "
+          "card vs plain on the CPU, disp_up max_abs: " + " | ".join(rows)
+          + " (tol 5e-3; launches exact: 2 K1 or 2 K3, 4 K2 where the fnet runs fused)")
+
+    # the kernels on this slice's new inputs: K1 on the cosine pyramid
+    # (values in [-1, 1]), K3 at D = 3 (the resized images' features)
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    B, H, W = K1_FRAME
+    f1, f2 = (torch.randn((B, H, W, 256), generator=gen, device="cuda") for _ in range(2))
+    coords = torch.rand((B, H, W, 1), generator=gen, device="cuda") * (W + 40) - 20
+    errs = []
+    for vdt, odt in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)):
+        pyr = corr_pyramid_fused(f1.to(vdt), f2.to(vdt), 4, out_dtype=vdt, normalize=True)
+        check(max(float(v.float().abs().max()) for v in pyr) <= 1.0 + 2**-7,
+              "the cosine pyramid leaves [-1, 1]")
+        got = corr_lookup(pyr, coords, 4, odt)
+        want = corr_lookup_plain(pyr, coords, 4).permute(0, 3, 1, 2)
+        if odt == torch.float32:
+            e = float((got - want).abs().max())
+            check(e <= 1e-4 * float(want.abs().max()), f"K1 on the cosine pyramid: {e}")
+            errs.append(f"fp32 max_abs {e:.3e}")
+        else:
+            e = bf16_steps(torch, got, want)
+            check(e <= 1.0, f"K1 on the bf16 cosine pyramid: {e} bf16 steps")
+            errs.append(f"bf16 {e:.2f} bf16 steps")
+    for dt in (torch.float32, torch.bfloat16):
+        g1, g2 = (torch.rand((B, H, W, 3), generator=gen, device="cuda").to(dt) * 2 - 1
+                  for _ in range(2))
+        lv = fmap_pyramid(g2, 4)
+        got = corr_lookup_alt(g1, lv, coords, 4)
+        want = corr_lookup_alt_plain(g1, lv, coords, 4)
+        e = float((got - want).abs().max())
+        check(e <= 1e-4 * float(want.abs().max()), f"K3 at D 3 {dt}: {e}")
+        errs.append(f"K3 D 3 {str(dt).split('.')[-1]} max_abs {e:.3e}")
+    print(f"K1 on a cosine pyramid and K3 at D 3, {K1_FRAME}: " + " | ".join(errs)
+          + " (tol 1e-4 x max|plain|, bf16 one bf16 step)")
+    torch.backends.cudnn.allow_tf32 = True
+    del f1, f2
+
+    # full width, full depth: 1 warm-up and the frames a case is timed over
+    iters = 32
+    rng = np.random.default_rng(0)
+    img1, img2 = (rng.uniform(0, 255, (736, 1280, 3)).astype(np.float32) for _ in range(2))
+    paths = {}
+    for name, frames in OPTION_TIMED:
+        override = dict(OPTION_CASES)[name]
+        model = create_model({**config, **override}, iters=iters, seed=0)
+        forward = make_forward_fn(model)
+        _run_one(forward, img1, img2)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        times = [_run_one(forward, img1, img2) for _ in range(frames)]
+        launches = kernel_counts()
+        disp = times[-1][0]
+        want = {k: v * frames for k, v in _option_launches(model, iters).items()}
+        check(launches == want, f"{name} frames: launches {launches} != {want}")
+        check(disp.shape == (736, 1280) and bool(np.isfinite(disp).all()),
+              f"{name}: disparity {disp.shape} or non-finite")
+        ms = 1e3 * np.asarray([t for _, t in times])
+        print(f"option {name} (pallas.json + {override}, bf16, 1x736x1280, {iters} iters, "
+              f"{frames} frames): ms/frame median {np.median(ms):.2f} mean {ms.mean():.2f} min "
+              f"{ms.min():.2f} max {ms.max():.2f} | launches {launches} | peak mem "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
+        paths[f"option_{name}"] = launches
+        del model, forward
+        torch.cuda.empty_cache()
+    return paths
+
+
+def _teachers_alone(torch, cfg, hyper, state, gen, image):
+    """The teachers' forward alone on one clean pair of ``image``: the two
+    test-mode models called in turn and the batched forward, timed in turns
+    (unbatched, batched, batched, unbatched; 3 calls each) and profiled by
+    bucket (chiprun_out/chip_smoke_teachers_{unbatched,batched}_profile.txt)."""
+    from dkt_stereo_tpu_torch.train.dkt_step import batched_teachers
+
+    B, H, W = image
+    img1, img2 = (255 * torch.rand((B, H, W, 3), generator=gen, device="cuda")
+                  for _ in range(2))
+    both = batched_teachers(cfg, hyper)
+
+    @torch.no_grad()
+    def unbatched():
+        state.teacher(img1, img2)
+        state.ema(img1, img2)
+
+    @torch.no_grad()
+    def batched():
+        both(state.teacher, state.ema, img1, img2)
+
+    def host_ms(fn, n=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    ms = {"unbatched": [], "batched": []}
+    for name in ("unbatched", "batched", "batched", "unbatched"):
+        ms[name].append(host_ms(unbatched if name == "unbatched" else batched))
+    lines = []
+    for name, fn in (("unbatched", unbatched), ("batched", batched)):
+        def run(fn=fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        wall, busy, _, buckets = device_profile(torch, run,
+                                                f"chip_smoke_teachers_{name}_profile.txt")
+        lines.append(f"{name}: ms {' '.join(f'{t:.1f}' for t in ms[name])}, profiled wall "
+                     f"{wall:.1f} kernels {busy:.1f}; by bucket: {buckets}")
+    print(f"the teachers' forward alone (train.json, bf16, B={B} {H}x{W}, "
+          f"{hyper.teacher_iters} iters, both teachers; host ms a call in turns): "
+          + " || ".join(lines))
+
+
+# the batched bf16 teachers' disparities may differ from their own forwards
+# by this multiple of what a 1e-3 nudge of the left image moves those, max
+# and mean (0.60-0.73 on an H100)
+BF16_TEACHERS_NUDGE = 1.5
+
+
+def _module_outputs(torch, model, call, slot=None):
+    """``[(module name, output)]`` in the order ``call()`` ran the modules of
+    ``model``; under ``vmap`` (``slot`` given) each output is that slot of
+    the mapped tensor. The first tensor of a tuple or list output."""
+    seen = []
+
+    def hook(name):
+        def record(module, args, out):
+            while isinstance(out, (tuple, list)):
+                out = out[0]
+            if not isinstance(out, torch.Tensor):
+                return
+            if slot is not None:
+                dim = torch._C._functorch.maybe_get_bdim(out)
+                out = torch._C._functorch.get_unwrapped(out).movedim(dim, 0)[slot]
+            seen.append((name, out.detach().clone()))
+        return record
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules()]
+    try:
+        call()
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def _bf16_teachers(torch, train_cfg):
+    """The batched teachers in bf16 on the card, train.json, the EMA's
+    weights the teacher's times 1 + 0.02 N(0, 1). (1) torch.autocast in
+    place of ``nn/precision.py``'s policy (a mapped conv alone, then the
+    batched teachers at 1x64x128): printed, as the reason for the policy.
+    (2) The policy's lists against CUDA's autocast, op by op
+    (``policy_mismatches``): none may differ. (3) At 1x64x128, 2
+    iterations, each slot against its model's own forward under
+    torch.autocast, module by module in the order they ran: every dtype
+    must agree, and the first output that differs must lie within one bf16
+    step (2^-7) of its largest value. (4) At 8x320x720, 32 iterations, the
+    flow head x0.02 (random weights otherwise run the disparity to 1,000
+    px, where any rounding moves it by ~80 px): each slot's disparity
+    against its own forward's, beside what a 1e-3 nudge of the left image
+    moves that forward's and how far it lies from fp32 (TF32 off); the
+    first two must stay within ``BF16_TEACHERS_NUDGE`` of the third, max
+    and mean."""
+    import torch.nn.functional as F
+
+    from dkt_stereo_tpu_torch.nn import precision
+    from dkt_stereo_tpu_torch.train.dkt_step import batched_teachers, create_dkt_state
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    gen = torch.Generator(device="cuda").manual_seed(45)
+
+    def pair(B, H, W):
+        return [255 * torch.rand((B, H, W, 3), generator=gen, device="cuda") for _ in range(2)]
+
+    def teachers(config, hyper):
+        state = create_dkt_state(config, hyper, seed=0, device="cuda")
+        with torch.no_grad():
+            for p in state.ema.parameters():
+                p.mul_(1 + 0.02 * torch.randn(p.shape, generator=gen, device="cuda"))
+        return state, batched_teachers(config, hyper)
+
+    config = {**train_cfg, "remat_iters": False}
+    hyper = DKTHyperParams(train_iters=2, teacher_iters=2, batched_teachers=True)
+    state, fn = teachers(config, hyper)
+    img1, img2 = pair(1, 64, 128)
+
+    # (1)
+    x = torch.randn((1, 4, 16, 16), generator=gen, device="cuda")
+    w = torch.randn((2, 8, 4, 3, 3), generator=gen, device="cuda")
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        conv = torch.func.vmap(F.conv2d, in_dims=(None, 0))(x, w)
+    policy = precision._AutocastPolicy
+    precision._AutocastPolicy = lambda device_type: torch.autocast(device_type,
+                                                                   dtype=torch.bfloat16)
+    try:
+        with torch.no_grad():
+            fn(state.teacher, state.ema, img1, img2)
+        plain = "runs"
+    except RuntimeError as e:
+        plain = f"raises {str(e).splitlines()[0][:120]}"
+    finally:
+        precision._AutocastPolicy = policy
+    print(f"torch.autocast under vmap on the card: a mapped conv2d of fp32 operands gives "
+          f"{conv.dtype}; the batched teachers with torch.autocast in place of the policy "
+          f"{plain}")
+
+    # (2)
+    mism = precision.policy_mismatches("cuda")
+    check(not mism, f"the autocast policy differs from CUDA's autocast: {mism}")
+
+    # (3)
+    lines = []
+    with torch.no_grad():
+        for slot, model in enumerate((state.teacher, state.ema)):
+            want = _module_outputs(torch, model, lambda: model(img1, img2))
+            got = _module_outputs(torch, fn.model,
+                                  lambda: fn(state.teacher, state.ema, img1, img2), slot)
+            check([n for n, _ in got] == [n for n, _ in want],
+                  "batched bf16 teachers ran other modules than their own forwards")
+            bad = [n for (n, a), (_, b) in zip(got, want) if a.dtype != b.dtype]
+            check(not bad, f"batched bf16 teachers: dtypes differ at {bad[:5]}")
+            first = next(((n, a, b) for (n, a), (_, b) in zip(got, want)
+                          if not torch.equal(a, b)), None)
+            if first is None:
+                lines.append(f"slot {slot}: all {len(got)} module outputs bit-identical")
+                continue
+            n, a, b = first
+            rel = float((a.float() - b.float()).abs().max()) / float(b.abs().max())
+            check(rel <= 2**-7, f"batched bf16 teachers: {n} differs by {rel} of its largest "
+                                "value, more than a bf16 step")
+            lines.append(f"slot {slot}: {len(got)} module outputs of equal dtypes, the first "
+                         f"that differs {n} ({type(fn.model.get_submodule(n)).__name__}, "
+                         f"{a.dtype}) by {rel:.3g} of its largest value (tol 2^-7)")
+    print("the autocast policy gives each listed op CUDA autocast's dtype and values; batched "
+          "bf16 teachers vs their own forwards (train.json, 1x64x128, 2 iters): "
+          + " | ".join(lines))
+    del state, fn
+
+    # (4)
+    B, H, W = TRAIN_IMAGE
+    hyper = DKTHyperParams(train_iters=16, teacher_iters=32, batched_teachers=True)
+    state, fn = teachers(config, hyper)
+    fp32 = create_dkt_state({**config, "mixed_precision": False, "corr_dtype": "float32"},
+                            hyper, seed=0, device="cuda")
+    for model, twin in ((state.teacher, fp32.teacher), (state.ema, fp32.ema)):
+        _damped(model, ("flow_head", 0.02))
+        twin.load_state_dict(model.state_dict())
+    img1, img2 = pair(B, H, W)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        got = fn(state.teacher, state.ema, img1, img2)
+        rows = [(model(img1, img2)[1], model(img1 + 1e-3, img2)[1], twin(img1, img2)[1])
+                for model, twin in ((state.teacher, fp32.teacher), (state.ema, fp32.ema))]
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    lines = []
+    for slot, (a, (u, nudged, f)) in enumerate(zip(got, rows)):
+        d, n, e = ((x - u).abs() for x in (a, nudged, f))
+        for stat in ("max", "mean"):
+            got_s, floor = float(getattr(d, stat)()), float(getattr(n, stat)())
+            check(got_s <= BF16_TEACHERS_NUDGE * floor,
+                  f"batched bf16 slot {slot}: {stat} |diff| {got_s} px > {BF16_TEACHERS_NUDGE} x "
+                  f"the nudge's {floor}")
+        lines.append(f"slot {slot}: batched max {float(d.max()):.4g} mean {float(d.mean()):.4g} "
+                     f"px, nudge max {float(n.max()):.4g} mean {float(n.mean()):.4g}, fp32 max "
+                     f"{float(e.max()):.4g} mean {float(e.mean()):.4g}, |disp| max "
+                     f"{float(u.abs().max()):.4g}")
+    print(f"batched bf16 teachers vs their own forwards under torch.autocast (train.json, flow "
+          f"head x0.02, B={B} {H}x{W}, 32 iters; tol {BF16_TEACHERS_NUDGE} x the 1e-3 nudge's "
+          f"max and mean): " + " | ".join(lines))
+    del state, fn, fp32, got, rows
+    torch.cuda.empty_cache()
+
+
+def phase_options_train(torch, train_cfg, card, unfused_ms, train_data):
+    """Phase 44: the DKT step with the new options, train.json at 8x320x720,
+    16/32 iterations. (a) mix_fmap_image: one step card vs CPU at 1x64x128
+    with the draws (blend weights included) fixed, then 1 warm-up and 5
+    timed steps with exactly 96 K1 forward and 16 backward a step; (b)
+    batched_teachers: the two slots bit-identical from equal weights, one
+    batched step against the unbatched one on the card (losses 1e-3
+    relative, weights within 2.5 x the first AdamW move, the bounds of the
+    JAX package's tests/test_dkt.py:322), the bf16 policy and module
+    dtypes (``_bf16_teachers``), then 1 + 5 timed steps with exactly 64 K1
+    forward (the teachers' 2 x 32 lookups in 32 launches) and 16 backward,
+    beside phase 9's unbatched step, a profile of one, and the teachers'
+    forward alone batched and not, their bf16 disparities held against the
+    unbatched forwards' (``_teachers_alone``); (c)
+    cli.train --batched_teachers for 3 steps on phase 33's Scene Flow
+    tree."""
+    from dkt_stereo_tpu_torch.train.dkt_step import (
+        batched_teachers, create_dkt_state, fande_draws, make_dkt_train_step)
+    from dkt_stereo_tpu_torch.train.state import DKTHyperParams
+
+    paths = {}
+    mix_cfg = {**train_cfg, "corr_implementation": "mix_fmap_image"}
+    phase_train_parity(torch, mix_cfg, "mix_fmap_image train-step parity")
+
+    B, H, W = TRAIN_IMAGE
+    for label, cfg, hyper_kw, want in (
+            ("mix_fmap_image", mix_cfg, {}, {"corr_lookup": 96, "corr_lookup_bwd": 16}),
+            ("batched_teachers", train_cfg, {"batched_teachers": True},
+             {"corr_lookup": 64, "corr_lookup_bwd": 16})):
+        if label == "batched_teachers":
+            # (b) on the card, fp32, TF32 off: the slots and the step parity
+            torch.backends.cudnn.allow_tf32 = False
+            small = {**train_cfg, "mixed_precision": False, "corr_dtype": "float32"}
+            kw = dict(train_iters=2, teacher_iters=2, num_steps=100)
+            seq, bat = DKTHyperParams(**kw), DKTHyperParams(**kw, batched_teachers=True)
+            gen = torch.Generator().manual_seed(44)
+            batch = {k: v.cuda() for k, v in _train_batch(torch, gen, 1, 64, 128, "cpu").items()}
+            draws = {k: v.cuda() for k, v in fande_draws(1, "cpu", gen).items()}
+            states = [create_dkt_state(small, h, seed=0, device="cuda") for h in (seq, bat)]
+            zero_counts()
+            with torch.no_grad():
+                d_pl, d_ema = batched_teachers(small, bat)(
+                    states[1].teacher, states[1].ema, batch["img1_clean"], batch["img2_clean"])
+            torch.cuda.synchronize()
+            slot_launches = kernel_counts()["corr_lookup"]
+            check(torch.equal(d_pl, d_ema), "batched teachers: equal weights, unequal slots")
+            check(slot_launches == 2, f"batched teachers: {slot_launches} K1 for 2 iterations")
+            out = [make_dkt_train_step(small, h)(s, batch, draws=draws)
+                   for h, s in zip((seq, bat), states)]
+            (s_seq, m_seq), (s_bat, m_bat) = out
+            rel = abs(m_bat["loss"] - m_seq["loss"]) / abs(m_seq["loss"])
+            moved = max(float((x.detach() - y.detach()).abs().max())
+                        for x, y in zip(s_bat.student.parameters(), s_seq.student.parameters()))
+            lr0 = seq.lr / 25.0
+            check(m_bat["ok"] == 1.0 and rel <= 1e-3, f"batched step loss: relative {rel}")
+            check(moved < 2.5 * lr0, f"batched step weights {moved} >= 2.5 lr0 {2.5 * lr0}")
+            print(f"batched teachers on the card (train.json, fp32, TF32 off, 1x64x128, 2+2 "
+                  f"iters): slots bit-identical from equal weights, {slot_launches} K1 launches "
+                  f"for both teachers' 2 iterations | step vs unbatched: loss {m_bat['loss']:.6f} "
+                  f"vs {m_seq['loss']:.6f} (relative {rel:.2e}, tol 1e-3), weights max |diff| "
+                  f"{moved:.3e} (tol 2.5 lr0 = {2.5 * lr0:.1e})")
+            torch.backends.cudnn.allow_tf32 = True
+            del states, out, s_seq, s_bat
+            _bf16_teachers(torch, train_cfg)
+        hyper = DKTHyperParams(train_iters=16, teacher_iters=32, **hyper_kw)
+        state = create_dkt_state(cfg, hyper, seed=0)
+        step = make_dkt_train_step(cfg, hyper)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        state, run = timed_steps(torch, state, step, gen, (B, H, W), label)
+        full = {**dict.fromkeys(run["launches"], 0), **want}
+        check(all(c == full for c in run["per_step"]),
+              f"{label} launches per step {run['per_step']} != {full}")
+        print(f"{label} training (train.json + option, bf16, remat, B={B} {H}x{W}, 16/32 "
+              f"iters, {TRAIN_STEPS} steps after 1 warm-up): {step_line(run)} | the unbatched, "
+              f"unmixed train.json step (phase 9, same call): mean {unfused_ms:.2f} ms/step, "
+              f"this / that {run['ms'].mean() / unfused_ms:.3f} | {card}")
+        paths[f"{label}_training"] = run["launches"]
+        if label == "batched_teachers":
+            profile_step(torch, state, step, gen, (B, H, W), run["ms"].mean(),
+                         "chip_smoke_batched_train_profile.txt", "batched-teacher")
+            _teachers_alone(torch, cfg, hyper, state, gen, (B, H, W))
+        del state, step
+        torch.cuda.empty_cache()
+
+    # (c) the CLI flag, through cli.train on the Scene Flow tree
+    from dkt_stereo_tpu_torch.cli.config import load_model_config
+
+    cfg_path = str(ROOT / "configs/raft_stereo/train.json")
+    pth = seeded_pth(torch, load_model_config(cfg_path),
+                     Path(train_data).parent / "batched_train.pth")
+    argv = ["--config", cfg_path, "--train_datasets", "sceneflow", "--data_root",
+            str(train_data), "--batch_size", "8", "--image_size", "320", "720", "--num_workers",
+            TRAIN_WORKERS, "--num_steps", "2", "--validation_frequency", "100000", "--save_dir",
+            str(Path(train_data).parent / "run_batched"), "--restore_ckpt", pth,
+            "--batched_teachers"]
+    res, _, launches = _in_process(torch, argv, "cli.train --batched_teachers (train.json)",
+                                   {"corr_lookup": 64, "corr_lookup_bwd": 16}, card)
+    check(res["checkpoint"].endswith("step_3"), f"batched cli.train ended at {res['checkpoint']}")
+    paths["train_cli_batched"] = launches
+    return paths
+
+
+PTRANS_PATCHES = (32, 4, 64)  # the JAX PTrans defaults: patches, views, crop size
+PTRANS_IMAGE = (320, 720)  # the CLI's training crop
+
+
+def phase_ptrans(torch, card):
+    """Phase 45: GWCNet base_gc.json with ptrans in train mode. Parity with
+    the card against the CPU at 1x64x128 (2 patches x 2 views of 32x32,
+    fp32, TF32 off, batch norms calibrated as phase 28a's): z_ps and every
+    embedding of unit norm; then B=8 at 320x720 with the JAX defaults (32
+    patches, 4 views, 64x64 crops, bf16): the forward's ms and peak. PTrans's
+    host seconds a sample at 320x720 on this machine's CPU; the confidence
+    tools on the card against the CPU."""
+    from dkt_stereo_tpu_torch.data.ptrans import PTrans
+    from dkt_stereo_tpu_torch.dkt import confidence
+    from dkt_stereo_tpu_torch.models.registry import create_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = {**_config("configs/gwcnet/base_gc.json"), "ptrans": True}
+    gen = torch.Generator().manual_seed(45)
+    img1, img2 = (255 * torch.rand((1, 64, 128, 3), generator=gen) for _ in range(2))
+    a1, a2 = (255 * torch.rand((1, 2, 2, 32, 32, 3), generator=gen) for _ in range(2))
+    gpu = create_model({**cfg, "mixed_precision": False}, device="cuda", seed=0,
+                       test_mode=False)
+    calibrate_gwc(torch, gpu, img1.cuda(), img2.cuda(), rounds=30)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    zero_counts()
+    with torch.no_grad():
+        out_gpu = gpu(img1.cuda(), img2.cuda(), None, a1.cuda(), a2.cuda())
+        out_cpu = cpu(img1, img2, None, a1, a2)
+    launches = kernel_counts()
+    z_err = float((out_gpu["z_ps"].cpu() - out_cpu["z_ps"]).abs().max())
+    d_err = float((out_gpu["disp_preds"].cpu() - out_cpu["disp_preds"]).abs().max())
+    unit = float((out_gpu["z_ps"].norm(dim=-1) - 1).abs().max())
+    check(not any(launches.values()), f"ptrans launched port kernels: {launches}")
+    check(out_gpu["z_ps"].shape == (1, 2, 4, 256), f"z_ps {tuple(out_gpu['z_ps'].shape)}")
+    # unit vectors after the PSM trunk, a pool and two linear layers: fp32
+    # sums in another order; the disparities as phase 28a (5e-2 px)
+    check(z_err <= 1e-4 and unit <= 1e-5 and d_err <= 5e-2,
+          f"ptrans parity: z_ps {z_err}, unit norm {unit}, disparity {d_err}")
+    print(f"GWCNet ptrans parity (base_gc.json + ptrans, fp32, TF32 off, 1x64x128, 2 patches "
+          f"x 2 views of 32x32), card vs CPU: z_ps max_abs {z_err:.3e} (tol 1e-4), unit norm "
+          f"within {unit:.2e} (tol 1e-5), disp_preds max_abs {d_err:.3e} px (tol 5e-2)")
+    torch.backends.cudnn.allow_tf32 = True
+    del gpu, cpu
+
+    NP, NV, P = PTRANS_PATCHES
+    B, H, W = TRAIN_IMAGE
+    model = create_model(cfg, device="cuda", seed=0, test_mode=False)
+    g = torch.Generator(device="cuda").manual_seed(45)
+    views = [255 * torch.rand((B, NP, NV, P, P, 3), generator=g, device="cuda") for _ in range(2)]
+    pair = [255 * torch.rand((B, H, W, 3), generator=g, device="cuda") for _ in range(2)]
+    model(*pair, None, *views)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(*pair, None, *views)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        del out
+    launches = kernel_counts()
+    check(not any(launches.values()), f"ptrans forward launched port kernels: {launches}")
+    with torch.no_grad():
+        z = model(*pair, None, *views)["z_ps"]
+    unit = float((z.float().norm(dim=-1) - 1).abs().max())
+    check(z.shape == (B, NP, 2 * NV, 256) and unit <= 1e-5, f"z_ps {tuple(z.shape)}, {unit}")
+    print(f"GWCNet ptrans train-mode forward (base_gc.json + ptrans, bf16, B={B} {H}x{W}, "
+          f"{NP} patches x {NV} views of {P}x{P} a side, {B * NP * 2 * NV} views through the "
+          f"trunk): ms median {np.median(times):.2f} min {min(times):.2f} max {max(times):.2f} "
+          f"| peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | z_ps "
+          f"{tuple(z.shape)}, unit norm within {unit:.2e} | {card}")
+    del model, views, pair, z
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(45)
+    Hs, Ws = PTRANS_IMAGE
+    left, right = (rng.integers(0, 256, (Hs, Ws, 3), dtype=np.uint8) for _ in range(2))
+    disp = rng.uniform(0, 64, (Hs, Ws)).astype(np.float32)
+    pt = PTrans(num_patch=NP, num_view=NV, cropscale=P, rng=np.random.default_rng(0))
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        outs = pt(left, right, disp)
+        secs.append(time.perf_counter() - t0)
+    check(outs[2].shape == (NP, NV, P, P, 3), f"PTrans views {outs[2].shape}")
+    print(f"PTrans host seconds a sample ({Hs}x{Ws}, {NP} patches x {NV} views a side, numpy on "
+          f"this machine's CPU, {os.cpu_count()} CPUs): " + " ".join(f"{s:.3f}" for s in secs))
+
+    # the confidence tools: plain PyTorch on the card against the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    a, b = (torch.rand((2, H, W, 3), generator=gen) for _ in range(2))
+    d = -64 * torch.rand((2, H, W, 1), generator=gen)
+    di = 48 * torch.rand((2, H, W), generator=gen)
+    res, scale = {}, {}
+    for name, fn, args in (("ssim_gaussian", confidence.ssim_gaussian, (a, b)),
+                           ("reprojection_error", confidence.reprojection_error, (a, b, d)),
+                           ("uniqueness", confidence.uniqueness, (di,)),
+                           ("agreement", lambda x: confidence.agreement(x, 2, 1.0), (di,))):
+        want = fn(*args)
+        got = fn(*(x.cuda() for x in args)).cpu()
+        res[name], scale[name] = float((got - want).abs().max()), float(want.abs().max())
+    torch.backends.cudnn.allow_tf32 = True
+    check(res["uniqueness"] == 0.0 and res["agreement"] == 0.0,
+          f"uniqueness/agreement differ on the card: {res}")
+    # the reprojection error adds one L1 mean over the 1.4 M values of the
+    # pair, an fp32 sum in another order on the card (1.013e-5 on values up
+    # to ~0.5 in PR 18's first run): 1e-4 of the values' scale
+    check(res["ssim_gaussian"] <= 1e-4 * scale["ssim_gaussian"]
+          and res["reprojection_error"] <= 1e-4 * scale["reprojection_error"],
+          f"SSIM/reprojection differ on the card: {res} (scales {scale})")
+    print(f"confidence tools (2x{H}x{W}, fp32, TF32 off), card vs CPU max_abs: "
+          + " ".join(f"{k} {v:.3e} (max {scale[k]:.3e})" for k, v in res.items())
+          + " (tol 1e-4 x max; uniqueness and agreement exact)")
+    return {}
+
+
 def main():
     """Every phase, then every process the phases started is stopped."""
     adopt_orphans()
@@ -5214,6 +5811,10 @@ def run():
         eval_paths.update(phase_banded(torch, alt_cfg, card))
         eval_paths.update(phase_exact_and_dp(torch, alt_cfg, igev_cfg, train_cfg, ns_cfg, card))
         eval_paths.update(phase_dp_world_of_one(torch, train_cfg, card, unfused_ms, tmp))
+
+        eval_paths.update(phase_options(torch, config, card))
+        eval_paths.update(phase_options_train(torch, train_cfg, card, unfused_ms, train_data))
+        eval_paths.update(phase_ptrans(torch, card))
 
     def launches(name):
         by_path = {"inference": infer.get(name, 0), "training": train.get(name, 0),

@@ -47,9 +47,12 @@ trinocular samples a batch, ``--ns_num_tri`` setting ``nt``) and
     save and after each validation.
 
 ``main(argv, device="cpu")`` runs on the CPU; without ``device`` it wants a
-CUDA device and raises when there is none. ``--batched_teachers`` raises
-naming its ROADMAP.md item; ``--profile_port`` raises: JAX's live profiler
-server has no PyTorch counterpart (ROADMAP.md, "Not to port, by design").
+CUDA device and raises when there is none. ``--batched_teachers`` (or
+``batched_teachers`` in the config) runs the frozen and the EMA teacher as
+one batched forward (``train/dkt_step.py``), which on an H100 is slower
+than the two forwards it replaces (PERF.md); ``--profile_port`` raises:
+JAX's live profiler server has no PyTorch counterpart (ROADMAP.md, "Not to
+port, by design").
 """
 
 from __future__ import annotations
@@ -128,8 +131,10 @@ def parse_args(argv=None):
     p.add_argument("--wdecay", type=float, default=1e-5)
     p.add_argument("--cascade_train", action="store_true")
     p.add_argument("--batched_teachers", action="store_true",
-                   help="both teachers as one batched forward: not ported yet "
-                        "(ROADMAP.md Queue 1 item 5)")
+                   help="run the frozen and the EMA teacher as one batched forward over "
+                        "their stacked weights (also enabled by batched_teachers:true in "
+                        "--config); on an H100 this is slower than the two forwards it "
+                        "replaces (PERF.md)")
     p.add_argument("--ema_decay", type=float, default=0.99999)
     p.add_argument("--clamp", type=float, default=1.0)
     p.add_argument("--tau_gt", type=float, default=3.0)
@@ -358,16 +363,15 @@ def _train(args, config, dev) -> dict:
     _restore(args, state)
     # every rank built the same state; rank 0's is the one all ranks train
     replicate(state.student, state.ema, state.teacher, state.optimizer)
-    # F&E's draws: the global batch's, the same on every rank
+    # the step's draws (F&E's, the blend weights): the global batch's, the same on
+    # every rank
     generator = torch.Generator().manual_seed(args.seed)
     if ns_mode:
         step_fn = make_ns_train_step(config, hyper, nb=loader.nb, nt=loader.nt,
                                      conf_threshold=args.conf_threshold,
                                      disp_threshold=args.disp_threshold, num_hosts=size)
-        step_kw = {}
     else:
         step_fn = make_dkt_train_step(config, hyper)
-        step_kw = {"generator": generator}
     schedule = make_schedule(hyper)
     save_dir = Path(args.save_dir)
     lg = window = None
@@ -394,7 +398,7 @@ def _train(args, config, dev) -> dict:
                 t1 = time.perf_counter()
                 with window.step(state.step) if window else contextlib.nullcontext():
                     batch = _to_device(cpu_batch, dev)
-                    state, metrics = step_fn(state, batch, **step_kw)
+                    state, metrics = step_fn(state, batch, generator=generator)
                 t2 = time.perf_counter()
                 total_steps = state.step
                 if lg is not None:

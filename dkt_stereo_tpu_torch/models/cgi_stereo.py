@@ -28,7 +28,6 @@ the superpixel softmax and ``context_upsample`` in fp32.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import torch
@@ -37,6 +36,7 @@ from torch import nn
 from dkt_stereo_tpu_torch.nn.igev_blocks import BasicConvIGEV, Conv2xIGEV, _conv3, _deconv3
 from dkt_stereo_tpu_torch.nn.mobilenetv2 import MobileNetV2Trunk
 from dkt_stereo_tpu_torch.nn.norms import FrozenBatchNorm2d
+from dkt_stereo_tpu_torch.nn.precision import autocast
 from dkt_stereo_tpu_torch.ops.upsample import context_upsample
 from dkt_stereo_tpu_torch.ops.volumes import build_norm_correlation_volume, regression_topk
 
@@ -182,13 +182,13 @@ class CGIStereo(nn.Module):
         self.corr_stem = BasicConvIGEV(1, 8, dims=3)
 
     def _autocast(self, device: torch.device):
-        if not self.cfg.mixed_precision:
-            return contextlib.nullcontext()
-        return torch.autocast(device.type, dtype=torch.bfloat16)
+        return autocast(device, self.cfg.mixed_precision)
 
-    def forward(self, image1: torch.Tensor, image2: torch.Tensor, flow_init=None):
-        """(image1, image2) NHWC in [0, 255]. ``flow_init`` is accepted and
-        unused."""
+    def forward(self, image1: torch.Tensor, image2: torch.Tensor, flow_init=None,
+                mix_weight=None):
+        """(image1, image2) NHWC in [0, 255]. ``flow_init`` and
+        ``mix_weight`` (RAFT's blend weight, which the training steps pass to
+        every model) are accepted and unused."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         dev = image1.device

@@ -22,12 +22,20 @@ Batch norm is frozen, unless ``train_bn`` is set and the model is in train
 mode: its norms then normalise with the batch's statistics and update the
 running ones as flax does (``nn/norms.py::UpdatingBatchNorm2d``). The DKT
 step refuses ``train_bn`` (the JAX step carries no mutable batch
-statistics). The ``ptrans`` projection head is not ported.
+statistics).
+
+With ``ptrans`` the model holds the patch contrastive head
+(gwc_main.py:174-181, 290-300), ``projection``: Linear 320 -> 320, a batch
+norm, ReLU, Linear 320 -> 256. In train mode, given the augmented patch
+views ``augp1``/``augp2`` (B, NP, NV, P, P, 3) of ``data/ptrans.py``, the
+views go through the shared trunk after the pair (left, right, then the
+patches: the order in which ``train_bn`` updates the statistics), their
+``gwc_feature`` is averaged over the patch, projected and L2-normalised in
+fp32, and returned as ``z_ps`` (B, NP, 2 NV, 256) beside ``disp_preds``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import torch
@@ -36,6 +44,7 @@ from torch import nn
 from dkt_stereo_tpu_torch.nn.conv3d import Hourglass3D, convbn_3d
 from dkt_stereo_tpu_torch.nn.norms import (
     FrozenBatchNorm2d, FrozenBatchNorm3d, UpdatingBatchNorm2d, UpdatingBatchNorm3d)
+from dkt_stereo_tpu_torch.nn.precision import autocast
 from dkt_stereo_tpu_torch.nn.psm import FeatureExtractionPSM
 from dkt_stereo_tpu_torch.ops.resize import interp_trilinear_halfpix
 from dkt_stereo_tpu_torch.ops.volumes import (
@@ -76,9 +85,6 @@ class GWCNet(nn.Module):
 
     def __init__(self, cfg: GWCNetConfig, iters: int = 0, test_mode: bool = True):
         super().__init__()
-        if cfg.ptrans:
-            raise NotImplementedError("GWCNet's ptrans projection head is not ported yet: "
-                                      "ROADMAP.md Queue 1 item 10")
         self.cfg, self.test_mode = cfg, test_mode
         self.update_bn = cfg.train_bn and not test_mode
         bn2, bn3 = ((UpdatingBatchNorm2d, UpdatingBatchNorm3d) if self.update_bn
@@ -95,11 +101,13 @@ class GWCNet(nn.Module):
         self.dres4 = Hourglass3D(32, bn3)
         for i in range(4):
             self.add_module(f"classif{i}", _classifier(bn3))
+        if cfg.ptrans:
+            # bn2 normalises (N, C) rows as BatchNorm1d does, under its names
+            self.projection = nn.Sequential(nn.Linear(320, 320), bn2(320), nn.ReLU(inplace=True),
+                                            nn.Linear(320, 256))
 
     def _autocast(self, device: torch.device):
-        if not self.cfg.mixed_precision:
-            return contextlib.nullcontext()
-        return torch.autocast(device.type, dtype=torch.bfloat16)
+        return autocast(device, self.cfg.mixed_precision)
 
     def _regress(self, cost: torch.Tensor, full) -> torch.Tensor:
         """(B, 1, D/4, H/4, W/4) cost -> (B, H, W) negative disparity: the
@@ -108,9 +116,24 @@ class GWCNet(nn.Module):
         prob = torch.softmax(logits, dim=1)
         return -disparity_regression(prob, self.cfg.maxdisp)[:, 0]
 
-    def forward(self, image1: torch.Tensor, image2: torch.Tensor, flow_init=None):
+    def _patch_embeddings(self, augp1: torch.Tensor, augp2: torch.Tensor) -> torch.Tensor:
+        """``z_ps`` (B, NP, 2 NV, 256) fp32, unit rows, of the views."""
+        B, NP, NV = augp1.shape[:3]
+        views = torch.cat([augp1, augp2], dim=2)
+        x = (2.0 * (views / 255.0) - 1.0).to(self.cfg.compute_dtype)
+        x = x.flatten(0, 2).permute(0, 3, 1, 2)
+        feat = self.feature_extraction(x)["gwc_feature"].mean(dim=(2, 3))
+        z = self.projection(feat).float()
+        z = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
+        return z.reshape(B, NP, 2 * NV, -1)
+
+    def forward(self, image1: torch.Tensor, image2: torch.Tensor, flow_init=None,
+                augp1: torch.Tensor | None = None, augp2: torch.Tensor | None = None,
+                mix_weight=None):
         """(image1, image2) NHWC in [0, 255]. ``flow_init`` is accepted and
-        unused, as in the reference."""
+        unused, as in the reference, and so is ``mix_weight`` (RAFT's blend
+        weight, which the training steps pass to every model).
+        ``augp1``/``augp2`` are read only with ``ptrans`` in train mode."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         x1 = (2.0 * (image1 / 255.0) - 1.0).to(dt).permute(0, 3, 1, 2)
@@ -139,9 +162,12 @@ class GWCNet(nn.Module):
             heads = (out3,) if self.test_mode else (cost0, out1, out2, out3)
             first = 3 if self.test_mode else 0
             costs = [getattr(self, f"classif{first + i}")(c) for i, c in enumerate(heads)]
+            extra = {}
+            if self.cfg.ptrans and not self.test_mode and augp1 is not None:
+                extra["z_ps"] = self._patch_embeddings(augp1, augp2)
         _, _, _, Hc, Wc = cost0.shape
         full = (cfg.maxdisp, 4 * Hc, 4 * Wc)
         preds = [self._regress(c, full) for c in costs]
         if self.test_mode:
             return None, preds[0]
-        return {"disp_preds": torch.stack(preds)}
+        return {"disp_preds": torch.stack(preds), **extra}

@@ -39,7 +39,6 @@ stored in bf16 only on the GPU, with a kernel ``corr_implementation`` and
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -52,6 +51,7 @@ from dkt_stereo_tpu_torch.nn.igev_blocks import (
     BasicConvIGEV, Conv2xIGEV, FeatureAtt, HourglassIGEV, IGEVFeature)
 from dkt_stereo_tpu_torch.nn.igev_update import BasicMultiUpdateBlockIGEV
 from dkt_stereo_tpu_torch.nn.norms import InstanceNorm
+from dkt_stereo_tpu_torch.nn.precision import autocast
 from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import geo_lookup
 from dkt_stereo_tpu_torch.ops.geometry import CombinedGeoEncodingVolume
 from dkt_stereo_tpu_torch.ops.sampler import coords_grid_x
@@ -152,9 +152,7 @@ class IGEVStereo(nn.Module):
         self.classifier = nn.Conv3d(8, 1, 3, 1, 1, bias=False)
 
     def _autocast(self, device: torch.device):
-        if not self.cfg.mixed_precision:
-            return contextlib.nullcontext()
-        return torch.autocast(device.type, dtype=torch.bfloat16)
+        return autocast(device, self.cfg.mixed_precision)
 
     def _upsample(self, disp, spx_logits):
         """Full-resolution disparity (B, H, W) from a (B, 1, H/4, W/4) one
@@ -190,11 +188,13 @@ class IGEVStereo(nn.Module):
         return net, disp, disp_up
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
-                flow_init: Optional[torch.Tensor] = None):
+                flow_init: Optional[torch.Tensor] = None, mix_weight=None):
         """(image1, image2) NHWC in [0, 255]. Test mode returns (None,
         disp_up (B, H, W)); train mode ``{"init_disp": (B, H, W),
         "disp_preds": (iters, B, H, W)}``; disparity negative. ``flow_init``
-        is accepted and unused, as in the reference (igev_stereo.py:151)."""
+        is accepted and unused, as in the reference (igev_stereo.py:151),
+        and so is ``mix_weight`` (RAFT's blend weight, which the training
+        steps pass to every model)."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         train = not self.test_mode

@@ -53,7 +53,6 @@ fp32 before the convex upsampling.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -64,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 from dkt_stereo_tpu_torch.nn.blocks import ResidualBlock
 from dkt_stereo_tpu_torch.nn.pcv import (
     BasicMultiUpdateBlockPCV, PCVMultiBasicEncoder, RefineNet, gaussian_positions)
+from dkt_stereo_tpu_torch.nn.precision import autocast
 from dkt_stereo_tpu_torch.ops.corr import corr_pyramid_fused
 from dkt_stereo_tpu_torch.ops.cuda.row_sample import gaussian_row_sample
 from dkt_stereo_tpu_torch.ops.resize import interp_bilinear_align, interp_nearest
@@ -150,9 +150,7 @@ class PCVNet(nn.Module):
         self.refineNet = RefineNet(cfg.gauss_num)
 
     def _autocast(self, device: torch.device):
-        if not self.cfg.mixed_precision:
-            return contextlib.nullcontext()
-        return torch.autocast(device.type, dtype=torch.bfloat16)
+        return autocast(device, self.cfg.mixed_precision)
 
     def _iteration(self, net, inp, pyramid, coords0, coords1, sigma, w, with_mask: bool):
         """One iteration (the JAX ``_PCVIterStep``): the lookup at the
@@ -201,9 +199,12 @@ class PCVNet(nn.Module):
         return net, coords1, sigma, w, mask, ys
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
-                flow_init: Optional[torch.Tensor] = None, init_param: Optional[dict] = None):
+                flow_init: Optional[torch.Tensor] = None, init_param: Optional[dict] = None,
+                mix_weight=None):
         """(image1, image2) NHWC in [0, 255]. ``flow_init`` is ignored, as in
-        the JAX model (it keeps the DKT step's model-generic call).
+        the JAX model (it keeps the DKT step's model-generic call), and so is
+        ``mix_weight`` (RAFT's blend weight, which the training steps pass to
+        every model).
         ``init_param``: a coarser stage's cascade dict (NHWC), which sets the
         starting mixture (model.py:99-108). See the module docstring for
         what each mode returns."""

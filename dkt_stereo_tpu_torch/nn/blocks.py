@@ -170,7 +170,11 @@ class MultiBasicEncoder(nn.Module):
     whatever ``num_layers`` is, as in the reference. ``head_names`` names the
     three head lists fine -> coarse: RAFT's ``outputs08/16/32``, or IGEV's
     copy of the encoder, which names them by true scale
-    (``outputs04/08/16``)."""
+    (``outputs04/08/16``).
+
+    ``forward(x, dual_inp=True)`` (RAFT's shared backbone,
+    raft_stereo.py:97-99) also returns the layer3 features of the whole
+    batch, last, and runs the heads on its first half only."""
 
     def __init__(self, output_dim=((128, 128, 128),), norm_fn="batch", downsample=3,
                  num_layers=3, fused_fullres=False,
@@ -197,7 +201,7 @@ class MultiBasicEncoder(nn.Module):
         self.add_module(head_names[2], nn.ModuleList(
             nn.Conv2d(128, dim[0], 3, padding=1) for dim in output_dim))
 
-    def forward(self, x):
+    def forward(self, x, dual_inp: bool = False):
         if _fused_gate(self.fused_fullres, self.downsample, self.norm_fn, x):
             x = fused_fullres_layer1(x, self.conv1.weight, self.layer1)
         else:
@@ -206,9 +210,12 @@ class MultiBasicEncoder(nn.Module):
         x = band_refresh(x)  # exact banded eval only; the identity otherwise
         x = band_refresh(self.layer2(x))
         x = band_refresh(self.layer3(x))
+        v = x
+        if dual_inp:
+            x = x[: x.shape[0] // 2]
         heads = [getattr(self, n) for n in self.head_names]
         out = [[f(x) for f in heads[0]]]
         for i, layer in enumerate((self.layer4, self.layer5)[: self.num_layers - 1]):
             x = band_refresh(layer(x))
             out.append([f(x) for f in heads[i + 1]])
-        return tuple(out)
+        return (*out, v) if dual_inp else tuple(out)

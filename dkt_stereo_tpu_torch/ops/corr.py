@@ -6,6 +6,12 @@ core/corr.py:110-156).
     mean-pooled in pairs along width i times (odd trailing widths drop the
     last column). Products accumulate in fp32 whatever the feature dtype;
     the level is stored in ``out_dtype`` (bf16 under mixed precision).
+    ``normalize`` gives the cosine variant (core/corr.py:160-209): both
+    feature maps L2-normalised over D, no 1/sqrt(D), values in [-1, 1].
+  - :func:`corr_volume` and :func:`corr_pyramid` build the full volume and
+    pool it (``mix_fmap_image`` blends two volumes before pooling). Their
+    bf16 levels are the pooled rounded volume, where the fused build rounds
+    each level's own fp32 product.
   - lookup: at level i, 2r+1 linear taps around ``x / 2^i`` with zero
     padding, concatenated over levels -> (B, H, W, L*(2r+1)) fp32.
 
@@ -42,26 +48,63 @@ def fmap_pyramid(fmap2: torch.Tensor, num_levels: int, factor: int = 2) -> list[
     return pyr
 
 
+def _l2_normalize(f: torch.Tensor) -> torch.Tensor:
+    """``f`` divided by its fp32 L2 norm over the last axis, in ``f``'s
+    dtype (the JAX ``f / norm(f.astype(f32))`` cast back)."""
+    return (f / torch.linalg.vector_norm(f.float(), dim=-1, keepdim=True)).to(f.dtype)
+
+
+def corr_volume(fmap1: torch.Tensor, fmap2: torch.Tensor, normalize: bool = False,
+                out_dtype=None) -> torch.Tensor:
+    """(B, H, W1, D), (B, H, W2, D) -> (B, H, W1, W2) correlation volume,
+    the products in fp32: ``f1 @ f2^T / sqrt(D)``, or with ``normalize`` the
+    cosine volume (no scale). Stored in ``out_dtype`` when given."""
+    f1, f2 = fmap1, fmap2
+    if normalize:
+        f1, f2 = _l2_normalize(f1), _l2_normalize(f2)
+    corr = torch.matmul(f1.float(), f2.float().transpose(-1, -2))
+    if not normalize:
+        corr = corr / math.sqrt(fmap1.shape[-1])
+    return corr.to(out_dtype) if out_dtype is not None else corr
+
+
+def corr_pyramid(volume: torch.Tensor, num_levels: int = 4) -> list[torch.Tensor]:
+    """``num_levels`` levels of a (B, H, W1, W2) volume, level 0 the volume
+    itself, each next one its pairs along W2 averaged (an odd trailing
+    column dropped), in the volume's dtype."""
+    pyramid = [volume]
+    v = volume
+    for _ in range(num_levels - 1):
+        w2 = v.shape[-1] // 2
+        v = v[..., :2 * w2].unflatten(-1, (w2, 2)).mean(-1)
+        pyramid.append(v)
+    return pyramid
+
+
 def corr_pyramid_fused(
     fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4, out_dtype=None,
-    scaled: bool = True, pool_factor: int = 2,
+    scaled: bool = True, pool_factor: int = 2, normalize: bool = False,
 ) -> list[torch.Tensor]:
     """Correlation pyramid built level by level as ``f1 @ pooled(f2)``:
     (B, H, W1, D), (B, H, W2, D) -> [(B, H, W1, W2 / f^i)] with f =
     ``pool_factor`` (PCVNet pools by its compress factor,
     meta_arch/pcvnet/corr.py:24-31). ``scaled=False`` omits the 1/sqrt(D)
-    factor (IGEV's init correlation, meta_arch/igev_stereo/geometry.py:62-69).
+    factor (IGEV's init correlation, meta_arch/igev_stereo/geometry.py:62-69);
+    ``normalize`` L2-normalises both maps over D first (in fp32, cast back
+    to their dtype) and omits it too: the cosine pyramid.
 
     Equal to pooling the full volume, because the [1, f] average pool is
     linear in fmap2. The products run in fp32 on the (possibly bf16-rounded)
     features — the JAX einsum's fp32 accumulation — and each level is then
     stored in ``out_dtype``."""
     scale = 1.0 / math.sqrt(fmap1.shape[-1])
+    if normalize:
+        fmap1, fmap2 = _l2_normalize(fmap1), _l2_normalize(fmap2)
     f1 = fmap1.float()
     pyramid = []
     for f2l in fmap_pyramid(fmap2, num_levels, pool_factor):
         corr = torch.matmul(f1, f2l.float().transpose(-1, -2))
-        if scaled:
+        if scaled and not normalize:
             corr = corr * scale
         pyramid.append(corr.to(out_dtype) if out_dtype is not None else corr)
     return pyramid

@@ -31,6 +31,7 @@ import torch
 
 from dkt_stereo_tpu_torch.ops.corr import corr_lookup_alt as corr_lookup_alt_plain
 from dkt_stereo_tpu_torch.ops.cuda import _build
+from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import fold_vmap
 
 MAX_LEVELS = 8
 MAX_DIM = 512
@@ -123,15 +124,25 @@ def _launch(fmap1: torch.Tensor, levels, coords_x: torch.Tensor, radius: int) ->
 
 class CorrLookupAlt(torch.autograd.Function):
     """The lookup with the JAX package's recompute VJP: ``apply(fmap1,
-    coords_x, radius, *levels)``. CPU tensors run the plain forward."""
+    coords_x, radius, *levels)``. CPU tensors run the plain forward. Under
+    ``torch.func.vmap`` the mapped axis is folded into the batch axis: one
+    launch serves every slot."""
 
     @staticmethod
-    def forward(ctx, fmap1, coords_x, radius, *levels):
-        ctx.radius = radius
-        ctx.save_for_backward(fmap1, coords_x, *levels)
+    def forward(fmap1, coords_x, radius, *levels):
         if coords_x.device.type == "cpu":
             return corr_lookup_alt_plain(fmap1, levels, coords_x, radius)
         return _launch(fmap1, levels, coords_x, radius)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fmap1, coords_x, radius, *levels = inputs
+        ctx.radius = radius
+        ctx.save_for_backward(fmap1, coords_x, *levels)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return fold_vmap(CorrLookupAlt.apply, info, in_dims, *args)
 
     @staticmethod
     def backward(ctx, g):
@@ -152,11 +163,14 @@ def corr_lookup_alt(fmap1: torch.Tensor, f2_pyramid, coords_x: torch.Tensor,
     """``fmap1``: (B, H, W1, D); ``f2_pyramid``: sequence of pooled right
     features (B, H, W2_i, D), the same dtype as fmap1 (fp32 or bf16);
     ``coords_x``: (B, H, W1, 1) fp32. Returns (B, H, W1, L*(2r+1)) fp32,
-    differentiable with respect to fmap1 and the levels."""
+    differentiable with respect to fmap1 and the levels. Batches under
+    ``torch.func.vmap`` by folding the mapped axis into B."""
     levels = list(f2_pyramid)
     if coords_x.device.type == "cpu":
-        return corr_lookup_alt_plain(fmap1, levels, coords_x, radius)
-    if coords_x.device.type != "cuda":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (fmap1, *levels)):
+            # differentiated by autograd through the plain ops
+            return corr_lookup_alt_plain(fmap1, levels, coords_x, radius)
+    elif coords_x.device.type != "cuda":
         raise ValueError(f"corr_lookup_alt: unsupported device {coords_x.device}")
     return CorrLookupAlt.apply(fmap1, coords_x, radius, *levels)
 

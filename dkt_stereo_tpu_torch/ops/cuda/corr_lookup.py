@@ -36,7 +36,7 @@ MAX_WIDTH = 1 << 22  # fp32 positions stay exact to well below a column
 PIXELS_PER_BLOCK = (64, 32, 16, 8)  # multiples of 8: 16-byte aligned spans
 
 __all__ = ["CorrLookup", "bwd_plan", "corr_lookup", "corr_lookup_bwd", "corr_lookup_bwd_plain",
-           "corr_lookup_plain", "fwd_plan"]
+           "corr_lookup_plain", "fold_vmap", "fwd_plan"]
 
 
 def _round16(n: int) -> int:
@@ -219,19 +219,44 @@ def corr_lookup_bwd(shapes_dtypes, coords_x: torch.Tensor, g: torch.Tensor,
     return dvols
 
 
+def fold_vmap(apply, info, in_dims, *args):
+    """The batching rule of the kernels' autograd Functions under
+    ``torch.func.vmap``: every tensor argument's mapped axis (broadcast
+    where it has none) moved to the front and merged into its batch axis,
+    one ``apply`` of the T*B images, and the output's first axis split back
+    into (T, B), mapped at 0."""
+    n = info.batch_size
+
+    def fold(x, bdim):
+        if not isinstance(x, torch.Tensor):
+            return x
+        x = x.unsqueeze(0).expand(n, *x.shape) if bdim is None else x.movedim(bdim, 0)
+        return x.flatten(0, 1).contiguous()
+
+    return apply(*(fold(a, d) for a, d in zip(args, in_dims))).unflatten(0, (n, -1)), 0
+
+
 class CorrLookup(torch.autograd.Function):
     """The lookup with its hand-written backward: ``apply(coords_x, radius,
     dtype, *levels)`` returns the (B, L*(2r+1), H, W1) view in ``dtype``.
-    CPU tensors run the plain versions of both directions."""
+    CPU tensors run the plain versions of both directions.
+
+    Under ``torch.func.vmap`` the mapped axis is folded into the batch axis
+    (:meth:`vmap`), so that one launch serves every slot: the DKT step's
+    two teachers, stacked, take one launch an iteration."""
 
     @staticmethod
-    def forward(ctx, coords_x, radius, dtype, *pyramid):
-        ctx.radius = radius
-        ctx.shapes_dtypes = [(tuple(v.shape), v.dtype) for v in pyramid]
-        ctx.save_for_backward(coords_x)
+    def forward(coords_x, radius, dtype, *pyramid):
         if coords_x.device.type == "cpu":
             return corr_lookup_plain(pyramid, coords_x, radius).permute(0, 3, 1, 2).to(dtype)
         return _launch_fwd(pyramid, coords_x, radius, dtype).permute(0, 3, 1, 2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        coords_x, radius, _, *pyramid = inputs
+        ctx.radius = radius
+        ctx.shapes_dtypes = [(tuple(v.shape), v.dtype) for v in pyramid]
+        ctx.save_for_backward(coords_x)
 
     @staticmethod
     def backward(ctx, g):
@@ -246,6 +271,10 @@ class CorrLookup(torch.autograd.Function):
         dvols = corr_lookup_bwd(ctx.shapes_dtypes, coords_x, g, ctx.radius)
         return (None, None, None, *dvols)
 
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return fold_vmap(CorrLookup.apply, info, in_dims, *args)
+
 
 def corr_lookup(pyramid, coords_x: torch.Tensor, radius: int = 4,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -253,12 +282,16 @@ def corr_lookup(pyramid, coords_x: torch.Tensor, radius: int = 4,
     ``coords_x``: (B, H, W1, 1) fp32. Returns the motion encoder's input,
     (B, L*(2r+1), H, W1) in ``dtype`` (fp32 or bf16), a view of a dense
     (B, H, W1, L*(2r+1)) tensor: ``ops/corr.py::corr_lookup(...).permute(0,
-    3, 1, 2).to(dtype)``. Differentiable with respect to the levels."""
+    3, 1, 2).to(dtype)``. Differentiable with respect to the levels.
+    Batches under ``torch.func.vmap`` by folding the mapped axis into B,
+    on the CPU (without gradients) as on the card."""
     pyramid = list(pyramid)
     if coords_x.device.type == "cpu":
         _check_dtype(dtype, "corr_lookup")
-        return corr_lookup_plain(pyramid, coords_x, radius).permute(0, 3, 1, 2).to(dtype)
-    if coords_x.device.type != "cuda":
+        if torch.is_grad_enabled() and any(v.requires_grad for v in pyramid):
+            # differentiated by autograd through the plain ops
+            return corr_lookup_plain(pyramid, coords_x, radius).permute(0, 3, 1, 2).to(dtype)
+    elif coords_x.device.type != "cuda":
         raise ValueError(f"corr_lookup: unsupported device {coords_x.device}")
     return CorrLookup.apply(coords_x, radius, dtype, *pyramid)
 

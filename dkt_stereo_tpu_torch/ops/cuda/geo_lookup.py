@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from dkt_stereo_tpu_torch.ops.cuda import _build
+from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import fold_vmap
 from dkt_stereo_tpu_torch.ops.geometry import geo_lookup as geo_lookup_plain
 from dkt_stereo_tpu_torch.ops.geometry import geo_lookup_bwd_plain
 
@@ -241,18 +242,27 @@ class GeoLookup(torch.autograd.Function):
     radius, levels, *geo_levels, *corr_levels)``. Only disp, coords and the
     levels' shapes and dtypes are saved, as the JAX residuals are
     (geo_lookup.py:308-312). CPU tensors run the plain versions of both
-    directions."""
+    directions. Under ``torch.func.vmap`` the mapped axis is folded into the
+    batch axis: one launch serves every slot."""
 
     @staticmethod
-    def forward(ctx, disp, coords, radius, levels, *pyramids):
+    def forward(disp, coords, radius, levels, *pyramids):
         geo_pyr, corr_pyr = pyramids[:levels], pyramids[levels:]
-        ctx.radius, ctx.levels = radius, levels
-        ctx.geo_meta = [(tuple(v.shape), v.dtype) for v in geo_pyr]
-        ctx.corr_meta = [(tuple(v.shape), v.dtype) for v in corr_pyr]
-        ctx.save_for_backward(disp, coords)
         if disp.device.type == "cpu":
             return geo_lookup_plain(geo_pyr, corr_pyr, disp, coords, radius)
         return _launch_fwd(geo_pyr, corr_pyr, disp, coords, radius)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        disp, coords, radius, levels, *pyramids = inputs
+        ctx.radius, ctx.levels = radius, levels
+        ctx.geo_meta = [(tuple(v.shape), v.dtype) for v in pyramids[:levels]]
+        ctx.corr_meta = [(tuple(v.shape), v.dtype) for v in pyramids[levels:]]
+        ctx.save_for_backward(disp, coords)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return fold_vmap(GeoLookup.apply, info, in_dims, *args)
 
     @staticmethod
     def backward(ctx, g):
@@ -274,11 +284,14 @@ def geo_lookup(geo_pyr, corr_pyr, disp: torch.Tensor, coords: torch.Tensor,
     H, W, W2_i), all levels fp32 or all bf16; ``disp``, ``coords``: (B, H,
     W, 1) fp32. Returns (B, H, W, L*(C+1)*(2r+1)) fp32: per level [geo
     C-major, taps fast | corr taps], differentiable with respect to the
-    levels."""
+    levels. Batches under ``torch.func.vmap`` by folding the mapped axis
+    into B."""
     geo_pyr, corr_pyr = list(geo_pyr), list(corr_pyr)
     if disp.device.type == "cpu":
-        return geo_lookup_plain(geo_pyr, corr_pyr, disp, coords, radius)
-    if disp.device.type != "cuda":
+        if torch.is_grad_enabled() and any(v.requires_grad for v in geo_pyr + corr_pyr):
+            # differentiated by autograd through the plain ops
+            return geo_lookup_plain(geo_pyr, corr_pyr, disp, coords, radius)
+    elif disp.device.type != "cuda":
         raise ValueError(f"geo_lookup: unsupported device {disp.device}")
     return GeoLookup.apply(disp, coords, radius, len(geo_pyr), *geo_pyr, *corr_pyr)
 

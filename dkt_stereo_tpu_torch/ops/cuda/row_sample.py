@@ -39,6 +39,7 @@ import ctypes
 import torch
 
 from dkt_stereo_tpu_torch.ops.cuda import _build
+from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import fold_vmap
 from dkt_stereo_tpu_torch.ops.sampler import sample_row_1d
 
 MAX_LEVELS = 32  # kMaxLevels of the kernels' parameter blocks
@@ -339,16 +340,26 @@ class GaussianRowSample(torch.autograd.Function):
     L*S, H, W) tensor in ``dtype``. Saves the positions and the levels (the
     JAX residuals, row_sample.py:150-160); the backward computes only the
     gradients ``ctx.needs_input_grad`` asks for, in one launch. CPU tensors
-    run the plain versions of both directions."""
+    run the plain versions of both directions. Under ``torch.func.vmap`` the
+    mapped axis is folded into the batch axis: one launch serves every slot
+    (the folded output's rows are slot-major)."""
 
     @staticmethod
-    def forward(ctx, pos, compress_factor, gauss_num, dtype, *levels):
-        ctx.compress_factor, ctx.gauss_num = compress_factor, gauss_num
-        ctx.save_for_backward(pos, *levels)
+    def forward(pos, compress_factor, gauss_num, dtype, *levels):
         if pos.device.type == "cpu":
             return gaussian_row_sample_folded_plain(levels, pos, compress_factor, gauss_num,
                                                     dtype)
         return _launch_fwd(levels, pos, compress_factor, gauss_num, dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pos, compress_factor, gauss_num, _, *levels = inputs
+        ctx.compress_factor, ctx.gauss_num = compress_factor, gauss_num
+        ctx.save_for_backward(pos, *levels)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return fold_vmap(GaussianRowSample.apply, info, in_dims, *args)
 
     @staticmethod
     def backward(ctx, g):
@@ -378,13 +389,18 @@ def gaussian_row_sample(levels, pos: torch.Tensor, compress_factor: int, gauss_n
     differentiable with respect to the levels and the positions.
     ``compress_factor`` must be a power of two. On CUDA tensors that need a
     gradient, the backward's plan (:func:`bwd_plan`) is checked before the
-    forward is launched."""
+    forward is launched. Batches under ``torch.func.vmap`` by folding the
+    mapped axis into B."""
     levels = list(levels)
     if pos.device.type == "cpu":
         _log2(compress_factor)
         _check(levels, pos)
         _check_fold(pos, gauss_num, dtype)
-        return gaussian_row_sample_folded_plain(levels, pos, compress_factor, gauss_num, dtype)
+        if torch.is_grad_enabled() and (pos.requires_grad or any(v.requires_grad for v in levels)):
+            # differentiated by autograd through the plain ops
+            return gaussian_row_sample_folded_plain(levels, pos, compress_factor, gauss_num,
+                                                    dtype)
+        return GaussianRowSample.apply(pos, compress_factor, gauss_num, dtype, *levels)
     if pos.device.type != "cuda":
         raise ValueError(f"gaussian_row_sample: unsupported device {pos.device}")
     # the arguments are checked where the kernel is launched, the backward's

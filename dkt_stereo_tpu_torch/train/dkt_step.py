@@ -5,6 +5,8 @@ One call of the step function:
   1. EMA teacher <- lerp(EMA, student), before the forwards (:179-181);
   2. the frozen teacher, then the EMA teacher, predict in test mode at
      ``teacher_iters`` on the clean pair, without gradients (:191-201);
+     with ``batched_teachers`` both in one forward vmapped over their
+     stacked weights (:func:`batched_teachers`);
   3. F&E on the GT (``withprob`` and ``clamp``) and on the pseudo-label
      (plain) (:204-210);
   4. the student's train-mode forward on the augmented pair at
@@ -35,7 +37,8 @@ import torch
 from dkt_stereo_tpu_torch.device import resolve_device
 from dkt_stereo_tpu_torch.dkt.ema import ema_update
 from dkt_stereo_tpu_torch.dkt.fande import fande_ensemble, fande_filter
-from dkt_stereo_tpu_torch.models.registry import create_model, make_loss_adapter
+from dkt_stereo_tpu_torch.models.registry import create_model, get_model, make_loss_adapter
+from dkt_stereo_tpu_torch.nn.precision import vmapped
 from dkt_stereo_tpu_torch.parallel.mesh import rank_and_size, reduce_step
 from dkt_stereo_tpu_torch.train.state import (
     DKTHyperParams,
@@ -100,11 +103,44 @@ def cascade_upsample2x(out: dict) -> dict:
 def fande_draws(batch_size: int, device, generator: torch.Generator | None = None) -> dict:
     """The step's U(0, 1) draws, made on ``generator``'s device and moved to
     ``device``: ``filter_gt`` (B,) for the GT filter, ``ensemble_gt`` and
-    ``ensemble_pl`` scalars for the two ensembles."""
+    ``ensemble_pl`` scalars for the two ensembles, and ``mix`` and ``mix_h``
+    scalars, the image volume's weight in the student's full-resolution and
+    cascade forwards under ``mix_fmap_image`` (the JAX step's ``k_mix`` and
+    ``k_mix_h``)."""
     src = generator.device if generator is not None else device
-    u = torch.rand(batch_size + 2, generator=generator, device=src).to(device)
+    u = torch.rand(batch_size + 4, generator=generator, device=src).to(device)
     return {"filter_gt": u[:batch_size], "ensemble_gt": u[batch_size],
-            "ensemble_pl": u[batch_size + 1]}
+            "ensemble_pl": u[batch_size + 1], "mix": u[batch_size + 2],
+            "mix_h": u[batch_size + 3]}
+
+
+def batched_teachers(config: dict, hyper: DKTHyperParams):
+    """``fn(teacher, ema, img1, img2) -> (disp_pl, disp_ema)``: the two
+    teachers' test-mode disparities from ONE forward, vmapped over their
+    stacked weights (``torch.func.stack_module_state``, then ``vmap`` of a
+    ``functional_call``; the JAX step's ``vmap`` over the stacked trees,
+    train/dkt_step.py:147-157). Convolutions batch as grouped
+    convolutions; K1 folds the teacher axis into its batch, so one launch
+    serves both teachers an iteration; the networks' bf16 autocast is
+    applied op by op (``nn/precision.py``). The model runs with
+    ``pallas_encoder`` off, as the JAX step's teachers do (:121-134): its
+    parameters are the same, so the teachers' own modules feed it."""
+    model_cls, cfg_cls = get_model(config["model"])
+    with torch.device("meta"):
+        base = model_cls(cfg_cls.from_dict({**config, "pallas_encoder": False}),
+                         iters=hyper.teacher_iters, test_mode=True).eval()
+
+    def disp(params, buffers, img1, img2):
+        return torch.func.functional_call(base, (params, buffers), (img1, img2))[1]
+
+    def fn(teacher, ema, img1, img2):
+        params, buffers = torch.func.stack_module_state([teacher, ema])
+        with vmapped():
+            both = torch.func.vmap(disp, in_dims=(0, 0, None, None))(params, buffers, img1, img2)
+        return both[0], both[1]
+
+    fn.model = base  # the mapped module (parameters on the meta device), for hooks
+    return fn
 
 
 def _l2_dist(a: torch.nn.Module, b: torch.nn.Module) -> torch.Tensor:
@@ -120,7 +156,9 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
     ``batch``: img1/img2/img1_clean/img2_clean (B, H, W, 3) in [0, 255],
     flow (B, H, W) negative disparity, valid (B, H, W) in {0, 1}, all on
     the state's device. ``draws`` (see :func:`fande_draws`) fixes the F&E
-    draws; otherwise they come from ``generator``. ``mark(name)``, when
+    draws and the blend weights that every student forward is passed as
+    ``mix_weight`` (only RAFT's ``mix_fmap_image`` reads them; 0.5 where
+    ``draws`` lacks them); otherwise they come from ``generator``. ``mark(name)``, when
     given, is called as each part of the step has been issued ("ema",
     "teachers", "fande", "student", "optimizer"), e.g. to record CUDA
     events. ``metrics`` are Python floats: loss, loss_GT, loss_PL, the loss's own
@@ -134,6 +172,7 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
             "the step freezes batch norm")
     loss_adapter = make_loss_adapter(config["model"], config, config.get("loss_func"))
     schedule = make_schedule(hyper)
+    teachers = batched_teachers(config, hyper) if hyper.batched_teachers else None
 
     def step_fn(state: DKTTrainState, batch: dict, generator=None, draws=None, mark=None):
         mark = mark or (lambda name: None)
@@ -152,8 +191,12 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
 
         # 2. pseudo-labels of the frozen and the EMA teacher on the clean pair
         with torch.no_grad():
-            _, disp_pl = state.teacher(batch["img1_clean"], batch["img2_clean"])
-            _, disp_ema = state.ema(batch["img1_clean"], batch["img2_clean"])
+            if teachers is not None:
+                disp_pl, disp_ema = teachers(state.teacher, state.ema, batch["img1_clean"],
+                                             batch["img2_clean"])
+            else:
+                _, disp_pl = state.teacher(batch["img1_clean"], batch["img2_clean"])
+                _, disp_ema = state.ema(batch["img1_clean"], batch["img2_clean"])
         mark("teachers")
 
         # 3. F&E
@@ -179,13 +222,13 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
             # starts that pass; its x2-upsampled outputs add 0.5-weighted
             # losses (see the JAX step for why the reference's own cascade
             # code cannot run)
-            out_h = student(img1[:, ::2, ::2], img2[:, ::2, ::2])
+            out_h = student(img1[:, ::2, ::2], img2[:, ::2, ::2], mix_weight=draws.get("mix_h"))
             flow_init = (out_h["disp_preds"][-1][:, ::2, ::2] / 2.0).detach()[..., None]
             out_h_up = cascade_upsample2x(out_h)
             loss_dw2_gt, _, _, ok_dg = loss_adapter(out_h_up, gt_aug, valid_gt_aug)
             loss_dw2_pl, _, _, ok_dp = loss_adapter(out_h_up, pl_aug, valid_pl_aug)
             ok_dw2 = ok_dg & ok_dp
-        out = student(img1, img2, flow_init)
+        out = student(img1, img2, flow_init, mix_weight=draws.get("mix"))
         loss_gt, metrics, _, ok_gt = loss_adapter(out, gt_aug, valid_gt_aug)
         loss_pl, _, _, ok_pl = loss_adapter(out, pl_aug, valid_pl_aug)
         loss_gt = loss_gt + 0.5 * loss_dw2_gt  # (:229-233)

@@ -6,7 +6,9 @@ One call of the step function:
   1. EMA <- lerp(EMA, student), before the forward, so that a model trained
      this way starts a DKT fine-tune with its EMA;
   2. the student's train-mode forward on the stacked ``im1_forward`` /
-     ``im2_forward`` (``nb`` binocular rows, then ``nt`` trinocular rows);
+     ``im2_forward`` (``nb`` binocular rows, then ``nt`` trinocular rows),
+     passed a fresh U(0, 1) blend weight for ``mix_fmap_image`` (the JAX
+     step's ``mix`` rng; other models and modes ignore it);
   3. ``sequence_loss_raft`` on the binocular predictions plus ``ns_loss``
      (confidence-weighted L1 and the trinocular photometric term) on the
      trinocular ones, and the backward;
@@ -41,7 +43,8 @@ from dkt_stereo_tpu_torch.train.state import (
 def make_ns_train_step(config: dict, hyper: DKTHyperParams, nb: int, nt: int,
                        conf_threshold: float = 0.5, disp_threshold: float = 512.0,
                        alpha_photometric: float = 0.1, num_hosts: int | None = None):
-    """Returns ``step_fn(state, batch, mark=None) -> (state, metrics)``.
+    """Returns ``step_fn(state, batch, generator=None, mix_weight=None,
+    mark=None) -> (state, metrics)``.
 
     ``batch`` is ``data/triplet.py::collate_mixed``'s on the state's device:
     ``im1_forward``/``im2_forward`` (nb + nt, H, W, 3), ``bi: {flow,
@@ -54,6 +57,9 @@ def make_ns_train_step(config: dict, hyper: DKTHyperParams, nb: int, nt: int,
     (``data/loader.py::MixedStereoLoader`` with ``num_hosts``), and the
     losses divide by global counts; the gradients and loss values are
     summed over the ranks and ``ok`` agreed before the update.
+    ``mix_weight`` fixes the student's blend weight; otherwise it is one
+    U(0, 1) draw a step from ``generator`` (the same on every rank), or from
+    the global generator without one.
     ``mark(name)``, when given, is called as each part has been issued
     ("ema", "forward", "loss", "backward", "optimizer"). ``metrics`` are
     Python floats: ``bi_*`` (the binocular loss's epe, 1px, 3px, 5px),
@@ -73,7 +79,7 @@ def make_ns_train_step(config: dict, hyper: DKTHyperParams, nb: int, nt: int,
     nb, nt = nb // num_hosts, nt // num_hosts  # this rank's rows of each modality
     schedule = make_schedule(hyper)
 
-    def step_fn(state: DKTTrainState, batch: dict, mark=None):
+    def step_fn(state: DKTTrainState, batch: dict, generator=None, mix_weight=None, mark=None):
         mark = mark or (lambda name: None)
         student, optimizer = state.student, state.optimizer
 
@@ -81,7 +87,11 @@ def make_ns_train_step(config: dict, hyper: DKTHyperParams, nb: int, nt: int,
         mark("ema")
 
         optimizer.zero_grad(set_to_none=True)
-        preds = student(batch["im1_forward"], batch["im2_forward"])["disp_preds"]
+        if mix_weight is None:
+            src = generator.device if generator is not None else batch["im1_forward"].device
+            mix_weight = torch.rand((), generator=generator, device=src)
+        preds = student(batch["im1_forward"], batch["im2_forward"],
+                        mix_weight=mix_weight)["disp_preds"]
         mark("forward")
         loss = torch.zeros((), device=preds.device)
         ok = torch.ones((), dtype=torch.bool, device=preds.device)

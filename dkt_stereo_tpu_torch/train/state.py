@@ -37,13 +37,6 @@ class DKTHyperParams:
     cascade_train: bool = False
     batched_teachers: bool = False
 
-    def __post_init__(self):
-        if self.batched_teachers:
-            raise NotImplementedError(
-                "batched_teachers is not ported yet: ROADMAP.md Queue 1 item 5 "
-                "(batched_teachers: both teachers as one batched forward)"
-            )
-
 
 def onecycle_linear(max_lr: float, total_steps: int, pct_start: float = 0.01):
     """torch's OneCycleLR(anneal_strategy='linear', three_phase=False) with

@@ -31,6 +31,9 @@ _RAFT = [
     (r"outputs32_(\d+)\.", r"outputs32.\1."),
     (r"(^|\.)mask_conv1\.", r"\1mask.0."),
     (r"(^|\.)mask_conv2\.", r"\1mask.2."),
+    # the shared-backbone head Sequential (RAFT and PCVNet)
+    (r"^conv2_res\.", "conv2.0."),
+    (r"^conv2_out\.", "conv2.1."),
 ]
 # IGEV's encoder names its heads by true scale (outputs04/08/16) where the
 # flax tree keeps RAFT's scale-indexed names
@@ -54,13 +57,11 @@ _IGEV = [
     (r"(^|\.)(conv[123]|agg_[01])_(\d)\.", r"\1\2.\3."),
     (r"mask_feat_4_0\.", "mask_feat_4.0."),
 ]
-# PCVNet: its update block FDM, the shared-backbone head conv2 (a
-# ResidualBlock and a conv) and the reference's Sequential(conv, relu, ...)
-# stacks, whose flax scopes carry the Sequential index after an underscore
+# PCVNet: its update block FDM and the reference's Sequential(conv, relu,
+# ...) stacks, whose flax scopes carry the Sequential index after an
+# underscore
 _PCV = _RAFT + [
     (r"^step\.FDM\.", "FDM."),
-    (r"^conv2_res\.", "conv2.0."),
-    (r"^conv2_out\.", "conv2.1."),
     (r"(low_level_conv|conv\d_out|conv_softmask|conv_disp)_(\d)\.", r"\1.\2."),
     (r"(^|\.)(conv\d)_(\d)\.", r"\1\2.\3."),
 ]
@@ -81,6 +82,9 @@ _GWC = [
     (r"(redir[12])\.(conv|bn)\.", lambda m: f"{m[1]}.{_CB[m[2]]}."),
     (r"(classif\d)\.0\.(conv|bn)\.", lambda m: f"{m[1]}.0.{_CB[m[2]]}."),
     (r"(classif\d)\.1\.", r"\1.2."),
+    # the ptrans head's Sequential(Linear, BatchNorm1d, ReLU, Linear)
+    (r"^projection_(0|3)\.", r"projection.\1."),
+    (r"^projection_bn\.", "projection.1."),
 ]
 # CGI-Stereo: the trunk at the top level of the flax tree (feature_trunk),
 # FeatUp's modules too (the reference's feature_up), and its Sequentials
@@ -107,10 +111,10 @@ _CGI_UNUSED = ("feature_up.deconv32_16.", "feature.deconv32_16.")
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
-# flax kernel layout -> torch, by rank: HWIO -> OIHW (a depthwise (3, 3, 1,
-# C) -> (C, 1, 3, 3); a transposed conv's (k, k, O, I) -> (I, O, k, k)),
-# DHWIO -> OIDHW
-_KERNEL_PERM = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+# flax kernel layout -> torch, by rank: a Dense's (in, out) -> Linear's
+# (out, in); HWIO -> OIHW (a depthwise (3, 3, 1, C) -> (C, 1, 3, 3); a
+# transposed conv's (k, k, O, I) -> (I, O, k, k)), DHWIO -> OIDHW
+_KERNEL_PERM = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 
 
 def _walk(tree: dict, prefix=()):

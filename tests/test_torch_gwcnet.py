@@ -435,8 +435,10 @@ def test_state_dict_from_flax_matches_export_reference_pth(gwc):
 def test_registry_and_refused_options():
     """Both shipped configs build from the registry at full width, on the
     CPU when asked; all four classifiers exist in test mode; the loss
-    adapter serves loss_gwcnet with the config's maxdisp; ptrans and
-    train_bn in the DKT step raise with their reason."""
+    adapter serves loss_gwcnet with the config's maxdisp; ``ptrans`` builds
+    the projection head under the reference's names (its parity with JAX:
+    tests/test_torch_ptrans.py); train_bn in the DKT step raises with its
+    reason."""
     assert get_model("GWCNet")[0] is GWCNet
     for config, concat in ((BASE_G, False), (BASE_GC, True)):
         model = create_model(config, device="cpu", seed=0)
@@ -449,7 +451,8 @@ def test_registry_and_refused_options():
     loss, metrics, mask, ok = fn(preds, -torch.tensor([[[1.0, 3.0], [1.0, 1.0]]]),
                                  torch.ones(1, 2, 2))
     assert bool(ok) and int(mask.sum()) == 3 and float(loss) == pytest.approx(2.7 * 0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        GWCNet(GWCNetConfig(ptrans=True))
+    head = GWCNet(GWCNetConfig(ptrans=True)).projection
+    assert [type(m).__name__ for m in head] == ["Linear", "FrozenBatchNorm2d", "ReLU", "Linear"]
+    assert (head[0].in_features, head[0].out_features, head[3].out_features) == (320, 320, 256)
     with pytest.raises(NotImplementedError, match="train_bn"):
         make_dkt_train_step({**BASE_GC, "train_bn": True}, DKTHyperParams())

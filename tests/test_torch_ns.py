@@ -31,6 +31,7 @@ from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state
 from dkt_stereo_tpu_torch.train.ns_step import make_ns_train_step
 from dkt_stereo_tpu_torch.train.state import DKTHyperParams
 from dkt_stereo_tpu_torch.weights import state_dict_from_flax
+from tests.test_torch_batched_teachers import record_jax_mix_draws
 
 ROOT = Path(__file__).resolve().parents[1]
 NS = json.loads((ROOT / "configs/raft_stereo/ns.json").read_text())
@@ -264,22 +265,17 @@ def ns_setup():
     return cfg, variables, fwd, bi, tri
 
 
-@pytest.mark.parametrize("nb,nt", [(1, 1), (0, 2)])
-def test_ns_step_matches_jax(ns_setup, nb, nt):
-    """One whole NS step (EMA, forward, ``sequence_loss_raft`` on the
-    binocular row and ``ns_loss`` on the trinocular ones, backward, clip,
-    AdamW at the OneCycle rate) against the JAX step from the same weights.
-    Bounds: losses and metrics 1e-4 relative (the DKT step's,
-    tests/test_torch_train.py); every updated parameter within 2 lr of
-    JAX's plus 1e-6 relative, and 99 % of them within 1e-2 lr (measured
-    99.59-99.62 %); BN statistics untouched; the EMA within 1e-6. The DKT
-    step's test holds 99.9 % at full width. Here the student's gradients
-    agree with JAX's to 1.4e-3 relative L2, with or without the
-    photometric term (RAFT's fp32 chaos at random weights, not the loss),
-    and 0.12 % of their elements differ in sign; Adam's first step moves
-    each of those by about 2 lr, and this 16-wide model has a larger share
-    of near-zero elements."""
+def _check_ns_step_against_jax(ns_setup, nb, nt, monkeypatch=None):
+    """One NS step of the port against the JAX step (see
+    :func:`test_ns_step_matches_jax`); with ``monkeypatch``, both models in
+    ``mix_fmap_image``, the port's step passed the blend weight that the JAX
+    model draws from the step's key."""
     cfg, variables, fwd, bi, tri = ns_setup
+    config, step_kw = TINY, {}
+    if monkeypatch is not None:
+        config = {**TINY, "corr_implementation": "mix_fmap_image"}
+        cfg = JConfig.from_dict({**config, "remat_iters": False})
+        seen = record_jax_mix_draws(monkeypatch)
     batch = {k: v[:nb + nt] for k, v in fwd.items()}
     batch["bi"] = {k: v[:nb] for k, v in bi.items()} if nb else {}
     batch["tri"] = {k: v[:nt] for k, v in tri.items()}
@@ -290,14 +286,17 @@ def test_ns_step_matches_jax(ns_setup, nb, nt):
     jstate1, jmetrics = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batch),
                               jax.random.PRNGKey(1))
     jmetrics = {k: float(v) for k, v in jmetrics.items()}
+    if monkeypatch is not None:
+        assert len(seen) == 1 and 0 < seen[0] < 1
+        step_kw = {"mix_weight": torch.tensor(seen[0])}
     jstate1 = jax.tree_util.tree_map(np.asarray, jstate1)
 
     sd = _port_weights(variables)
-    state = create_dkt_state(TINY, DKTHyperParams(**HYPER), params=sd, device="cpu")
+    state = create_dkt_state(config, DKTHyperParams(**HYPER), params=sd, device="cpu")
     bn = {k: v.clone() for k, v in state.student.state_dict().items() if "running" in k}
     parts = []
-    state, metrics = make_ns_train_step(TINY, DKTHyperParams(**HYPER), nb=nb, nt=nt)(
-        state, jax.tree_util.tree_map(_t, batch), mark=parts.append)
+    state, metrics = make_ns_train_step(config, DKTHyperParams(**HYPER), nb=nb, nt=nt)(
+        state, jax.tree_util.tree_map(_t, batch), mark=parts.append, **step_kw)
 
     assert parts == ["ema", "forward", "loss", "backward", "optimizer"]
     assert set(metrics) == set(jmetrics)
@@ -324,6 +323,53 @@ def test_ns_step_matches_jax(ns_setup, nb, nt):
     for k, v in ema_want.items():
         np.testing.assert_allclose(state.ema.state_dict()[k].numpy(), v.numpy(), rtol=1e-6,
                                    atol=1e-9)
+
+
+@pytest.mark.parametrize("nb,nt", [(1, 1), (0, 2)])
+def test_ns_step_matches_jax(ns_setup, nb, nt):
+    """One whole NS step (EMA, forward, ``sequence_loss_raft`` on the
+    binocular row and ``ns_loss`` on the trinocular ones, backward, clip,
+    AdamW at the OneCycle rate) against the JAX step from the same weights.
+    Bounds: losses and metrics 1e-4 relative (the DKT step's,
+    tests/test_torch_train.py); every updated parameter within 2 lr of
+    JAX's plus 1e-6 relative, and 99 % of them within 1e-2 lr (measured
+    99.59-99.62 %); BN statistics untouched; the EMA within 1e-6. The DKT
+    step's test holds 99.9 % at full width. Here the student's gradients
+    agree with JAX's to 1.4e-3 relative L2, with or without the
+    photometric term (RAFT's fp32 chaos at random weights, not the loss),
+    and 0.12 % of their elements differ in sign; Adam's first step moves
+    each of those by about 2 lr, and this 16-wide model has a larger share
+    of near-zero elements."""
+    _check_ns_step_against_jax(ns_setup, nb, nt)
+
+
+def test_ns_step_mix_fmap_image_matches_jax(ns_setup, monkeypatch):
+    """``mix_fmap_image`` through the NS step. The JAX step gives the
+    model its key as the ``mix`` rng, so the blend weight is a fresh U(0, 1)
+    draw every step: passed that weight (read back from the JAX model's
+    draw), the port's step matches the JAX step at
+    :func:`test_ns_step_matches_jax`'s bounds. Without a weight the port's
+    step draws one a step from its generator: a step from a generator's
+    state equals the step passed that state's first U(0, 1) draw, and two
+    steps take two draws."""
+    _check_ns_step_against_jax(ns_setup, 1, 1, monkeypatch)
+    _, variables, fwd, bi, tri = ns_setup
+    config = {**TINY, "corr_implementation": "mix_fmap_image"}
+    hyper = DKTHyperParams(**HYPER)
+    batch = {**{k: _t(v[:1]) for k, v in fwd.items()},
+             "bi": {}, "tri": {k: _t(v[:1]) for k, v in tri.items()}}
+
+    def step(**kw):
+        state = create_dkt_state(config, hyper, params=_port_weights(variables), device="cpu")
+        step_fn = make_ns_train_step(config, hyper, nb=0, nt=1)
+        return step_fn(state, batch, **kw)[1]["loss"]
+
+    gen = torch.Generator().manual_seed(7)
+    drawn = step(generator=gen)
+    twin = torch.Generator().manual_seed(7)
+    first, second = float(torch.rand((), generator=twin)), float(torch.rand((), generator=twin))
+    assert drawn == step(mix_weight=first) != step(mix_weight=second)
+    assert step(generator=gen) == step(mix_weight=second)
 
 
 def test_ns_step_skips_update_when_not_ok(ns_setup):

@@ -151,9 +151,17 @@ def test_registry_and_unported_options():
     assert get_model("GWCNet")[0] is GWCNet and get_model("CGI_Stereo")[0] is CGIStereo
     with pytest.raises(KeyError, match="unknown model"):
         get_model("NoSuchNet")
-    for override in ({"corr_implementation": "cosine"}, {"backbone_type": "interpolate"},
-                     {"fast_in_stats": True}, {"shared_backbone": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # the options no shipped config sets build their modules (their parity
+    # with JAX: tests/test_torch_raft_options.py); an unknown value raises
+    for override, fnet_norm in (({"corr_implementation": "cosine"}, "instance"),
+                                ({"fast_in_stats": True}, "instance_fast"),
+                                ({"backbone_type": "interpolate"}, None),
+                                ({"shared_backbone": True}, None)):
+        model = RAFTStereo(RAFTStereoConfig.from_dict({**PALLAS, **override}))
+        assert (model.fnet.norm_fn if hasattr(model, "fnet") else None) == fnet_norm
+        assert hasattr(model, "conv2") == ("shared_backbone" in override)
+    for override in ({"corr_implementation": "no_such_mode"}, {"backbone_type": "no_such"}):
+        with pytest.raises(ValueError, match="must be one of"):
             RAFTStereo(RAFTStereoConfig.from_dict({**PALLAS, **override}))
     # alt_pallas.json (alt_cuda, K2 encoder) builds in test mode and, with
     # K2's VJP, in train mode
@@ -166,13 +174,12 @@ def test_registry_and_unported_options():
     train = json.loads((ROOT / "configs/raft_stereo/train.json").read_text())
     model = create_model(train, iters=2, device="cpu", seed=0, test_mode=False)
     assert model.training and not model.test_mode and model.cfg.remat_iters
-    # training options still to come name their ROADMAP entry
-    with pytest.raises(NotImplementedError, match="ROADMAP.md .*mix_fmap_image"):
-        RAFTStereo(RAFTStereoConfig.from_dict({**train, "corr_implementation": "mix_fmap_image"}),
-                   test_mode=False)
+    # mix_fmap_image builds in train mode, its blend weight an argument
+    model = RAFTStereo(RAFTStereoConfig.from_dict({**train, "corr_implementation": "mix_fmap_image"}),
+                       test_mode=False)
+    assert model.cfg.corr_implementation == "mix_fmap_image" and hasattr(model, "fnet")
     model = create_model(PALLAS, iters=2, device="cpu", seed=0, test_mode=False)
     assert model.training and not model.test_mode and model.cfg.pallas_encoder
     from dkt_stereo_tpu_torch.train.state import DKTHyperParams
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md .*batched_teachers"):
-        DKTHyperParams(batched_teachers=True)
+    assert DKTHyperParams(batched_teachers=True).batched_teachers

@@ -368,9 +368,9 @@ def test_eval_and_demo_read_port_checkpoints(runs, tmp_path):
 def test_train_cli_refusals(runs, tmp_path, monkeypatch):
     """The JAX CLI's two NeRF-Stereo exits (``loss_func=ns_loss`` without
     ``nerf_stereo`` data; ``nerf_stereo`` data under ``train.json``'s
-    ``sequence_loss_raft``); what is not ported raises naming its ROADMAP.md
-    item: ``--batched_teachers`` (item 5); ``--profile_port`` raises by
-    design; a global batch that does not split over ``--num_processes``, a
+    ``sequence_loss_raft``); ``--batched_teachers``, once refused, reaches
+    the step and runs it; ``--profile_port`` raises by design; a global
+    batch that does not split over ``--num_processes``, a
     missing coordinator and a process id out of range raise before any
     process group is joined. A FallingThings JPEG without PIL raises naming the
     file; a JAX package (Orbax) checkpoint given to the eval CLI raises
@@ -392,8 +392,14 @@ def test_train_cli_refusals(runs, tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="needs loss_func=ns_loss"):
         train_cli.main(argv + ["--train_datasets", "nerf_stereo", "--data_root", str(tmp_path)],
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        train_cli.main(argv + ["--batched_teachers"], device="cpu")
+    make, seen = train_cli.make_dkt_train_step, []
+    monkeypatch.setattr(train_cli, "make_dkt_train_step",
+                        lambda config, hyper: seen.append(hyper.batched_teachers) or make(config,
+                                                                                          hyper))
+    monkeypatch.setattr(port_logging, "make_writer", port_logging._JsonlWriter)
+    batched = train_cli.main(argv + ["--batched_teachers"], device="cpu")
+    monkeypatch.setattr(train_cli, "make_dkt_train_step", make)
+    assert seen == [True] and Path(batched["checkpoint"]).exists()
     # --profile_port stays refused by design; the multi-process flags are
     # checked before any process group is joined (the working runs:
     # tests/test_torch_profiling.py, tests/test_torch_parallel.py)
