@@ -366,6 +366,15 @@ the confidence tools (ROADMAP.md Queue 1 items 1 and 2):
      ms and peak; PTrans's host seconds a 320x720 sample; the confidence
      tools card vs CPU at 2x320x720 (1e-4 of the values' scale; uniqueness
      and agreement exact).
+ 46. The last module slice: (a) every JPEG fixture of tests/data/torch_jpeg
+     decoded on the host without PIL, each array's SHA-256 Pillow's, with
+     the seconds a 540x960 read; (b) FallingThings through cli.train from a
+     tree of those JPEGs (train.json, batch 8, 320x720, 4 workers, 3
+     steps), exactly 96/16 K1 a step, ms/step and the loader's wait; (c)
+     cli.demo on pallas.json with the JPEG pairs, 32 iterations, exactly 32
+     K1 and 4 K2 a frame, finite disparities; (d) bilinear_sampler, upflow,
+     pool4x, gauss_blur, BottleneckBlock and SepConvGRU card vs CPU at
+     RAFT's 1x736x1280 shapes (fp32, 1e-5 of the scale), no port kernel.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
@@ -379,6 +388,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import hashlib
 import json
 import os
 import shutil
@@ -5708,6 +5718,171 @@ def phase_ptrans(torch, card):
     return {}
 
 
+# --- phase 46: the last module slice: JPEG and PPM, INTER_AREA, the helpers ---------
+
+JPEG_FIXTURES = ROOT / "tests/data/torch_jpeg"  # tests/torch_jpeg_fixtures.py wrote them
+FT_FX = 768.2  # a FallingThings camera's fx (its _camera_settings.json)
+FT_PAIRS = (("ft_0_left.jpg", "ft_0_right.jpg"), ("ft_1_left.jpg", "ft_1_right.jpg"))
+
+
+def phase_jpeg_host():
+    """Phase 46(a): every committed JPEG fixture decoded by the port on this
+    machine's host (no PIL here), each array's SHA-256 equal to Pillow's
+    decode recorded beside the fixtures; the seconds of each 540x960 read."""
+    from dkt_stereo_tpu_torch.data import jpeg
+
+    recorded = json.loads((JPEG_FIXTURES / "hashes.json").read_text())
+    secs = {}
+    for name, rec in sorted(recorded.items()):
+        t0 = time.perf_counter()
+        a = jpeg.read(JPEG_FIXTURES / name)
+        secs[name] = time.perf_counter() - t0
+        digest = hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+        check([list(a.shape), str(a.dtype), digest] == [rec["shape"], rec["dtype"], rec["sha256"]],
+              f"JPEG {name}: {a.shape} {a.dtype} {digest} is not Pillow's {rec}")
+    big = [secs[n] for pair in FT_PAIRS for n in pair]
+    print(f"JPEG on the host ({len(recorded)} fixtures, every decoded byte Pillow's by SHA-256): "
+          f"540x960 4:2:0 q90 seconds a read {' '.join(f'{t:.3f}' for t in big)} (the first "
+          f"builds the Huffman lookahead tables) | progressive 4:4:4 96x136 "
+          f"{secs['progressive_444.jpg']:.3f} s, gray 72x104 {secs['gray.jpg']:.4f} s | "
+          f"{os.cpu_count()} CPUs")
+    return big
+
+
+def write_falling_things(root):
+    """A FallingThings tree from the JPEG fixtures: two scenes, each a
+    ``00000k.left.jpg``/``.right.jpg`` pair (frame numbers that differ, so
+    that the demo's outputs do), a 16-bit ``.left.depth.png``
+    whose disparity (fx * 600 / depth) is the pair's own (24 + 16 sin of
+    the row, tests/torch_jpeg_fixtures.py) and ``_camera_settings.json``."""
+    from dkt_stereo_tpu_torch.data import png
+
+    ft = Path(root) / "FallingThings"
+    H, W = SCENEFLOW_IMAGE
+    disp = 24 + 16 * np.sin(np.linspace(0, np.pi, H))[:, None] * np.ones((1, W))
+    depth = np.rint(FT_FX * 600 / np.rint(disp)).astype(np.uint16)
+    names = []
+    for k, (left, right) in enumerate(FT_PAIRS):
+        scene = ft / f"scene_{k}"
+        scene.mkdir(parents=True)
+        shutil.copy(JPEG_FIXTURES / left, scene / f"00000{k}.left.jpg")
+        shutil.copy(JPEG_FIXTURES / right, scene / f"00000{k}.right.jpg")
+        png.write(scene / f"00000{k}.left.depth.png", depth)
+        (scene / "_camera_settings.json").write_text(
+            json.dumps({"camera_settings": [{"intrinsic_settings": {"fx": FT_FX}}]}))
+        names.append(f"scene_{k}/00000{k}.left.jpg")
+    (ft / "filenames.txt").write_text("\n".join(names) + "\n")
+    return ft
+
+
+def _helpers_on_card(torch):
+    """Phase 46(d): the exported helpers on the card against the CPU, fp32,
+    TF32 off, at the shapes RAFT gives them at 1x736x1280; none launches a
+    port kernel."""
+    from dkt_stereo_tpu_torch.nn import BottleneckBlock, SepConvGRU
+    from dkt_stereo_tpu_torch.ops import bilinear_sampler, gauss_blur, pool4x, upflow
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(46)
+    fmap = torch.randn((1, 256, 184, 320), generator=gen)
+    coords = torch.stack([torch.rand((1, 184, 320), generator=gen) * 336 - 8,
+                          torch.rand((1, 184, 320), generator=gen) * 200 - 8], -1)
+    image = torch.randn((1, 3, 736, 1280), generator=gen)
+    x_half = torch.randn((1, 64, 368, 640), generator=gen)
+    h = torch.tanh(torch.randn((1, 128, 92, 160), generator=gen))
+    xs = (torch.randn((1, 192, 92, 160), generator=gen),
+          torch.randn((1, 128, 92, 160), generator=gen))
+    block = BottleneckBlock(64, 128, "group", 2)
+    gru = SepConvGRU(128, 320)
+    cases = [
+        ("bilinear_sampler", lambda d: bilinear_sampler(fmap.to(d), coords.to(d), mask=True)),
+        ("upflow 2ch", lambda d: upflow(fmap[:, :2].to(d))),
+        ("upflow 128ch", lambda d: upflow(fmap[:, :128].to(d))),
+        ("pool4x 2ch", lambda d: pool4x(fmap[:, :2].to(d))),
+        ("pool4x 128ch", lambda d: pool4x(fmap[:, :128].to(d))),
+        ("gauss_blur", lambda d: gauss_blur(image.to(d))),
+        ("BottleneckBlock(64, 128, group, 2)", lambda d: block.to(d)(x_half.to(d))),
+        ("SepConvGRU(128, 320)", lambda d: gru.to(d)(h.to(d), *(x.to(d) for x in xs))),
+    ]
+    lines = []
+    zero_counts()
+    with torch.no_grad():
+        for name, fn in cases:
+            want, got = fn("cpu"), fn("cuda")
+            if name == "bilinear_sampler":
+                (want, want_mask), (got, got_mask) = want, got
+                check(torch.equal(got_mask.cpu(), want_mask), "bilinear_sampler: masks differ")
+            err = float((got.cpu() - want).abs().max())
+            scale = float(want.abs().max())
+            check(got.shape == want.shape and err <= 1e-5 * scale,
+                  f"{name}: card vs CPU {err} > 1e-5 x {scale}")
+            lines.append(f"{name} {tuple(want.shape)} {err:.2e} (max {scale:.3g})")
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    check(not any(launches.values()), f"the helpers launched port kernels: {launches}")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    print("helpers card vs CPU (fp32, TF32 off, RAFT's shapes at 1x736x1280; tol 1e-5 x max, "
+          "the sampler's mask exact, no port kernel launched) max_abs: " + " | ".join(lines))
+
+
+def phase_last_slice(torch, tmp, card):
+    """Phase 46: (a) the JPEG fixtures decoded on the host to Pillow's bytes;
+    (b) FallingThings training through cli.train (train.json, batch 8,
+    320x720, 4 loader workers, 3 steps) from a tree of those JPEGs, exactly
+    96 K1 forward and 16 backward a step; (c) cli.demo on pallas.json with
+    the JPEG pairs as its globs, 32 iterations, exactly 32 K1 and 4 K2 a
+    frame and finite disparities; (d) the exported helpers card vs CPU."""
+    from dkt_stereo_tpu_torch.cli.config import load_model_config
+    from dkt_stereo_tpu_torch.cli.demo import main as demo_main
+
+    paths = {}
+    phase_jpeg_host()
+    root = tmp / "falling_things"
+    ft = write_falling_things(root)
+    cfg = str(ROOT / "configs/raft_stereo/train.json")
+    pth = seeded_pth(torch, load_model_config(cfg), root / "ft_train.pth")
+    B, H, W = TRAIN_IMAGE
+    argv = ["--config", cfg, "--train_datasets", "falling_things", "--data_root", str(root),
+            "--batch_size", str(B), "--image_size", str(H), str(W), "--num_workers",
+            TRAIN_WORKERS, "--num_steps", "2", "--validation_frequency", "100000",
+            "--save_dir", str(root / "run"), "--restore_ckpt", pth]
+    res, _, launches = _in_process(torch, argv, "FallingThings JPEG through cli.train "
+                                   "(train.json)", {"corr_lookup": 96, "corr_lookup_bwd": 16},
+                                   card)
+    check(res["checkpoint"].endswith("step_3"), f"FallingThings ended at {res['checkpoint']}")
+    paths["train_cli_falling_things"] = launches
+
+    demo_cfg = str(ROOT / "configs/raft_stereo/pallas.json")
+    demo_pth = seeded_pth(torch, load_model_config(demo_cfg), root / "demo.pth")
+    out = root / "demo"
+    zero_counts()
+    t0 = time.perf_counter()
+    with _FrameTimes() as frames:
+        written = demo_main(["--config", demo_cfg, "--restore_ckpt", demo_pth, "--valid_iters",
+                             str(EVAL_ITERS), "-l", str(ft / "scene_*/*.left.jpg"),
+                             "-r", str(ft / "scene_*/*.right.jpg"), "-o", str(out),
+                             "--save_numpy"])
+    secs = time.perf_counter() - t0
+    launches = kernel_counts()
+    n = len(FT_PAIRS)
+    want = {**dict.fromkeys(launches, 0), "corr_lookup": n * EVAL_ITERS, "encoder_stage": 4 * n}
+    check(len({p.name for p in written}) == n and launches == want, f"JPEG demo wrote {written}, launches "
+                                                   f"{launches} != {want}")
+    disps = [np.load(p.with_suffix(".npy")) for p in written]
+    check(all(d.shape[-2:] == SCENEFLOW_IMAGE and np.isfinite(d).all() for d in disps),
+          f"JPEG demo disparities {[(d.shape, bool(np.isfinite(d).all())) for d in disps]}")
+    print(f"JPEG demo (cli.demo, pallas.json bf16, {n} FallingThings JPEG pairs "
+          f"{SCENEFLOW_IMAGE[0]}x{SCENEFLOW_IMAGE[1]}, {EVAL_ITERS} iters): launches {launches} "
+          f"| ms a frame (the forward, unpad and copy back) "
+          f"{' '.join(f'{1e3 * t:.1f}' for t in frames.seconds)} | {secs:.1f} s with the "
+          f"model's build and the reads | disparities finite, |d| max "
+          f"{max(float(np.abs(d).max()) for d in disps):.3g} | {card}")
+    paths["jpeg_demo"] = launches
+    _helpers_on_card(torch)
+    return paths
+
+
 def main():
     """Every phase, then every process the phases started is stopped."""
     adopt_orphans()
@@ -5815,6 +5990,7 @@ def run():
         eval_paths.update(phase_options(torch, config, card))
         eval_paths.update(phase_options_train(torch, train_cfg, card, unfused_ms, train_data))
         eval_paths.update(phase_ptrans(torch, card))
+        eval_paths.update(phase_last_slice(torch, tmp, card))
 
     def launches(name):
         by_path = {"inference": infer.get(name, 0), "training": train.get(name, 0),

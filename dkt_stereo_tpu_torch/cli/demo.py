@@ -6,7 +6,7 @@ stereo inference over image globs, on the GPU -> colormapped PNG (+ .npy,
       --restore_ckpt ckpt.pth -l 'left/*.png' -r 'right/*.png' -o out/
 
 ``--restore_ckpt`` is a ``.pth`` or a port checkpoint (``--which``), as in
-``cli/eval.py``. PNG inputs need no image library; JPEG inputs need PIL
+``cli/eval.py``. PNG, JPEG and PPM inputs need no image library
 (``data/readers.py``). ``main(argv, device="cpu")`` runs on the CPU.
 """
 

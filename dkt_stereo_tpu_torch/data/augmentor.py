@@ -11,7 +11,8 @@ photometric and eraser transforms apply to the augmented pair only.
 
 ``cv2.resize(INTER_LINEAR)`` is :func:`_resize_linear`, which computes
 OpenCV's arithmetic in numpy: uint8 images bit for bit, float32 flow up to
-the order of float additions.
+the order of float additions. An exact 2x downscale, which OpenCV turns
+into INTER_AREA, is :func:`_resize_area_half`.
 """
 
 from __future__ import annotations
@@ -52,14 +53,12 @@ def _resize_linear(img: np.ndarray, fx: float, fy: float) -> np.ndarray:
     path ``VResizeLinearVec_32s8u`` does: ``(mulhi(b0, r0 >> 4) + mulhi(b1,
     r1 >> 4) + 2) >> 2``, saturated to uint8. float32: the same taps with
     float32 weights ``1.f - fx`` and ``fx``. OpenCV turns an exact 2x
-    downscale on both axes into INTER_AREA; that case raises."""
+    downscale on both axes into INTER_AREA (:func:`_resize_area_half`)."""
     a = np.asarray(img)
     H, W = a.shape[:2]
     if abs(1.0 / fx - 2.0) < np.finfo(np.float64).eps and abs(1.0 / fy - 2.0) < np.finfo(
             np.float64).eps:
-        raise NotImplementedError(
-            "an exact 2x downscale is INTER_AREA in cv2.resize, which the port does not "
-            "reproduce; the augmentors' scale ranges do not reach it")
+        return _resize_area_half(a)
     x0, x1, wx = _axis_taps(W, int(round(W * fx)), fx, reset_border=True)
     y0, y1, wy = _axis_taps(H, int(round(H * fy)), fy, reset_border=False)
     src = a.reshape(H, W, -1)
@@ -79,6 +78,37 @@ def _resize_linear(img: np.ndarray, fx: float, fy: float) -> np.ndarray:
         out = (rows[y0] * (np.float32(1) - wy)[:, None, None] + rows[y1] * wy[:, None, None])
     else:
         raise TypeError(f"_resize_linear takes uint8 or float32, got {a.dtype}")
+    return out.reshape(out.shape[:2] + a.shape[2:])
+
+
+def _resize_area_half(a: np.ndarray) -> np.ndarray:
+    """``cv2.resize``'s INTER_AREA fast path at an exact 2x downscale
+    (imgproc/src/resize.cpp, ``resizeAreaFast_``) for a uint8 or float32
+    (H, W) or (H, W, C) array, to ``round(W / 2)`` x ``round(H / 2)``
+    (halves to even). A whole 2x2 block gives ``(a + b + c + d + 2) >> 2``
+    in uint8 and ``(((a + b) + c) + d) * 0.25f`` in float32. Where the
+    output runs past the last whole block (an odd width or height whose
+    half rounds up), its pixels average the samples that exist, ``sum /
+    count`` in float32, rounded half to even for uint8."""
+    if a.dtype not in (np.uint8, np.float32):
+        raise TypeError(f"_resize_linear takes uint8 or float32, got {a.dtype}")
+    H, W = a.shape[:2]
+    Ho, Wo = int(round(H * 0.5)), int(round(W * 0.5))
+    src = a.reshape(H, W, -1)
+    acc = np.int64 if a.dtype == np.uint8 else np.float32
+    pad = np.zeros((2 * Ho, 2 * Wo, src.shape[2]), acc)
+    h, w = min(H, 2 * Ho), min(W, 2 * Wo)
+    pad[:h, :w] = src[:h, :w]
+    a00, a01, a10, a11 = pad[0::2, 0::2], pad[0::2, 1::2], pad[1::2, 0::2], pad[1::2, 1::2]
+    total = ((a00 + a01) + a10) + a11
+    count = np.zeros((2 * Ho, 2 * Wo), np.int64)
+    count[:h, :w] = 1
+    count = count.reshape(Ho, 2, Wo, 2).sum((1, 3))[..., None]
+    part = total.astype(np.float32) / count.astype(np.float32)
+    if a.dtype == np.uint8:
+        out = np.where(count == 4, (total + 2) >> 2, np.rint(part)).astype(np.uint8)
+    else:
+        out = np.where(count == 4, total * np.float32(0.25), part).astype(np.float32)
     return out.reshape(out.shape[:2] + a.shape[2:])
 
 

@@ -2,11 +2,12 @@
 ``dkt_stereo_tpu/data/readers.py`` with the same decoding math (the
 reference's core/utils/frame_utils.py, file:line cited per function).
 
-PNG files go through :mod:`dkt_stereo_tpu_torch.data.png` on every machine,
-so no image library is needed for the evaluation datasets. JPEG and PPM
-need PIL, imported where such a file is read: without it that read raises
-``ImportError`` naming the file. :func:`read_gen` returns numpy arrays where
-the JAX reader returns a ``PIL.Image``.
+PNG files go through :mod:`dkt_stereo_tpu_torch.data.png`, JPEG files
+through :mod:`dkt_stereo_tpu_torch.data.jpeg` and binary PPM/PGM files
+through :func:`readPPM` on every machine, so no image library is needed:
+each gives the bytes ``np.array(PIL.Image.open(path))`` gives.
+:func:`read_gen` returns numpy arrays where the JAX reader returns a
+``PIL.Image``.
 
 The training readers (KITTI flow, Sintel, FallingThings, TartanAir) read
 their PNG files the same way: :func:`png.read` gives 16-bit RGB in RGB order,
@@ -21,7 +22,7 @@ from os.path import basename, exists, splitext
 
 import numpy as np
 
-from dkt_stereo_tpu_torch.data import png
+from dkt_stereo_tpu_torch.data import jpeg, png
 
 
 def readPFM(path: str) -> np.ndarray:
@@ -145,24 +146,71 @@ def readDispBooster(path: str):
     return disp, (disp > 0) & (disp < 512)
 
 
-def _read_with_pil(path: str) -> np.ndarray:
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(f"reading {path!r} needs PIL (Pillow), which is not installed; "
-                          "PNG files are read without it") from e
-    return np.array(Image.open(path))
+_PNM_SPACE = b" \t\n\x0b\x0c\r"
+
+
+def readPPM(path: str) -> np.ndarray:
+    """Binary PGM (P5) and PPM (P6), as Pillow's ``PpmImagePlugin`` reads
+    them: the header's width, height and maxval (1-65535) are whitespace-
+    separated tokens, ``#`` starts a comment to the end of its line, and the
+    samples start after the one whitespace byte that ends maxval. Samples
+    are one byte below maxval 256, else two, big-endian. P5 at maxval 255
+    gives (H, W) uint8; above 255 (H, W) int32 (Pillow's ``I``), scaled to
+    0-65535 as ``min(65535, round(v / maxval * 65535))`` unless maxval is
+    65535. P6 gives (H, W, 3) uint8, scaled to 0-255 the same way unless
+    maxval is 255; so is P5 below 255. Other magic numbers raise
+    ``NotImplementedError``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    magic = data[:2]
+    if magic not in (b"P5", b"P6") or (len(data) > 2 and data[2] not in _PNM_SPACE):
+        raise NotImplementedError(f"{path}: only binary PGM (P5) and PPM (P6) are supported")
+    pos, tokens = 3, []
+    while len(tokens) < 3:
+        token = b""
+        while pos < len(data):
+            c = data[pos:pos + 1]
+            pos += 1
+            if c in _PNM_SPACE:
+                if token:
+                    break
+            elif c == b"#":
+                while pos < len(data) and data[pos] not in b"\r\n":
+                    pos += 1
+                pos += 1
+            else:
+                token += c
+        if not token:
+            raise ValueError(f"{path}: reached the end of the file in the PPM header")
+        tokens.append(int(token))
+    width, height, maxval = tokens
+    if not 0 < maxval < 65536:
+        raise ValueError(f"{path}: PPM maxval must be in 1-65535, got {maxval}")
+    bands = 1 if magic == b"P5" else 3
+    n = width * height * bands
+    raw = np.frombuffer(data, np.uint8 if maxval < 256 else ">u2", n, pos).astype(np.int64)
+    shape = (height, width) if bands == 1 else (height, width, 3)
+    if bands == 1 and maxval > 255:
+        out_max, dtype = 65535, np.int32
+    else:
+        out_max, dtype = 255, np.uint8
+    if maxval != out_max:
+        raw = np.minimum(out_max, np.rint(raw / maxval * out_max))
+    return raw.astype(dtype).reshape(shape)
 
 
 def read_gen(path: str):
     """Generic reader (frame_utils.py:205-224): images as numpy arrays (PNG
-    by :mod:`png`, JPEG and PPM by PIL), ``.npy`` / ``.bin`` / ``.raw``
+    by :mod:`png`, JPEG by :mod:`jpeg`, PPM by :func:`readPPM`), ``.npy`` /
+    ``.bin`` / ``.raw``
     arrays, ``.flo`` flow, ``.pfm`` maps; ``[]`` for other extensions."""
     ext = splitext(path)[-1]
     if ext == ".png":
         return png.read(path)
-    if ext in (".jpeg", ".ppm", ".jpg"):
-        return _read_with_pil(path)
+    if ext in (".jpeg", ".jpg"):
+        return jpeg.read(path)
+    if ext == ".ppm":
+        return readPPM(path)
     if ext in (".bin", ".raw", ".npy"):
         return np.load(path)
     if ext == ".flo":

@@ -1,13 +1,13 @@
 """Name -> (model class, config class) registry
-(``dkt_stereo_tpu/models/registry.py``), the model factory and the loss
-adapter of the DKT step.
+(``dkt_stereo_tpu/models/registry.py``) with :func:`register_model`, the
+model factory and the loss adapter of the DKT step.
 
-The five model families of the JAX registry are ported in test and train
-mode: RAFTStereo, IGEVStereo, PCVNet, GWCNet and CGI_Stereo, with their
-``sequence_loss_raft``, ``sequence_loss_igev``, ``sequence_loss_pcvnet``,
-``loss_gwcnet`` and ``loss_cgi``. ``ns_loss`` is not a loss of this
-interface: it takes the trinocular batch, and ``train/ns_step.py`` calls
-it."""
+The five model families of the JAX registry are registered here, ported
+in test and train mode: RAFTStereo, IGEVStereo, PCVNet, GWCNet and
+CGI_Stereo, with their ``sequence_loss_raft``, ``sequence_loss_igev``,
+``sequence_loss_pcvnet``, ``loss_gwcnet`` and ``loss_cgi``. ``ns_loss`` is
+not a loss of this interface: it takes the trinocular batch, and
+``train/ns_step.py`` calls it."""
 
 from __future__ import annotations
 
@@ -24,25 +24,45 @@ from dkt_stereo_tpu_torch.models.igev_stereo import IGEVStereo, IGEVStereoConfig
 from dkt_stereo_tpu_torch.models.pcvnet import PCVNet, PCVNetConfig
 from dkt_stereo_tpu_torch.models.raft_stereo import RAFTStereo, RAFTStereoConfig
 
-MODELS: dict[str, tuple] = {
-    "RAFTStereo": (RAFTStereo, RAFTStereoConfig),
-    "IGEVStereo": (IGEVStereo, IGEVStereoConfig),
-    "PCVNet": (PCVNet, PCVNetConfig),
-    "GWCNet": (GWCNet, GWCNetConfig),
-    "CGI_Stereo": (CGIStereo, CGIStereoConfig),
-}
+MODELS: dict[str, tuple] = {}
+# each registered model's loss function, and the name of its loss in the
+# reference's ``__losses__`` (meta_arch/__init__.py:15-21) where it has one
+LOSSES: dict = {}
+DEFAULT_LOSS: dict[str, str] = {}
+_LOSS_NAMES = ("sequence_loss_raft", "sequence_loss_igev", "sequence_loss_pcvnet",
+               "loss_gwcnet", "loss_cgi")
 
-# the reference's ``__losses__`` names (meta_arch/__init__.py:15-21) and the
-# model defaults of the JAX registry
-DEFAULT_LOSS = {"RAFTStereo": "sequence_loss_raft", "IGEVStereo": "sequence_loss_igev",
-                "PCVNet": "sequence_loss_pcvnet", "GWCNet": "loss_gwcnet",
-                "CGI_Stereo": "loss_cgi"}
+
+def register_model(name: str, model_cls, config_cls, loss_fn):
+    """Register a model family under ``name`` (the JAX registry's
+    ``register_model``): :func:`get_model` then returns ``(model_cls,
+    config_cls)``, :func:`create_model` builds it from a config whose
+    ``"model"`` is ``name`` (as ``model_cls(config_cls.from_dict(config),
+    iters=..., test_mode=...)``), and :func:`make_loss_adapter` takes
+    ``loss_fn`` as its default loss: by the reference's name where
+    ``loss_fn`` is one of the port's losses, else called as
+    ``loss_fn(outputs, flow_gt, valid)`` for ``(loss, metrics, mask, ok)``.
+    Returns ``model_cls``."""
+    MODELS[name] = (model_cls, config_cls)
+    LOSSES[name] = loss_fn
+    if getattr(loss_fn, "__name__", None) in _LOSS_NAMES:
+        DEFAULT_LOSS[name] = loss_fn.__name__
+    else:
+        DEFAULT_LOSS.pop(name, None)
+    return model_cls
 
 
 def get_model(name: str):
     if name not in MODELS:
-        raise KeyError(f"unknown model {name!r}; ported: {sorted(MODELS)}")
+        raise KeyError(f"unknown model {name!r}; registered: {sorted(MODELS)}")
     return MODELS[name]
+
+
+register_model("RAFTStereo", RAFTStereo, RAFTStereoConfig, sequence_loss_raft)
+register_model("IGEVStereo", IGEVStereo, IGEVStereoConfig, sequence_loss_igev)
+register_model("PCVNet", PCVNet, PCVNetConfig, sequence_loss_pcvnet)
+register_model("GWCNet", GWCNet, GWCNetConfig, loss_gwcnet)
+register_model("CGI_Stereo", CGIStereo, CGIStereoConfig, loss_cgi)
 
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
@@ -83,9 +103,12 @@ def make_loss_adapter(name: str, cfg: dict | None = None, loss_func: str | None 
     metrics, mask, ok)`` (``dkt_stereo_tpu/models/registry.py:43-79``).
     ``cfg`` is the model's config dict (IGEV's loss reads ``max_disp``,
     GWCNet's and CGI's ``maxdisp``, 192 without one); ``loss_func`` picks the loss by its reference name;
-    None takes the model's default. ``ns_loss`` raises a ValueError that
+    None takes the model's default (for a model registered with a loss of
+    its own, that loss). ``ns_loss`` raises a ValueError that
     points at the NS route; an unknown name a KeyError."""
     get_model(name)
+    if loss_func is None and name not in DEFAULT_LOSS:
+        return LOSSES[name]
     loss_func = loss_func or DEFAULT_LOSS[name]
     if loss_func == "sequence_loss_raft":
         return lambda out, gt, v: sequence_loss_raft(out["disp_preds"], gt, v)

@@ -45,6 +45,39 @@ class ResidualBlock(nn.Module):
         return self.relu(x + y)
 
 
+class BottleneckBlock(nn.Module):
+    """core/extractor.py:64-120: 1x1 -> 3x3 (strided) -> 1x1 convs at a
+    quarter of ``planes`` in the middle, and a 1x1 downsample where the
+    stride is not 1. Every group norm takes ``planes // 8`` groups, also
+    ``norm1`` and ``norm2`` over ``planes // 4`` channels. As in the
+    reference, ``norm4`` is registered twice (also as ``downsample.1``)."""
+
+    def __init__(self, in_planes: int, planes: int, norm_fn: str = "group", stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_planes, planes // 4, 1)
+        self.conv2 = nn.Conv2d(planes // 4, planes // 4, 3, padding=1, stride=stride)
+        self.conv3 = nn.Conv2d(planes // 4, planes, 1)
+        self.relu = nn.ReLU(inplace=True)
+        groups = planes // 8
+        self.norm1 = Norm(norm_fn, planes // 4, groups)
+        self.norm2 = Norm(norm_fn, planes // 4, groups)
+        self.norm3 = Norm(norm_fn, planes, groups)
+        if stride == 1:
+            self.downsample = None
+        else:
+            self.norm4 = Norm(norm_fn, planes, groups)
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_planes, planes, 1, stride=stride), self.norm4)
+
+    def forward(self, x):
+        y = self.relu(self.norm1(self.conv1(x)))
+        y = self.relu(self.norm2(self.conv2(y)))
+        y = self.relu(self.norm3(self.conv3(y)))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return self.relu(x + y)
+
+
 def _res_pair(in_planes, dim, norm_fn, stride):
     """A two-ResidualBlock stage (core/extractor.py:164-170)."""
     return nn.Sequential(

@@ -48,6 +48,28 @@ class ConvGRU(nn.Module):
         return (1 - z) * h + z * q
 
 
+class SepConvGRU(nn.Module):
+    """core/update.py:34-62: a 1x5 gated pass, then a 5x1 one, with no
+    context biases."""
+
+    def __init__(self, hidden_dim: int = 128, input_dim: int = 192 + 128):
+        super().__init__()
+        cin = hidden_dim + input_dim
+        for suffix, kernel, pad in (("1", (1, 5), (0, 2)), ("2", (5, 1), (2, 0))):
+            for gate in "zrq":
+                setattr(self, f"conv{gate}{suffix}", nn.Conv2d(cin, hidden_dim, kernel, padding=pad))
+
+    def forward(self, h, *x_list):
+        x = torch.cat(x_list, dim=1)
+        for suffix in "12":
+            hx = torch.cat([h, x], dim=1)
+            z = torch.sigmoid(getattr(self, f"convz{suffix}")(hx))
+            r = torch.sigmoid(getattr(self, f"convr{suffix}")(hx))
+            q = torch.tanh(getattr(self, f"convq{suffix}")(torch.cat([r * h, x], dim=1)))
+            h = (1 - z) * h + z * q
+        return h
+
+
 class BasicMotionEncoder(nn.Module):
     """core/update.py:64-85. ``corr``: (B, L*(2r+1), H, W); ``flow``:
     (B, 2, H, W) with a zero vertical channel. Output 128 channels."""

@@ -220,12 +220,13 @@ class GroupNorm(nn.GroupNorm):
                             self.eps).to(x.dtype)
 
 
-def Norm(norm_fn: str, channels: int) -> nn.Module:
+def Norm(norm_fn: str, channels: int, groups: int | None = None) -> nn.Module:
     """String-dispatched norm module. A factory rather than a wrapper, so
     the BatchNorm's parameters sit at the reference's names (``norm1.weight``,
-    not ``norm1.bn.weight``). ``"group"`` takes ``channels // 8`` groups, the
-    reference's rule for its residual blocks and its 64-channel stems
-    (core/extractor.py)."""
+    not ``norm1.bn.weight``). ``"group"`` takes ``groups`` groups, by
+    default ``channels // 8``, the reference's rule for its residual blocks
+    and its 64-channel stems (core/extractor.py); its bottleneck block
+    passes its own."""
     if norm_fn == "batch":
         return FrozenBatchNorm2d(channels)
     if norm_fn == "instance":
@@ -233,7 +234,7 @@ def Norm(norm_fn: str, channels: int) -> nn.Module:
     if norm_fn == "instance_fast":
         return InstanceNorm(stats_stride=4)
     if norm_fn == "group":
-        return GroupNorm(channels // 8, channels, eps=1e-5)
+        return GroupNorm(groups or channels // 8, channels, eps=1e-5)
     if norm_fn == "none":
         return nn.Identity()
     raise ValueError(f"unknown norm_fn {norm_fn!r}")

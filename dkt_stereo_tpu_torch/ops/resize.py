@@ -1,7 +1,7 @@
 """Resizing / pooling with torch semantics, over NCHW tensors and NCDHW
 volumes (``dkt_stereo_tpu/ops/resize.py``: ``interp_bilinear_align``,
 ``interp_bilinear_halfpix``, ``interp_trilinear_halfpix``,
-``interp_nearest``, ``avg_pool2d``, ``pool2x``). The JAX package writes
+``interp_nearest``, ``upflow``, ``avg_pool2d``, ``pool2x``, ``pool4x``). The JAX package writes
 these as matmuls and a depthwise conv for the TPU; here they are PyTorch
 operators and an index gather."""
 
@@ -82,6 +82,14 @@ def interp_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
     return x.index_select(2, rows).index_select(3, cols)
 
 
+def upflow(flow: torch.Tensor, factor: int = 8) -> torch.Tensor:
+    """``upflow8`` (core/utils/utils.py:83-85): an ``align_corners=True``
+    bilinear resize of NCHW ``flow`` by ``factor``, its values scaled by
+    ``factor``."""
+    H, W = flow.shape[2:]
+    return factor * interp_bilinear_align(flow, (factor * H, factor * W))
+
+
 def avg_pool2d(x: torch.Tensor, window, stride, padding=(0, 0)) -> torch.Tensor:
     """torch average pool over NCHW, ``count_include_pad=True``."""
     return F.avg_pool2d(x, window, stride, padding, count_include_pad=True)
@@ -90,3 +98,8 @@ def avg_pool2d(x: torch.Tensor, window, stride, padding=(0, 0)) -> torch.Tensor:
 def pool2x(x: torch.Tensor) -> torch.Tensor:
     """3x3 stride-2 pad-1 average pool (core/update.py:87-88)."""
     return avg_pool2d(x, (3, 3), (2, 2), (1, 1))
+
+
+def pool4x(x: torch.Tensor) -> torch.Tensor:
+    """5x5 stride-4 pad-1 average pool (core/update.py:90-91)."""
+    return avg_pool2d(x, (5, 5), (4, 4), (1, 1))

@@ -99,8 +99,11 @@ _CGI = [
     (r"(^|\.)(semantic|att)_(\d)\.", r"\1\2.\3."),
     (r"(^|\.)(conv[123]|agg_[01])_(\d)\.", r"\1\2.\3."),
 ]
-# the reference registers a ResidualBlock's norm3 twice (also as downsample.1)
-_ALIASES = [(re.compile(r"(^|\.)norm3\.$"), r"\1downsample.1.")]
+# the reference registers a ResidualBlock's norm3 twice (also as
+# downsample.1), and a BottleneckBlock's norm4, where norm3 is the third
+# conv's norm: a block with a conv3 beside its norm3 is a bottleneck
+_ALIASES = [(re.compile(r"(^|\.)norm3\.$"), r"\1downsample.1."),
+            (re.compile(r"(^|\.)norm4\.$"), r"\1downsample.1.")]
 # batch norms the reference creates and never runs (its BasicConv with
 # bn=False): no flax state, so they keep BatchNorm's initial values
 _UNUSED_BN = re.compile(r"(^|\.)conv1_up\.conv\.weight$")
@@ -125,11 +128,21 @@ def _walk(tree: dict, prefix=()):
             yield prefix + (k,), v
 
 
-def _torch_scopes(scope: tuple, rules) -> list[str]:
-    """Torch module prefixes (ending in '.') of one flax scope."""
+def _torch_scope(scope: tuple, rules) -> str:
+    """The torch module prefix (ending in '.') of one flax scope."""
     s = ".".join(scope) + "."
     for pat, repl in rules:
         s = re.sub(pat, repl, s)
+    return s
+
+
+def _torch_scopes(scope: tuple, rules, bottlenecks) -> list[str]:
+    """Torch module prefixes of one flax scope, its aliases included.
+    ``bottlenecks`` holds the torch prefixes of BottleneckBlocks, whose
+    ``norm3`` has no alias."""
+    s = _torch_scope(scope, rules)
+    if s.endswith("norm3.") and s.removesuffix("norm3.") in bottlenecks:
+        return [s]
     return [s] + [pat.sub(repl, s) for pat, repl in _ALIASES if pat.search(s)]
 
 
@@ -171,17 +184,19 @@ def state_dict_from_flax(variables: dict, igev: bool | None = None
     ``step.FDM`` or the encoder's ``low_level_conv_0``; else RAFT."""
     scopes = {**variables.get("batch_stats", {}), **variables.get("params", {})}
     rules = _COMMON + _rules(scopes, igev)
+    leaves = [item for coll in ("params", "batch_stats") for item in _walk(variables.get(coll, {}))]
+    bottlenecks = frozenset(_torch_scope(path[:-1], rules).removesuffix("conv3.")
+                            for path, _ in leaves if path[-2:-1] == ("conv3",))
     out: OrderedDict[str, torch.Tensor] = OrderedDict()
-    for coll in ("params", "batch_stats"):
-        for path, leaf in _walk(variables.get(coll, {})):
-            *scope, name = path
-            arr = np.asarray(leaf, dtype=np.float32)
-            if name == "kernel":
-                arr = arr.transpose(_KERNEL_PERM[arr.ndim])
-            for prefix in _torch_scopes(tuple(scope), rules):
-                out[prefix + _LEAF[name]] = torch.tensor(np.ascontiguousarray(arr))
-                if name == "mean":
-                    out[prefix + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    for path, leaf in leaves:
+        *scope, name = path
+        arr = np.asarray(leaf, dtype=np.float32)
+        if name == "kernel":
+            arr = arr.transpose(_KERNEL_PERM[arr.ndim])
+        for prefix in _torch_scopes(tuple(scope), rules, bottlenecks):
+            out[prefix + _LEAF[name]] = torch.tensor(np.ascontiguousarray(arr))
+            if name == "mean":
+                out[prefix + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     for key in [k for k in out if _UNUSED_BN.search(k)]:
         out.update(_bn_init(key.removesuffix("conv.weight") + "bn.", out[key].shape[1]))
     src, dst = _CGI_UNUSED

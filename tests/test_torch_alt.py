@@ -37,6 +37,7 @@ from dkt_stereo_tpu_torch.ops.corr import corr_lookup_alt, fmap_pyramid
 from dkt_stereo_tpu_torch.ops.cuda import corr_alt
 from dkt_stereo_tpu_torch.ops.cuda.corr_alt import CorrLookupAlt
 from dkt_stereo_tpu_torch.weights import state_dict_from_flax
+from tests.test_torch_train import jit_vjp
 
 ROOT = Path(__file__).resolve().parents[1]
 ALT = load_model_config(str(ROOT / "configs/raft_stereo/alt_pallas.json"))
@@ -125,8 +126,8 @@ def test_corr_lookup_alt_nan_positions_match_pallas(rng):
         f2t = tuple(jnp.swapaxes(f, -1, -2) for f in jfmap_pyramid(b, 4))
         return corr_lookup_alt_pallas(a, f2t, jnp.asarray(c), 4, True)
 
-    out, vjp = jax.vjp(lookup, jnp.asarray(f1), jnp.asarray(f2))
-    want = [np.asarray(d) for d in vjp(jnp.asarray(g))]
+    out, grads = jit_vjp(lookup, (jnp.asarray(f1), jnp.asarray(f2)), jnp.asarray(g))
+    want = [np.asarray(d) for d in grads]
     t1, t2 = _t(f1).requires_grad_(True), _t(f2).requires_grad_(True)
     got_out = CorrLookupAlt.apply(t1, _t(c), 4, *fmap_pyramid(t2, 4))
     got_out.backward(_t(g))

@@ -24,6 +24,7 @@ from dkt_stereo_tpu.ops.pallas.corr_lookup import corr_lookup_pallas
 from dkt_stereo_tpu_torch.ops.cuda import corr_lookup as k1
 from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import (
     CorrLookup, bwd_plan, corr_lookup, corr_lookup_bwd, fwd_plan)
+from tests.test_torch_train import jit_vjp
 
 DT = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -62,10 +63,9 @@ def _jax_vjp(case, vol, out):
         res = corr_lookup_pallas(p, jnp.asarray(coords), radius, True)
         return res.transpose(0, 3, 1, 2).astype(odt)
 
-    res, vjp = jax.vjp(f, *jpyr)
-    gj = jnp.asarray(g.transpose(0, 3, 1, 2)).astype(odt)
+    res, grads = jit_vjp(f, jpyr, jnp.asarray(g.transpose(0, 3, 1, 2)).astype(odt))
     return (np.asarray(res.astype(jnp.float32)),
-            [np.asarray(d.astype(jnp.float32)) for d in vjp(gj)])
+            [np.asarray(d.astype(jnp.float32)) for d in grads])
 
 
 @pytest.mark.parametrize("vol", ["float32", "bfloat16"])

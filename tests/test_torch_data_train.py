@@ -88,7 +88,8 @@ def test_photo_aug_matches_jax():
 def test_resize_linear_matches_cv2():
     """``cv2.resize(INTER_LINEAR)``: uint8 bit for bit, float32 flow within
     1e-6 x max|flow|, at seeded sizes and scales in 0.6-1.5, stretched,
-    below and above 1; an exact 2x downscale (INTER_AREA in OpenCV) raises."""
+    below and above 1; and an exact 2x downscale (INTER_AREA in OpenCV) the
+    same way, uint8 with 1 and 3 channels, at even and odd sizes 9-140."""
     rng = np.random.default_rng(11)
     for _ in range(24):
         H, W = int(rng.integers(9, 140)), int(rng.integers(9, 200))
@@ -102,8 +103,18 @@ def test_resize_linear_matches_cv2():
         got = augmentor._resize_linear(flow, fx, fy)
         assert got.dtype == np.float32 and got.shape == want.shape
         assert np.abs(got - want).max() <= 1e-6 * np.abs(flow).max()
-    with pytest.raises(NotImplementedError, match="INTER_AREA"):
-        augmentor._resize_linear(img, 0.5, 0.5)
+    sizes = [(9, 9), (10, 11), (11, 10), (13, 15), (140, 139)] + [
+        (int(h), int(w)) for h, w in rng.integers(9, 141, (12, 2))]
+    for H, W in sizes:
+        for shape in ((H, W), (H, W, 3)):
+            img = rng.integers(0, 256, shape, dtype=np.uint8)
+            want = cv2.resize(img, None, fx=0.5, fy=0.5, interpolation=cv2.INTER_LINEAR)
+            assert np.array_equal(augmentor._resize_linear(img, 0.5, 0.5), want), (H, W, shape)
+        flow = rng.uniform(-200, 200, (H, W, 2)).astype(np.float32)
+        want = cv2.resize(flow, None, fx=0.5, fy=0.5, interpolation=cv2.INTER_LINEAR)
+        got = augmentor._resize_linear(flow, 0.5, 0.5)
+        assert got.dtype == np.float32 and got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(flow).max()
 
 
 def test_resize_sparse_flow_map_matches_jax(rng):
@@ -477,8 +488,9 @@ def test_loader_workers(trees):
 
 
 def test_port_imports_neither_cv2_nor_pil_outside_the_jpeg_reader():
-    """No module of the port imports cv2; PIL is imported only inside
-    ``data/readers.py::_read_with_pil``."""
+    """No module of the port imports cv2 or PIL: JPEG and PPM are read by
+    ``data/jpeg.py`` and ``data/readers.py::readPPM`` (the JPEG reader was
+    the last place PIL was imported)."""
     found = []
     for f in sorted((ROOT / "dkt_stereo_tpu_torch").rglob("*.py")):
         tree = ast.parse(f.read_text())
@@ -492,7 +504,6 @@ def test_port_imports_neither_cv2_nor_pil_outside_the_jpeg_reader():
                      else [node.module] if isinstance(node, ast.ImportFrom) else [])
             for m in names:
                 top = (m or "").split(".")[0]
-                if top == "cv2" or (top == "PIL" and (
-                        f.name != "readers.py" or owners.get(id(node)) != "_read_with_pil")):
+                if top in ("cv2", "PIL"):
                     found.append((f.name, m, owners.get(id(node))))
     assert not found, found

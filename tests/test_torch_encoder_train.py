@@ -249,10 +249,12 @@ def _sum_sq(out):
 
 def _encoder_grads_close(jmodel, port, x, tol):
     """Parameter and input gradients of the sum of squared outputs, fused
-    port vs fused JAX, from one JAX init: max-abs over max(|g|, 1) per
-    leaf (tests/test_pallas_encoder.py::_grad_compare's measure)."""
+    port vs fused JAX, from one JAX init (jitted: traced once, not run op
+    by op through the Pallas stage in interpret mode): max-abs over
+    max(|g|, 1) per leaf (tests/test_pallas_encoder.py::_grad_compare's
+    measure)."""
     xj = jnp.asarray(x)
-    variables = _numpy_tree(jmodel.init(jax.random.PRNGKey(0), xj))
+    variables = _numpy_tree(jax.jit(jmodel.init)(jax.random.PRNGKey(0), xj))
 
     def loss(params, xx):
         leaves = jax.tree_util.tree_leaves(jmodel.apply({**variables, "params": params}, xx))

@@ -193,14 +193,18 @@ def test_readers_match_jax_readers(tmp_path, rng):
 
 
 def test_jpeg_needs_pil_and_names_the_file(tmp_path, monkeypatch, rng):
-    """JPEG is read through PIL where it is installed, as the JAX reader
-    reads it; without PIL the read raises ImportError naming the file."""
+    """JPEG no longer needs PIL: with PIL unimportable the port reads what
+    the JAX reader reads through PIL, and a file it cannot decode raises a
+    ValueError naming the file (the decoder itself:
+    tests/test_torch_jpeg.py)."""
     path = tmp_path / "left.jpg"
     Image.fromarray(_smooth(rng)[1]).save(path)
-    assert np.array_equal(readers.read_image_rgb(str(path)), jreaders.read_image_rgb(str(path)))
+    want = jreaders.read_image_rgb(str(path))
+    (tmp_path / "cut.jpg").write_bytes(path.read_bytes()[:40])
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="left.jpg"):
-        readers.read_gen(str(path))
+    assert np.array_equal(readers.read_image_rgb(str(path)), want)
+    with pytest.raises(ValueError, match="cut.jpg"):
+        readers.read_gen(str(tmp_path / "cut.jpg"))
 
 
 # --- metrics ------------------------------------------------------------------------

@@ -167,7 +167,10 @@ def test_update_block_matches_jax():
 def jax_params():
     """One JAX init, in train mode: its tree also holds the heads the
     test-mode tree lacks (spx_4_*, spx_2, spx_0), which the reference
-    module and the port have. No parameter depends on max_disp.
+    module and the port have. No parameter depends on max_disp or on the
+    lookup, so the init runs the XLA lookup (``reg``): the same tree, value
+    for value, as with ``reg_cuda``, without tracing the Pallas lookup in
+    interpret mode.
 
     The disparity head's last conv is scaled by 0.05, so that an iteration
     moves the disparity by a few px, as a trained model's does. At the
@@ -177,8 +180,8 @@ def jax_params():
     1e-3 px bound."""
     rng = np.random.default_rng(4)
     x = jnp.asarray(rng.uniform(0, 255, (1, 32, 64, 3)).astype(np.float32))
-    model = JIGEVStereo(JConfig.from_dict({**PALLAS, **FP32, "max_disp": 32}), ITERS,
-                        test_mode=False)
+    model = JIGEVStereo(JConfig.from_dict({**PALLAS, **FP32, "max_disp": 32,
+                                           "corr_implementation": "reg"}), ITERS, test_mode=False)
     variables = _randomize_norms(_numpy_tree(jax.jit(model.init)(jax.random.PRNGKey(0), x, x)),
                                  rng)
     head = variables["params"]["step"]["update_block"]["disp_head"]["conv2"]

@@ -39,7 +39,7 @@ from dkt_stereo_tpu_torch.ops.cuda.geo_lookup import GeoLookup
 from dkt_stereo_tpu_torch.ops.geometry import geo_lookup_bwd_plain
 from dkt_stereo_tpu_torch.train.dkt_step import cascade_upsample2x
 from dkt_stereo_tpu_torch.weights import state_dict_from_flax
-from tests.test_torch_train import _check_step_against_jax
+from tests.test_torch_train import _check_step_against_jax, jit_vjp
 
 ROOT = Path(__file__).resolve().parents[1]
 TRAIN = json.loads((ROOT / "configs/igev_stereo/train.json").read_text())
@@ -117,9 +117,9 @@ def k4_case(request):
     g = rng.standard_normal((Bk, Hk, Wk, L * (C + 1) * 9)).astype(np.float32)
     jdt = jnp.dtype(request.param)
     jpyr = [jnp.asarray(v, jdt) for v in geo + cor]
-    _, vjp = jax.vjp(lambda *p: geo_lookup_pallas(p[:L], p[L:], jnp.asarray(disp),
-                                                  jnp.asarray(coords), 4, True), *jpyr)
-    grads = vjp(jnp.asarray(g))  # dgeo_0, dgeo_1, dcorr_0, dcorr_1
+    _, grads = jit_vjp(lambda *p: geo_lookup_pallas(p[:L], p[L:], jnp.asarray(disp),
+                                                    jnp.asarray(coords), 4, True), jpyr,
+                       jnp.asarray(g))  # dgeo_0, dgeo_1, dcorr_0, dcorr_1
     assert [d.dtype for d in grads] == [jdt] * 4
     want = [np.asarray(d.astype(jnp.float32)) for d in grads]
     tdt = getattr(torch, request.param)
@@ -186,9 +186,10 @@ def test_geo_lookup_bwd_plain_matches_pallas_vjp_past_the_kernels_former_caps(dt
     g = rng.standard_normal((Bk, Hk, Wk, L * (C + 1) * (2 * r + 1))).astype(np.float32)
     jdt = jnp.dtype(dtype)
     jpyr = [jnp.asarray(v, jdt) for v in geo + cor]
-    _, vjp = jax.vjp(lambda *p: geo_lookup_pallas(p[:L], p[L:], jnp.asarray(disp),
-                                                  jnp.asarray(coords), r, True), *jpyr)
-    want = [np.asarray(d.astype(jnp.float32)) for d in vjp(jnp.asarray(g))]
+    _, grads = jit_vjp(lambda *p: geo_lookup_pallas(p[:L], p[L:], jnp.asarray(disp),
+                                                    jnp.asarray(coords), r, True), jpyr,
+                       jnp.asarray(g))
+    want = [np.asarray(d.astype(jnp.float32)) for d in grads]
     tdt = getattr(torch, dtype)
     pyr = [_t(v).to(tdt) for v in geo + cor]
     meta = [(v.shape, v.dtype) for v in pyr]
@@ -217,10 +218,10 @@ def test_geo_lookup_nan_positions_match_pallas():
                              disp.shape).copy()
     coords.reshape(-1)[5] = np.nan
     g = rng.standard_normal((Bk, Hk, Wk, L * (C + 1) * 9)).astype(np.float32)
-    out, vjp = jax.vjp(lambda *p: geo_lookup_pallas(p[:L], p[L:], jnp.asarray(disp),
-                                                    jnp.asarray(coords), 4, True),
-                       *[jnp.asarray(v) for v in geo + cor])
-    want = [np.asarray(d) for d in vjp(jnp.asarray(g))]
+    out, grads = jit_vjp(lambda *p: geo_lookup_pallas(p[:L], p[L:], jnp.asarray(disp),
+                                                      jnp.asarray(coords), 4, True),
+                         [jnp.asarray(v) for v in geo + cor], jnp.asarray(g))
+    want = [np.asarray(d) for d in grads]
     got_out = k4.geo_lookup_plain([_t(v) for v in geo], [_t(v) for v in cor], _t(disp),
                                   _t(coords), 4).numpy()
     out = np.asarray(out)

@@ -6,6 +6,8 @@ norm statistics and three stages of 3x3 convs summed in another order),
 1e-5 for the update block (shallower, no statistics).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,8 +45,8 @@ def images():
 def fnet_jax(images):
     m = JBasicEncoder(256, "instance", 2, dtype=jnp.float32)
     x = jnp.asarray(images)
-    v = m.init(jax.random.PRNGKey(0), x)
-    return _numpy_tree(v), np.asarray(m.apply(v, x))
+    v = jax.jit(m.init)(jax.random.PRNGKey(0), x)
+    return _numpy_tree(v), np.asarray(jax.jit(m.apply)(v, x))
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -65,7 +67,7 @@ def test_multi_basic_encoder_batchnorm_matches_jax(images):
     dims = ((128, 128, 128), (128, 128, 128))
     m = JMultiBasicEncoder(dims, "batch", 2, 3, dtype=jnp.float32)
     x = jnp.asarray(images[:1])
-    v = _numpy_tree(m.init(jax.random.PRNGKey(1), x))
+    v = _numpy_tree(jax.jit(m.init)(jax.random.PRNGKey(1), x))
     rng = np.random.default_rng(1)
 
     def jitter(path, a):
@@ -77,7 +79,7 @@ def test_multi_basic_encoder_batchnorm_matches_jax(images):
         return a
 
     v = jax.tree_util.tree_map_with_path(jitter, v)
-    want = m.apply(v, x)
+    want = jax.jit(m.apply)(v, x)
     port = MultiBasicEncoder(dims, "batch", 2, 3).eval()
     port.load_state_dict(state_dict_from_flax(v), strict=True)
     with torch.no_grad():
@@ -102,8 +104,9 @@ def test_update_block_matches_jax(with_mask):
     jm = JUpdateBlock(3, 2, (128, 128, 128), jnp.float32)
     jargs = (tuple(map(jnp.asarray, net)), tuple(tuple(map(jnp.asarray, t)) for t in inp),
              jnp.asarray(corr), jnp.asarray(flow))
-    v = jm.init(jax.random.PRNGKey(2), *jargs)
-    jnet, jmask, jdelta = jm.apply(v, *jargs, mask_pred=None if with_mask else False)
+    v = jax.jit(jm.init)(jax.random.PRNGKey(2), *jargs)
+    jnet, jmask, jdelta = jax.jit(functools.partial(
+        jm.apply, mask_pred=None if with_mask else False))(v, *jargs)
 
     # the JAX tree nests the block under the model's scan step: re-root it
     sd = state_dict_from_flax({"params": {"step": {"update_block": _numpy_tree(v)["params"]}}})

@@ -168,7 +168,7 @@ def test_photometric_and_trinocular_loss_match_jax(rng):
         return jnerf.trinocular_loss(d, jnp.asarray(im0), jnp.asarray(im1), jnp.asarray(im2),
                                      jnp.asarray(1 - conf), jnp.asarray(valid))
 
-    jval, jgrad = jax.value_and_grad(jloss)(jnp.asarray(disp))
+    jval, jgrad = jax.jit(jax.value_and_grad(jloss))(jnp.asarray(disp))
     d = _t(disp).requires_grad_(True)
     val = nerf.trinocular_loss(d, _t(im0), _t(im1), _t(im2), _t(1 - conf), _t(valid))
     val.backward()
@@ -194,7 +194,7 @@ def test_ns_loss_matches_jax(rng, alpha_photometric):
                                              *map(jnp.asarray, ims), **kw)
         return loss, (metrics, m, ok)
 
-    (jl, (jm, jmask, jok)), jgrad = jax.value_and_grad(jfn, has_aux=True)(
+    (jl, (jm, jmask, jok)), jgrad = jax.jit(jax.value_and_grad(jfn, has_aux=True))(
         jnp.asarray(preds), jnp.asarray(target))
     p = _t(preds).requires_grad_(True)
     loss, metrics, mask, ok = nerf.ns_loss(p, _t(target), _t(conf), *map(_t, ims), **kw)

@@ -60,7 +60,7 @@ from dkt_stereo_tpu_torch.ops.cuda.row_sample import (
 from dkt_stereo_tpu_torch.train.dkt_step import cascade_upsample2x
 from dkt_stereo_tpu_torch.weights import state_dict_from_flax
 from tests.test_torch_pcv import _load, _mixture, _numpy_tree
-from tests.test_torch_train import _check_step_against_jax
+from tests.test_torch_train import _check_step_against_jax, jit_vjp
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = {n: json.loads((ROOT / f"configs/pcvnet/{n}.json").read_text()) for n in ("base", "fast")}
@@ -244,8 +244,8 @@ def test_row_sample_bwd_plain_at_five_levels_matches_jax(dtype):
         return jnp.concatenate([row_sample_pallas(v, p / cf**i, True)
                                 for i, v in enumerate(pyr)], axis=-1)
 
-    dl, dp = jax.vjp(pallas, tuple(jnp.asarray(v).astype(jdt) for v in jpyr),
-                     jnp.asarray(pos))[1](jnp.asarray(g))
+    _, (dl, dp) = jit_vjp(pallas, (tuple(jnp.asarray(v).astype(jdt) for v in jpyr),
+                                   jnp.asarray(pos)), jnp.asarray(g))
     want = [np.asarray(jnp.asarray(d, jnp.float32)) for d in (*dl, dp)]
     levels = [_t(v).to(tdt) for v in jpyr]
     dlevels, dpos = gaussian_row_sample_bwd_plain(levels, _t(pos), _t(g), cf)
@@ -372,7 +372,8 @@ def test_motion_encoder_gradients_match_jax(rng):
     def f(params, *xs):
         return jnp.sum(jm.apply({"params": params}, *xs) * proj)
 
-    jgrads = jax.grad(f, argnums=(0, 1, 2, 3, 4))(v["params"], *(jnp.asarray(a) for a in args))
+    jgrads = jax.jit(jax.grad(f, argnums=(0, 1, 2, 3, 4)))(v["params"],
+                                                          *(jnp.asarray(a) for a in args))
     port = _load(BasicMotionEncoderPCV(G, S, L), v, "step.FDM.encoder")
     targs = [_nchw(mu), _t(corr), _nchw(w), _nchw(sigma)]
     for t in targs:

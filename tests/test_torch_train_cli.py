@@ -424,7 +424,7 @@ def test_train_cli_refusals(runs, tmp_path, monkeypatch):
         json.dumps({"camera_settings": [{"intrinsic_settings": {"fx": 768.2}}]}))
     (ft / "filenames.txt").write_text("scene/0_left.jpg\n")
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="0_left.jpg"):
+    with pytest.raises(ValueError, match="0_left.jpg"):
         datasets.FallingThings(None, root=str(ft)).get_sample(0)
     monkeypatch.undo()
 
