@@ -89,7 +89,7 @@ from dkt_stereo_tpu_torch.train.checkpoint import (
 )
 from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state, make_dkt_train_step
 from dkt_stereo_tpu_torch.train.ns_step import make_ns_train_step
-from dkt_stereo_tpu_torch.train.profiling import TraceWindow
+from dkt_stereo_tpu_torch.train.profiling import TraceWindow, span
 from dkt_stereo_tpu_torch.train.state import DKTHyperParams, make_schedule
 from dkt_stereo_tpu_torch.utils.logging import Logger, save_images
 from dkt_stereo_tpu_torch.utils.visualization import disp_to_color
@@ -224,6 +224,13 @@ class StepTimes:
         if device.type == "cuda":
             out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
         return out
+
+
+def _epochs(loader):
+    """The loader's batches, epoch after epoch (each epoch a new iteration
+    of the loader, which counts its epochs)."""
+    while True:
+        yield from loader
 
 
 def _to_device(batch, dev):
@@ -387,37 +394,36 @@ def _train(args, config, dev) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     logging.info("training %s for %d steps on %s (rank %d of %d)", config["model"],
                  args.num_steps, dev, rank, size)
+    batches = _epochs(loader)
     try:
         while state.step <= args.num_steps:
-            batches = iter(loader)
-            while state.step <= args.num_steps:
-                t0 = time.perf_counter()
-                cpu_batch = next(batches, None)
-                if cpu_batch is None:
-                    break
+            t0 = time.perf_counter()
+            with window.step(state.step) if window else contextlib.nullcontext():
+                with span("train.loader_wait"):
+                    cpu_batch = next(batches)
                 t1 = time.perf_counter()
-                with window.step(state.step) if window else contextlib.nullcontext():
+                with span("train.to_device"):
                     batch = _to_device(cpu_batch, dev)
-                    state, metrics = step_fn(state, batch, generator=generator)
-                t2 = time.perf_counter()
-                total_steps = state.step
-                if lg is not None:
-                    _log_step(lg, metrics, cpu_batch, total_steps)
-                times.add(time.perf_counter() - t0, t1 - t0, t2 - t1)
-                if window is not None and total_steps >= window.last:
-                    window.close()  # the window is done: write its trace
+                state, metrics = step_fn(state, batch, generator=generator)
+            t2 = time.perf_counter()
+            total_steps = state.step
+            if lg is not None:
+                _log_step(lg, metrics, cpu_batch, total_steps)
+            times.add(time.perf_counter() - t0, t1 - t0, t2 - t1)
+            if window is not None and total_steps >= window.last:
+                window.close()  # the window is done: write its trace
 
-                if total_steps % args.validation_frequency == args.validation_frequency - 1:
-                    if rank == 0:
-                        path = save_checkpoint(save_dir, state, total_steps + 1)
-                        logging.info("saved %s", path)
-                        logging.info("timing %s", json.dumps(times.summary(dev)))
-                    _barrier(size)
-                    if rank == 0:
-                        results = _validate(args, config, state, dev, cache)
-                        logging.info("validation %s", json.dumps(results))
-                        lg.write_dict(results)
-                    _barrier(size)
+            if total_steps % args.validation_frequency == args.validation_frequency - 1:
+                if rank == 0:
+                    path = save_checkpoint(save_dir, state, total_steps + 1)
+                    logging.info("saved %s", path)
+                    logging.info("timing %s", json.dumps(times.summary(dev)))
+                _barrier(size)
+                if rank == 0:
+                    results = _validate(args, config, state, dev, cache)
+                    logging.info("validation %s", json.dumps(results))
+                    lg.write_dict(results)
+                _barrier(size)
         if rank == 0:
             final = save_checkpoint(save_dir, state)
         else:

@@ -32,6 +32,7 @@ from dkt_stereo_tpu_torch.data import readers
 from dkt_stereo_tpu_torch.data.datasets import ETH3D, KITTI, Booster, Middlebury, SceneFlowDatasets
 from dkt_stereo_tpu_torch.device import resolve_device
 from dkt_stereo_tpu_torch.ops.pad import pad_input, unpad_input
+from dkt_stereo_tpu_torch.train.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -40,13 +41,14 @@ def make_forward_fn(model: torch.nn.Module, device=None):
     """(img1, img2 NHWC in [0, 255], tensors or arrays) -> disp (B, H, W)
     fp32 on ``device`` (the GPU unless ``device="cpu"`` is passed). The
     model is moved there and put in eval mode; the forward runs under
-    ``torch.inference_mode()``. The callable's ``device`` attribute names
-    where its inputs should live."""
+    ``torch.inference_mode()``, in the span ``eval.forward`` (a frame's
+    unit). The callable's ``device`` attribute names where its inputs
+    should live."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
 
     def forward(img1, img2):
-        with torch.inference_mode():
+        with span("eval.forward"), torch.inference_mode():
             x1 = torch.as_tensor(img1, dtype=torch.float32, device=dev)
             x2 = torch.as_tensor(img2, dtype=torch.float32, device=dev)
             _, disp = model(x1, x2)

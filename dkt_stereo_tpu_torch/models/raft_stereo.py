@@ -77,6 +77,7 @@ from dkt_stereo_tpu_torch.ops.cuda.corr_lookup import corr_lookup
 from dkt_stereo_tpu_torch.ops.resize import interp_bilinear_align
 from dkt_stereo_tpu_torch.ops.sampler import coords_grid_x
 from dkt_stereo_tpu_torch.ops.upsample import convex_upsample
+from dkt_stereo_tpu_torch.train.profiling import span
 
 CORR_MODES = ("reg", "reg_cuda", "pallas", "cosine", "mix_fmap_image", "alt", "alt_cuda")
 BACKBONES = ("default", "interpolate")
@@ -194,36 +195,39 @@ class RAFTStereo(nn.Module):
         ``coords1.detach()``); the GRU state is not. ``fmap1`` is None for
         the volume modes. Returns ``(net, coords1, mask)``, or ``(net,
         coords1, disp_up)`` with ``upsample`` (train mode: each iteration's
-        convex-upsampled disparity)."""
-        cfg = self.cfg
-        dt = cfg.compute_dtype
-        n = cfg.n_gru_layers
-        coords1 = coords1.detach().contiguous()
-        corr = self._lookup(fmap1, pyramid, coords1)
-        flow_x = coords1 - coords0
-        flow2 = torch.cat([flow_x, torch.zeros_like(flow_x)], dim=-1).permute(0, 3, 1, 2)
-        with self._autocast(coords1.device):
-            if n == 3 and cfg.slow_fast_gru:
-                net = self.update_block(net, inp, iter32=True, iter16=False, iter08=False,
-                                        update=False)
-            if n >= 2 and cfg.slow_fast_gru:
-                net = self.update_block(net, inp, iter32=n == 3, iter16=True, iter08=False,
-                                        update=False)
-            net, mask, delta = self.update_block(
-                net, inp, corr, flow2.to(dt),
-                iter32=n == 3, iter16=n >= 2, with_mask=with_mask,
-            )
-        # stereo: only the x component of the delta survives
-        coords1 = coords1 + delta[:, 0:1].float().permute(0, 2, 3, 1)
-        # exact banded eval (the identity otherwise): refresh the carried
-        # state's halo rows every iteration, so that the GRUs' reach across
-        # a band's edge never accumulates over the loop
-        net = [band_refresh(h) for h in net]
-        coords1 = band_refresh(coords1, dim=1)
-        if upsample:
-            disp = (coords1 - coords0).permute(0, 3, 1, 2)
-            return net, coords1, convex_upsample(disp, mask.float(), 2**cfg.n_downsample)[:, 0]
-        return net, coords1, mask
+        convex-upsampled disparity). Its span, ``raft.iter``, is recorded
+        again by remat's recompute in the backward."""
+        with span("raft.iter"):
+            cfg = self.cfg
+            dt = cfg.compute_dtype
+            n = cfg.n_gru_layers
+            coords1 = coords1.detach().contiguous()
+            corr = self._lookup(fmap1, pyramid, coords1)
+            flow_x = coords1 - coords0
+            flow2 = torch.cat([flow_x, torch.zeros_like(flow_x)], dim=-1).permute(0, 3, 1, 2)
+            with self._autocast(coords1.device):
+                if n == 3 and cfg.slow_fast_gru:
+                    net = self.update_block(net, inp, iter32=True, iter16=False, iter08=False,
+                                            update=False)
+                if n >= 2 and cfg.slow_fast_gru:
+                    net = self.update_block(net, inp, iter32=n == 3, iter16=True, iter08=False,
+                                            update=False)
+                net, mask, delta = self.update_block(
+                    net, inp, corr, flow2.to(dt),
+                    iter32=n == 3, iter16=n >= 2, with_mask=with_mask,
+                )
+            # stereo: only the x component of the delta survives
+            coords1 = coords1 + delta[:, 0:1].float().permute(0, 2, 3, 1)
+            # exact banded eval (the identity otherwise): refresh the carried
+            # state's halo rows every iteration, so that the GRUs' reach across
+            # a band's edge never accumulates over the loop
+            net = [band_refresh(h) for h in net]
+            coords1 = band_refresh(coords1, dim=1)
+            if upsample:
+                disp = (coords1 - coords0).permute(0, 3, 1, 2)
+                disp_up = convex_upsample(disp, mask.float(), 2**cfg.n_downsample)[:, 0]
+                return net, coords1, disp_up
+            return net, coords1, mask
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 flow_init: Optional[torch.Tensor] = None, mix_weight=None,
@@ -243,59 +247,61 @@ class RAFTStereo(nn.Module):
         cfg = self.cfg
         dt = cfg.compute_dtype
         factor = 2**cfg.n_downsample
-        x1 = (2.0 * (image1 / 255.0) - 1.0).to(dt).permute(0, 3, 1, 2)
-        x2 = (2.0 * (image2 / 255.0) - 1.0).to(dt).permute(0, 3, 1, 2)
-        H, W = x1.shape[2:]
-        fine = (H // factor, W // factor)
+        with span("raft.encode"):
+            x1 = (2.0 * (image1 / 255.0) - 1.0).to(dt).permute(0, 3, 1, 2)
+            x2 = (2.0 * (image2 / 255.0) - 1.0).to(dt).permute(0, 3, 1, 2)
+            H, W = x1.shape[2:]
+            fine = (H // factor, W // factor)
 
-        with self._autocast(x1.device):
+            with self._autocast(x1.device):
+                if cfg.backbone_type == "interpolate":
+                    cnet_list = self.cnet(x1)
+                elif cfg.shared_backbone:
+                    *cnet_list, x = self.cnet(torch.cat([x1, x2], dim=0), dual_inp=True)
+                    fmap = self.conv2(x)
+                else:
+                    cnet_list = self.cnet(x1)
+                    fmap = self.fnet(torch.cat([x1, x2], dim=0))
+                net = [torch.tanh(o[0]) for o in cnet_list]
+                inp = [
+                    conv(torch.relu(o[1])).split(cfg.hidden_dims[i], dim=1)
+                    for i, (conv, o) in enumerate(zip(self.context_zqr_convs, cnet_list))
+                ]
             if cfg.backbone_type == "interpolate":
-                cnet_list = self.cnet(x1)
-            elif cfg.shared_backbone:
-                *cnet_list, x = self.cnet(torch.cat([x1, x2], dim=0), dual_inp=True)
-                fmap = self.conv2(x)
+                fmap = torch.cat([interp_bilinear_align(x, fine) for x in (x1, x2)], dim=0)
+
+        with span("raft.pyramid"):
+            corr_dt = cfg.corr_storage_dtype
+            fmap1, fmap2 = (f.to(corr_dt).permute(0, 2, 3, 1) for f in fmap.chunk(2, dim=0))
+            B, Hc, Wc, _ = fmap1.shape
+            coords0 = coords_grid_x(B, Hc, Wc, device=fmap1.device)
+            coords1 = coords0 if flow_init is None else coords0 + flow_init
+
+            mode = cfg.corr_implementation
+            if mode == "alt_cuda":
+                # no volume: the right features pooled and stored in the corr
+                # dtype, contiguous (B, H, W2, D) as K3 reads them
+                fmap1 = fmap1.contiguous()
+                pyramid = fmap_pyramid(fmap2.contiguous(), cfg.corr_levels)
+            elif mode == "alt":
+                # no volume: the right features pooled in fp32
+                pyramid = fmap_pyramid(fmap2.float(), cfg.corr_levels)
+            elif mode == "mix_fmap_image" and not self.test_mode:
+                # the image volume and the feature volume, both cosine, blended
+                # in fp32 by one weight a forward and then pooled
+                # (raft_stereo/corr.py:216-228)
+                vol_feat = corr_volume(fmap1, fmap2, normalize=True, out_dtype=corr_dt)
+                fi1, fi2 = (interp_bilinear_align(x.to(corr_dt), fine).permute(0, 2, 3, 1)
+                            for x in (x1, x2))
+                vol_img = corr_volume(fi1, fi2, normalize=True, out_dtype=corr_dt)
+                p = self._mix_weight(mix_weight, generator, vol_img.device)
+                pyramid = corr_pyramid(p * vol_img.float() + (1.0 - p) * vol_feat.float(),
+                                       cfg.corr_levels)
+                fmap1 = None
             else:
-                cnet_list = self.cnet(x1)
-                fmap = self.fnet(torch.cat([x1, x2], dim=0))
-            net = [torch.tanh(o[0]) for o in cnet_list]
-            inp = [
-                conv(torch.relu(o[1])).split(cfg.hidden_dims[i], dim=1)
-                for i, (conv, o) in enumerate(zip(self.context_zqr_convs, cnet_list))
-            ]
-        if cfg.backbone_type == "interpolate":
-            fmap = torch.cat([interp_bilinear_align(x, fine) for x in (x1, x2)], dim=0)
-
-        corr_dt = cfg.corr_storage_dtype
-        fmap1, fmap2 = (f.to(corr_dt).permute(0, 2, 3, 1) for f in fmap.chunk(2, dim=0))
-        B, Hc, Wc, _ = fmap1.shape
-        coords0 = coords_grid_x(B, Hc, Wc, device=fmap1.device)
-        coords1 = coords0 if flow_init is None else coords0 + flow_init
-
-        mode = cfg.corr_implementation
-        if mode == "alt_cuda":
-            # no volume: the right features pooled and stored in the corr
-            # dtype, contiguous (B, H, W2, D) as K3 reads them
-            fmap1 = fmap1.contiguous()
-            pyramid = fmap_pyramid(fmap2.contiguous(), cfg.corr_levels)
-        elif mode == "alt":
-            # no volume: the right features pooled in fp32
-            pyramid = fmap_pyramid(fmap2.float(), cfg.corr_levels)
-        elif mode == "mix_fmap_image" and not self.test_mode:
-            # the image volume and the feature volume, both cosine, blended
-            # in fp32 by one weight a forward and then pooled
-            # (raft_stereo/corr.py:216-228)
-            vol_feat = corr_volume(fmap1, fmap2, normalize=True, out_dtype=corr_dt)
-            fi1, fi2 = (interp_bilinear_align(x.to(corr_dt), fine).permute(0, 2, 3, 1)
-                        for x in (x1, x2))
-            vol_img = corr_volume(fi1, fi2, normalize=True, out_dtype=corr_dt)
-            p = self._mix_weight(mix_weight, generator, vol_img.device)
-            pyramid = corr_pyramid(p * vol_img.float() + (1.0 - p) * vol_feat.float(),
-                                   cfg.corr_levels)
-            fmap1 = None
-        else:
-            pyramid = corr_pyramid_fused(fmap1, fmap2, cfg.corr_levels, out_dtype=corr_dt,
-                                         normalize=mode in ("cosine", "mix_fmap_image"))
-            fmap1 = None
+                pyramid = corr_pyramid_fused(fmap1, fmap2, cfg.corr_levels, out_dtype=corr_dt,
+                                             normalize=mode in ("cosine", "mix_fmap_image"))
+                fmap1 = None
 
         if not self.test_mode:
             preds = []
@@ -313,6 +319,7 @@ class RAFTStereo(nn.Module):
             net, coords1, mask = self._iteration(
                 net, inp, fmap1, pyramid, coords0, coords1, itr == self.iters - 1, False
             )
-        disp = coords1 - coords0
-        disp_up = convex_upsample(disp.permute(0, 3, 1, 2), mask.float(), factor)[:, 0]
+        with span("raft.upsample"):
+            disp = coords1 - coords0
+            disp_up = convex_upsample(disp.permute(0, 3, 1, 2), mask.float(), factor)[:, 0]
         return disp, disp_up

@@ -11,6 +11,8 @@ not a loss of this interface: it takes the trinocular batch, and
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from dkt_stereo_tpu_torch.device import resolve_device
@@ -89,13 +91,21 @@ def create_model(config: dict, iters: int = 32, device=None, seed: int | None = 
     """Build the model a config dict names on ``device`` (the GPU unless
     ``device="cpu"`` is passed): in eval mode for ``test_mode``, else in
     train mode. ``seed`` draws random weights from a ``torch.Generator``;
-    otherwise they are left to be loaded (``weights.load_reference_pth``)."""
+    otherwise they are left to be loaded (``weights.load_reference_pth``).
+    ``create_model.seconds`` sums the host seconds of every call: the
+    construction with PyTorch's default init, the seeded init, the move."""
+    t0 = time.perf_counter()
     dev = resolve_device(device)
     model_cls, cfg_cls = get_model(config["model"])
     model = model_cls(cfg_cls.from_dict(config), iters=iters, test_mode=test_mode)
     if seed is not None:
         init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(dev).train(not test_mode)
+    model = model.to(dev).train(not test_mode)
+    create_model.seconds += time.perf_counter() - t0
+    return model
+
+
+create_model.seconds = 0.0
 
 
 def make_loss_adapter(name: str, cfg: dict | None = None, loss_func: str | None = None):

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -84,13 +85,20 @@ def ptxas_path(library: Path) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    ``load.seconds`` sums the host seconds of the process's first loads (the
+    nvcc build where the library is missing, and the ``dlopen``)."""
     lib = _loaded.get(name)
     if lib is None:
+        t0 = time.perf_counter()
         (path,) = build([name])
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
+        load.seconds += time.perf_counter() - t0
     return lib
+
+
+load.seconds = 0.0
 
 
 def check_launch(err: int, name: str) -> None:

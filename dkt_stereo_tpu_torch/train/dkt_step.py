@@ -40,6 +40,7 @@ from dkt_stereo_tpu_torch.dkt.fande import fande_ensemble, fande_filter
 from dkt_stereo_tpu_torch.models.registry import create_model, get_model, make_loss_adapter
 from dkt_stereo_tpu_torch.nn.precision import vmapped
 from dkt_stereo_tpu_torch.parallel.mesh import rank_and_size, reduce_step
+from dkt_stereo_tpu_torch.train.profiling import span
 from dkt_stereo_tpu_torch.train.state import (
     DKTHyperParams,
     DKTTrainState,
@@ -164,7 +165,15 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
     events. ``metrics`` are Python floats: loss, loss_GT, loss_PL, the loss's own
     metrics (epe, 1px, 3px, 5px; IGEV's also init_epe; PCVNet's also bad1,
     bad2, bad5 and the seven ``*_final`` ones), ema_divergence,
-    teacher_divergence, ok, learning_rate."""
+    teacher_divergence, ok, learning_rate.
+
+    Spans (``train/profiling.py::span``): the step is the root ``dkt.step``,
+    its unit keyed by ``state.step``; its parts are ``dkt.ema``,
+    ``dkt.teachers``, ``dkt.fande``, ``dkt.student`` (zero_grad, the
+    forwards, the losses, the backward), ``dkt.reduce`` (``reduce_step``: on
+    one device the host's wait for ``ok``), ``dkt.update`` (clip and AdamW,
+    or the skip), ``dkt.divergence`` and ``dkt.read`` (the metrics' copy to
+    the host)."""
     if config.get("train_bn"):
         raise NotImplementedError(
             "train_bn in the DKT step: the JAX step applies the student without mutable batch "
@@ -175,7 +184,10 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
     teachers = batched_teachers(config, hyper) if hyper.batched_teachers else None
 
     def step_fn(state: DKTTrainState, batch: dict, generator=None, draws=None, mark=None):
-        mark = mark or (lambda name: None)
+        with span("dkt.step", unit=state.step):
+            return run(state, batch, generator, draws, mark or (lambda name: None))
+
+    def run(state, batch, generator, draws, mark):
         student, optimizer = state.student, state.optimizer
         img1, img2 = batch["img1"], batch["img2"]
         if draws is None:
@@ -186,11 +198,12 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
             draws["filter_gt"] = draws["filter_gt"][rank * B:(rank + 1) * B]
 
         # 1. EMA update, before the forwards (ft_dkt.py:179)
-        ema_update(state.ema, student, hyper.ema_decay)
+        with span("dkt.ema"):
+            ema_update(state.ema, student, hyper.ema_decay)
         mark("ema")
 
         # 2. pseudo-labels of the frozen and the EMA teacher on the clean pair
-        with torch.no_grad():
+        with span("dkt.teachers"), torch.no_grad():
             if teachers is not None:
                 disp_pl, disp_ema = teachers(state.teacher, state.ema, batch["img1_clean"],
                                              batch["img2_clean"])
@@ -200,61 +213,68 @@ def make_dkt_train_step(config: dict, hyper: DKTHyperParams):
         mark("teachers")
 
         # 3. F&E
-        gt_aug, valid_gt_aug = fande_filter(batch["flow"], disp_ema, batch["valid"],
-                                            u=draws["filter_gt"], withprob=True,
-                                            threshold=hyper.tau_gt)
-        gt_aug = fande_ensemble(gt_aug, disp_ema, valid_gt_aug, prob=draws["ensemble_gt"],
-                                clamp=hyper.clamp, threshold=hyper.tau_gt)
-        pl_aug, valid_pl_aug = fande_filter(disp_pl, disp_ema, torch.ones_like(disp_pl),
-                                            withprob=False, threshold=hyper.tau_pl)
-        pl_aug = fande_ensemble(pl_aug, disp_ema, valid_pl_aug, prob=draws["ensemble_pl"],
-                                clamp=False, threshold=hyper.tau_pl)
+        with span("dkt.fande"):
+            gt_aug, valid_gt_aug = fande_filter(batch["flow"], disp_ema, batch["valid"],
+                                                u=draws["filter_gt"], withprob=True,
+                                                threshold=hyper.tau_gt)
+            gt_aug = fande_ensemble(gt_aug, disp_ema, valid_gt_aug, prob=draws["ensemble_gt"],
+                                    clamp=hyper.clamp, threshold=hyper.tau_gt)
+            pl_aug, valid_pl_aug = fande_filter(disp_pl, disp_ema, torch.ones_like(disp_pl),
+                                                withprob=False, threshold=hyper.tau_pl)
+            pl_aug = fande_ensemble(pl_aug, disp_ema, valid_pl_aug, prob=draws["ensemble_pl"],
+                                    clamp=False, threshold=hyper.tau_pl)
         mark("fande")
 
         # 4. student forward, combined loss, backward
-        optimizer.zero_grad(set_to_none=True)
-        flow_init = None
-        loss_dw2_gt = loss_dw2_pl = 0.0
-        ok_dw2 = True
-        if hyper.cascade_train:
-            # half-resolution pre-pass (ft_dkt.py:213-219): its last
-            # prediction, at the 1/4 grid of the full-resolution pass,
-            # starts that pass; its x2-upsampled outputs add 0.5-weighted
-            # losses (see the JAX step for why the reference's own cascade
-            # code cannot run)
-            out_h = student(img1[:, ::2, ::2], img2[:, ::2, ::2], mix_weight=draws.get("mix_h"))
-            flow_init = (out_h["disp_preds"][-1][:, ::2, ::2] / 2.0).detach()[..., None]
-            out_h_up = cascade_upsample2x(out_h)
-            loss_dw2_gt, _, _, ok_dg = loss_adapter(out_h_up, gt_aug, valid_gt_aug)
-            loss_dw2_pl, _, _, ok_dp = loss_adapter(out_h_up, pl_aug, valid_pl_aug)
-            ok_dw2 = ok_dg & ok_dp
-        out = student(img1, img2, flow_init, mix_weight=draws.get("mix"))
-        loss_gt, metrics, _, ok_gt = loss_adapter(out, gt_aug, valid_gt_aug)
-        loss_pl, _, _, ok_pl = loss_adapter(out, pl_aug, valid_pl_aug)
-        loss_gt = loss_gt + 0.5 * loss_dw2_gt  # (:229-233)
-        loss_pl = loss_pl + 0.5 * loss_dw2_pl
-        loss = loss_gt + hyper.pl_weight * loss_pl
-        ok = ok_gt & ok_pl & ok_dw2
-        loss.backward()
+        with span("dkt.student"):
+            optimizer.zero_grad(set_to_none=True)
+            flow_init = None
+            loss_dw2_gt = loss_dw2_pl = 0.0
+            ok_dw2 = True
+            if hyper.cascade_train:
+                # half-resolution pre-pass (ft_dkt.py:213-219): its last
+                # prediction, at the 1/4 grid of the full-resolution pass,
+                # starts that pass; its x2-upsampled outputs add 0.5-weighted
+                # losses (see the JAX step for why the reference's own cascade
+                # code cannot run)
+                out_h = student(img1[:, ::2, ::2], img2[:, ::2, ::2],
+                                mix_weight=draws.get("mix_h"))
+                flow_init = (out_h["disp_preds"][-1][:, ::2, ::2] / 2.0).detach()[..., None]
+                out_h_up = cascade_upsample2x(out_h)
+                loss_dw2_gt, _, _, ok_dg = loss_adapter(out_h_up, gt_aug, valid_gt_aug)
+                loss_dw2_pl, _, _, ok_dp = loss_adapter(out_h_up, pl_aug, valid_pl_aug)
+                ok_dw2 = ok_dg & ok_dp
+            out = student(img1, img2, flow_init, mix_weight=draws.get("mix"))
+            loss_gt, metrics, _, ok_gt = loss_adapter(out, gt_aug, valid_gt_aug)
+            loss_pl, _, _, ok_pl = loss_adapter(out, pl_aug, valid_pl_aug)
+            loss_gt = loss_gt + 0.5 * loss_dw2_gt  # (:229-233)
+            loss_pl = loss_pl + 0.5 * loss_dw2_pl
+            loss = loss_gt + hyper.pl_weight * loss_pl
+            ok = ok_gt & ok_pl & ok_dw2
+            loss.backward()
         mark("student")
 
         # 5. over the ranks (with a process group): the gradients and the
         # loss values summed, ok agreed; then clip + AdamW, only when ok;
         # the logged rate is the applied one
-        values = {**metrics, "loss": loss.detach(), "loss_GT": loss_gt.detach(),
-                  "loss_PL": loss_pl.detach()}
-        applied, values = reduce_step(student_params(optimizer), ok, values)
-        lr = schedule(applied_step_count(optimizer))
-        if applied:
-            apply_update_(optimizer, lr)
-        else:
-            optimizer.zero_grad(set_to_none=True)
+        with span("dkt.reduce"):
+            values = {**metrics, "loss": loss.detach(), "loss_GT": loss_gt.detach(),
+                      "loss_PL": loss_pl.detach()}
+            applied, values = reduce_step(student_params(optimizer), ok, values)
+        with span("dkt.update"):
+            lr = schedule(applied_step_count(optimizer))
+            if applied:
+                apply_update_(optimizer, lr)
+            else:
+                optimizer.zero_grad(set_to_none=True)
         mark("optimizer")
 
         with torch.no_grad():
-            values["ema_divergence"] = _l2_dist(student, state.ema)
-            values["teacher_divergence"] = _l2_dist(student, state.teacher)
-            numbers = torch.stack([v.float() for v in values.values()]).tolist()
+            with span("dkt.divergence"):
+                values["ema_divergence"] = _l2_dist(student, state.ema)
+                values["teacher_divergence"] = _l2_dist(student, state.teacher)
+            with span("dkt.read"):
+                numbers = torch.stack([v.float() for v in values.values()]).tolist()
         metrics = dict(zip(values, numbers), ok=float(applied), learning_rate=lr)
         state.step += 1
         return state, metrics

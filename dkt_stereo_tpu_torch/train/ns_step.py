@@ -30,6 +30,7 @@ from dkt_stereo_tpu_torch.dkt.ema import ema_update
 from dkt_stereo_tpu_torch.losses.nerf import ns_loss
 from dkt_stereo_tpu_torch.losses.sequence import sequence_loss_raft
 from dkt_stereo_tpu_torch.parallel.mesh import rank_and_size, reduce_step
+from dkt_stereo_tpu_torch.train.profiling import span
 from dkt_stereo_tpu_torch.train.state import (
     DKTHyperParams,
     DKTTrainState,
@@ -61,7 +62,10 @@ def make_ns_train_step(config: dict, hyper: DKTHyperParams, nb: int, nt: int,
     U(0, 1) draw a step from ``generator`` (the same on every rank), or from
     the global generator without one.
     ``mark(name)``, when given, is called as each part has been issued
-    ("ema", "forward", "loss", "backward", "optimizer"). ``metrics`` are
+    ("ema", "forward", "loss", "backward", "optimizer"); each part is also the
+    span ``ns.<part>`` in the root span ``ns.step`` (unit keyed by
+    ``state.step``; ``train/profiling.py::span``), and ``ns.read`` the
+    metrics' copy to the host. ``metrics`` are
     Python floats: ``bi_*`` (the binocular loss's epe, 1px, 3px, 5px),
     epe, 1px, 3px, 5px (the trinocular ones when nt > 0), ns_loss, loss,
     ok, learning_rate."""
@@ -80,51 +84,59 @@ def make_ns_train_step(config: dict, hyper: DKTHyperParams, nb: int, nt: int,
     schedule = make_schedule(hyper)
 
     def step_fn(state: DKTTrainState, batch: dict, generator=None, mix_weight=None, mark=None):
-        mark = mark or (lambda name: None)
+        with span("ns.step", unit=state.step):
+            return run(state, batch, generator, mix_weight, mark or (lambda name: None))
+
+    def run(state, batch, generator, mix_weight, mark):
         student, optimizer = state.student, state.optimizer
 
-        ema_update(state.ema, student, hyper.ema_decay)
+        with span("ns.ema"):
+            ema_update(state.ema, student, hyper.ema_decay)
         mark("ema")
 
-        optimizer.zero_grad(set_to_none=True)
-        if mix_weight is None:
-            src = generator.device if generator is not None else batch["im1_forward"].device
-            mix_weight = torch.rand((), generator=generator, device=src)
-        preds = student(batch["im1_forward"], batch["im2_forward"],
-                        mix_weight=mix_weight)["disp_preds"]
+        with span("ns.forward"):
+            optimizer.zero_grad(set_to_none=True)
+            if mix_weight is None:
+                src = generator.device if generator is not None else batch["im1_forward"].device
+                mix_weight = torch.rand((), generator=generator, device=src)
+            preds = student(batch["im1_forward"], batch["im2_forward"],
+                            mix_weight=mix_weight)["disp_preds"]
         mark("forward")
-        loss = torch.zeros((), device=preds.device)
-        ok = torch.ones((), dtype=torch.bool, device=preds.device)
-        values = {}
-        if nb:
-            loss_bi, m_bi, _, ok_bi = sequence_loss_raft(preds[:, :nb], batch["bi"]["flow"],
-                                                         batch["bi"]["valid"])
-            loss, ok = loss + loss_bi, ok & ok_bi
-            values.update({f"bi_{k}": v for k, v in m_bi.items()})
-            values.update(m_bi)  # the trinocular metrics replace these when nt > 0
-        if nt:
-            tri = batch["tri"]
-            loss_tri, m_tri, _, ok_tri = ns_loss(
-                preds[:, nb:], tri["flow"], tri["conf"], tri["im0"], tri["im1"], tri["im2"],
-                alpha_photometric=alpha_photometric, conf_threshold=conf_threshold,
-                max_flow=disp_threshold)
-            loss, ok = loss + loss_tri, ok & ok_tri
-            values.update(m_tri)
-            values["ns_loss"] = loss_tri
+        with span("ns.loss"):
+            loss = torch.zeros((), device=preds.device)
+            ok = torch.ones((), dtype=torch.bool, device=preds.device)
+            values = {}
+            if nb:
+                loss_bi, m_bi, _, ok_bi = sequence_loss_raft(preds[:, :nb], batch["bi"]["flow"],
+                                                             batch["bi"]["valid"])
+                loss, ok = loss + loss_bi, ok & ok_bi
+                values.update({f"bi_{k}": v for k, v in m_bi.items()})
+                values.update(m_bi)  # the trinocular metrics replace these when nt > 0
+            if nt:
+                tri = batch["tri"]
+                loss_tri, m_tri, _, ok_tri = ns_loss(
+                    preds[:, nb:], tri["flow"], tri["conf"], tri["im0"], tri["im1"], tri["im2"],
+                    alpha_photometric=alpha_photometric, conf_threshold=conf_threshold,
+                    max_flow=disp_threshold)
+                loss, ok = loss + loss_tri, ok & ok_tri
+                values.update(m_tri)
+                values["ns_loss"] = loss_tri
         mark("loss")
-        loss.backward()
+        with span("ns.backward"):
+            loss.backward()
         mark("backward")
 
-        values["loss"] = loss
-        applied, values = reduce_step(student_params(optimizer), ok, values)
-        lr = schedule(applied_step_count(optimizer))
-        if applied:
-            apply_update_(optimizer, lr)
-        else:
-            optimizer.zero_grad(set_to_none=True)
+        with span("ns.optimizer"):
+            values["loss"] = loss
+            applied, values = reduce_step(student_params(optimizer), ok, values)
+            lr = schedule(applied_step_count(optimizer))
+            if applied:
+                apply_update_(optimizer, lr)
+            else:
+                optimizer.zero_grad(set_to_none=True)
         mark("optimizer")
 
-        with torch.no_grad():
+        with span("ns.read"), torch.no_grad():
             numbers = torch.stack([v.detach().float() for v in values.values()]).tolist()
         metrics = dict(zip(values, numbers), ok=float(applied), learning_rate=lr)
         state.step += 1

@@ -1,31 +1,119 @@
-"""Tracing and step timing (``dkt_stereo_tpu/train/profiling.py``) on
-``torch.profiler``.
+"""Tracing (``dkt_stereo_tpu/train/profiling.py``) on ``torch.profiler``.
 
-  - :func:`trace` traces its block: host operations, and the device's
-    kernels when the device is CUDA.
+  - :func:`span` marks a stage of the program (a frame's forward, a RAFT
+    iteration, a part of the DKT step). With no profiler running it costs
+    one flag read and records nothing; while one runs, the span is a
+    ``record_function`` range in the profiler's trace and is kept in
+    memory, with its parent and its unit, for :func:`take_spans`.
   - :class:`TraceWindow` traces a window of training steps, each step a
     ``ProfilerStep#<step>`` range named by its global step, as
     ``cli/train.py --profile_dir`` takes it.
-  - :class:`StepTimer` is the JAX class: steps per second with the first
-    ``warmup`` samples left out (the reference's FPS protocol,
-    tools/evaluate_stereo.py:128-133).
 
 A trace is written as Chrome trace JSON, ``<host>_<pid>.<ms>.pt.trace.json``
 in the given directory: the name and format TensorBoard's profiler plugin
 reads, and what ``chrome://tracing`` or Perfetto open without it. JAX's
 ``start_server`` (a live endpoint for TensorBoard to attach to) has no
-PyTorch counterpart and is not ported.
+PyTorch counterpart and is not ported; nor are its ``trace`` and
+``StepTimer``, which no path of the port uses.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import socket
 import time
+from typing import NamedTuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
+
+
+class Span(NamedTuple):
+    """A finished span: its name, its start and end on
+    ``time.perf_counter_ns``'s clock, its id, its parent's id (None for a
+    root) and its unit, ``"<root's name>#<key>"``: the key a root was given
+    (a DKT step's number), else the root's own id. Spans of one frame or
+    one step share the unit."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int | None
+    unit: str
+
+
+class _Recorder:
+    """The spans finished while a profiler ran (``done``) and those open now,
+    innermost last (``open``). One stack serves every thread: the autograd
+    engine runs a backward (remat's recomputed iterations) on its device
+    thread while the caller waits inside its own span."""
+
+    def __init__(self):
+        self.done: list[Span] = []
+        self.open: list[_Recording] = []
+        self.ids = itertools.count(1)
+
+
+_RECORDER = _Recorder()
+_OFF = contextlib.nullcontext()  # the one no-op that every span returns while no profiler runs
+
+
+class _Recording:
+    """One span while a profiler runs: a ``record_function`` range on the
+    profiler's clock, kept in memory as a :class:`Span` when it ends."""
+
+    __slots__ = ("name", "key", "range", "id", "parent", "unit", "start")
+
+    def __init__(self, name: str, key):
+        self.name, self.key = name, key
+
+    def __enter__(self):
+        self.range = record_function(self.name)
+        self.range.__enter__()
+        rec = _RECORDER
+        self.id = next(rec.ids)
+        outer = rec.open[-1] if rec.open else None
+        if outer is None:
+            self.parent = None
+            self.unit = f"{self.name}#{self.id if self.key is None else self.key}"
+        else:
+            self.parent, self.unit = outer.id, outer.unit
+        rec.open.append(self)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        rec = _RECORDER
+        rec.open.remove(self)
+        rec.done.append(Span(self.name, self.start, end, self.id, self.parent, self.unit))
+        self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str, unit=None):
+    """A stage of the program, as a context manager: ``with span("raft.iter"):``.
+    While no ``torch.profiler`` session runs, one read of PyTorch's flag
+    and the shared no-op: nothing is entered, allocated or kept. While one
+    runs, a ``record_function(name)`` range and a :class:`Span` for
+    :func:`take_spans`. A span opened inside another is its child and
+    shares its unit; a root span opens a unit, keyed by ``unit`` when given
+    (a DKT step's number) and else by its own id."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Recording(name, unit)
+
+
+def take_spans() -> list[Span]:
+    """The spans finished while a profiler ran, since the last call or the
+    opening of a :class:`TraceWindow`, in the order they ended; the buffer
+    is emptied."""
+    out, _RECORDER.done = _RECORDER.done, []
+    return out
 
 
 def _activities(device) -> list:
@@ -42,19 +130,6 @@ def _export(prof, logdir) -> str:
     path = os.path.join(logdir, name)
     prof.export_chrome_trace(path)
     return path
-
-
-@contextlib.contextmanager
-def trace(logdir: str, device="cuda"):
-    """Trace the block into ``logdir``; the device's kernels too when
-    ``device`` is CUDA (the device is synchronized before the trace
-    stops). Yields the profiler."""
-    dev = torch.device(device)
-    with profile(activities=_activities(dev)) as prof:
-        yield prof
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    _export(prof, logdir)
 
 
 class TraceWindow:
@@ -80,6 +155,7 @@ class TraceWindow:
     @contextlib.contextmanager
     def step(self, step: int):
         if self._prof is None and step == self.first and self.path is None:
+            take_spans()  # the window's spans alone, whatever an earlier profiler left
             self._prof = profile(activities=_activities(self.device))
             self._prof.start()
         if self._prof is None or step >= self.last:
@@ -97,28 +173,3 @@ class TraceWindow:
         prof, self._prof = self._prof, None
         prof.stop()
         self.path = _export(prof, self.logdir)
-
-
-class StepTimer:
-    """Running steps/s with the first ``warmup`` samples excluded."""
-
-    def __init__(self, warmup: int = 50):
-        self.warmup = warmup
-        self.count = 0
-        self.total = 0.0
-        self._t0 = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self.count += 1
-        if self.count > self.warmup:
-            self.total += dt
-
-    @property
-    def steps_per_sec(self) -> float:
-        n = self.count - self.warmup
-        return n / self.total if n > 0 and self.total > 0 else float("nan")

@@ -1,20 +1,15 @@
-"""The port's profiler (``train/profiling.py``) on the CPU: ``StepTimer``
-against the JAX package's, ``trace``, and ``cli.train --profile_dir``'s
-window of steps counted from a resumed step; ``--profile_port`` refused by
-design."""
+"""The port's profiler (``train/profiling.py``) on the CPU: ``cli.train
+--profile_dir``'s window of steps counted from a resumed step, with the
+program's spans inside each step; ``--profile_port`` refused by design."""
 
 import json
-import time
 from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
-from dkt_stereo_tpu.train import profiling as jprofiling
 from dkt_stereo_tpu_torch.cli import train as train_cli
 from dkt_stereo_tpu_torch.data import png
-from dkt_stereo_tpu_torch.train import profiling
 from dkt_stereo_tpu_torch.train.checkpoint import save_checkpoint
 from dkt_stereo_tpu_torch.train.dkt_step import create_dkt_state
 from dkt_stereo_tpu_torch.train.state import DKTHyperParams
@@ -24,41 +19,24 @@ ROOT = Path(__file__).resolve().parents[1]
 TRAIN_JSON = ROOT / "configs/raft_stereo/train.json"
 
 
-def _steps(trace_path) -> list:
-    """The ``ProfilerStep#N`` ranges of a Chrome trace (host annotations,
-    not their copies on a device's timeline), in order."""
+def _host_ranges(trace_path) -> list:
+    """The host ranges of a Chrome trace (not their copies on a device's
+    timeline): ``(name, start, end)`` in microseconds."""
     events = json.loads(Path(trace_path).read_text())["traceEvents"]
-    return sorted(e["name"] for e in events if str(e.get("name", "")).startswith(
-        "ProfilerStep#") and not str(e.get("cat", "")).startswith("gpu_"))
+    return [(e["name"], e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+            if e.get("ph") == "X" and not str(e.get("cat", "")).startswith("gpu_")]
 
 
-@pytest.mark.parametrize("warmup", [0, 1, 3])
-def test_step_timer_matches_jax(monkeypatch, warmup):
-    """The same sequence of steps (a clock advanced by 0.01-0.05 s a step):
-    the same count and the same steps/s, the first ``warmup`` left out
-    (NaN while no step is counted)."""
-    now = [0.0]
-    monkeypatch.setattr(time, "perf_counter", lambda: now[0])
-    timers = (profiling.StepTimer(warmup), jprofiling.StepTimer(warmup))
-    for dt in (0.05, 0.01, 0.02, 0.03, 0.04):
-        for timer in timers:
-            with timer:
-                now[0] += dt
-    ours, theirs = timers
-    assert ours.count == theirs.count == 5
-    assert ours.steps_per_sec == pytest.approx(theirs.steps_per_sec, rel=1e-12)
-    empty = (profiling.StepTimer(warmup + 5), jprofiling.StepTimer(warmup + 5))
-    assert all(np.isnan(t.steps_per_sec) for t in empty)
+def _steps(trace_path) -> list:
+    """The ``ProfilerStep#N`` ranges of a Chrome trace, in order."""
+    return sorted(n for n, _, _ in _host_ranges(trace_path) if n.startswith("ProfilerStep#"))
 
 
-def test_trace_writes_a_chrome_trace(tmp_path):
-    """``trace(logdir, "cpu")`` writes one ``*.pt.trace.json`` file whose
-    events include the traced block's operators."""
-    with profiling.trace(str(tmp_path), "cpu"):
-        torch.ones(64, 64).matmul(torch.ones(64, 64))
-    (path,) = tmp_path.glob("*.pt.trace.json")
-    names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
-    assert "aten::matmul" in names or "aten::mm" in names
+def _inside(trace_path, step, name) -> int:
+    """How many ranges ``name`` lie inside the range ``step``."""
+    ranges = _host_ranges(trace_path)
+    ((_, s0, e0),) = [r for r in ranges if r[0] == step]
+    return sum(n == name and s0 <= s <= e <= e0 for n, s, e in ranges)
 
 
 def _make_booster(root, rng, scenes=2, H=80, W=144):
@@ -91,9 +69,10 @@ def test_train_cli_traces_a_window_from_the_resumed_step(resumed, monkeypatch, s
     """``cli.train --profile_dir`` resumed at step 3 and run to step 5
     (steps 3, 4, 5): ``--profile_start`` counts from the resumed step, so
     the window [4, 6) holds exactly ``--profile_steps`` = 2 steps, named by
-    their global steps; a window that runs past the run's end is written
-    at the end with the steps it holds; one that starts after the end
-    writes nothing."""
+    their global steps, each holding the program's spans of the loader's
+    wait, the copy to the device and the DKT step; a window that runs past
+    the run's end is written at the end with the steps it holds; one that
+    starts after the end writes nothing."""
     tmp, data, ckpt = resumed
     monkeypatch.setattr(port_logging, "make_writer", port_logging._JsonlWriter)
     logdir = tmp / f"trace_{start}_{steps}"
@@ -111,6 +90,9 @@ def test_train_cli_traces_a_window_from_the_resumed_step(resumed, monkeypatch, s
     assert Path(out["trace"]).parent == logdir and Path(out["trace"]).name.endswith(
         ".pt.trace.json")
     assert _steps(out["trace"]) == want
+    for step in want:
+        for name in ("train.loader_wait", "train.to_device", "dkt.step"):
+            assert _inside(out["trace"], step, name) == 1, (step, name)
 
 
 def test_profile_port_is_refused_by_design(resumed):
