@@ -67,7 +67,8 @@ from torch.utils.checkpoint import checkpoint
 
 from dkt_stereo_tpu_torch.nn.blocks import BasicEncoder, MultiBasicEncoder, ResidualBlock
 from dkt_stereo_tpu_torch.nn.gru import BasicMultiUpdateBlock
-from dkt_stereo_tpu_torch.nn.norms import band_refresh
+from dkt_stereo_tpu_torch.models.graphs import GraphCache
+from dkt_stereo_tpu_torch.nn.norms import band_refresh, banded
 from dkt_stereo_tpu_torch.nn.precision import autocast
 from dkt_stereo_tpu_torch.ops.corr import corr_lookup_alt as corr_lookup_alt_plain
 from dkt_stereo_tpu_torch.ops.corr import (
@@ -79,6 +80,8 @@ from dkt_stereo_tpu_torch.ops.sampler import coords_grid_x
 from dkt_stereo_tpu_torch.ops.upsample import convex_upsample
 from dkt_stereo_tpu_torch.train.profiling import span
 
+# the kernel launch counters that the refinement may raise
+_COUNTERS = (corr_lookup, corr_lookup_alt)
 CORR_MODES = ("reg", "reg_cuda", "pallas", "cosine", "mix_fmap_image", "alt", "alt_cuda")
 BACKBONES = ("default", "interpolate")
 
@@ -143,6 +146,7 @@ class RAFTStereo(nn.Module):
         if iters < 1:
             raise ValueError(f"iters must be at least 1, got {iters}")
         self.cfg, self.iters, self.test_mode = cfg, iters, test_mode
+        self._graphs = GraphCache()
         hd = tuple(cfg.hidden_dims)
         self.cnet = MultiBasicEncoder(
             output_dim=(hd, hd), norm_fn=cfg.context_norm, downsample=cfg.n_downsample,
@@ -229,6 +233,17 @@ class RAFTStereo(nn.Module):
                 return net, coords1, disp_up
             return net, coords1, mask
 
+    def _graphable(self, x: torch.Tensor, flow_init) -> bool:
+        """Whether a test-mode forward may replay the refinement from a CUDA
+        graph (``models/graphs.py``): no ``flow_init``, no gradients, no
+        ``torch.func`` transform (the batched teachers' vmap), no banded
+        evaluation, no autocast region around the call, and no capture
+        already under way."""
+        return (flow_init is None and not torch.is_grad_enabled() and not banded()
+                and torch._C._functorch.peek_interpreter_stack() is None
+                and not torch.is_autocast_enabled(x.device.type)
+                and not (x.is_cuda and torch.cuda.is_current_stream_capturing()))
+
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 flow_init: Optional[torch.Tensor] = None, mix_weight=None,
                 generator: Optional[torch.Generator] = None):
@@ -243,7 +258,14 @@ class RAFTStereo(nn.Module):
 
         With ``remat_iters`` in train mode each iteration runs under
         ``torch.utils.checkpoint``: its activations are recomputed in the
-        backward pass (the lookup's forward included) instead of kept."""
+        backward pass (the lookup's forward included) instead of kept.
+
+        A test-mode forward on CUDA tensors without gradients replays the
+        section after the encoders (pyramid, iterations, upsampling) from a
+        CUDA graph a key (:meth:`_graphable`, :meth:`_replay`): a key's
+        first forward runs eagerly, its second captures, and later ones
+        replay; the copy in, the replay and the clones out are one span
+        ``raft.iter`` (``raft.replay`` inside it)."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         factor = 2**cfg.n_downsample
@@ -263,13 +285,51 @@ class RAFTStereo(nn.Module):
                     cnet_list = self.cnet(x1)
                     fmap = self.fnet(torch.cat([x1, x2], dim=0))
                 net = [torch.tanh(o[0]) for o in cnet_list]
-                inp = [
-                    conv(torch.relu(o[1])).split(cfg.hidden_dims[i], dim=1)
-                    for i, (conv, o) in enumerate(zip(self.context_zqr_convs, cnet_list))
-                ]
+                # the GRUs' context inputs, split in _refine
+                zqr = [conv(torch.relu(o[1]))
+                       for conv, o in zip(self.context_zqr_convs, cnet_list)]
             if cfg.backbone_type == "interpolate":
                 fmap = torch.cat([interp_bilinear_align(x, fine) for x in (x1, x2)], dim=0)
 
+        if self.test_mode and self._graphable(x1, flow_init):
+            out = self._replay(fmap, net, zqr)
+            if out is not None:
+                return out
+        return self._refine(fmap, net, zqr, x1, x2, flow_init, mix_weight, generator)
+
+    def _replay(self, fmap, net, zqr):
+        """:meth:`_refine`'s test-mode outputs from the graph of the call's
+        key, in the span ``raft.iter`` (``raft.replay`` inside it); None
+        where the refinement runs eagerly: a key's first forward, or a
+        device that the graphs do not serve. The key: the inputs' shapes,
+        strides and dtypes, the device, inference mode, the TF32 settings,
+        the config, ``iters`` and the lookup functions that :meth:`_lookup`
+        resolves."""
+        inputs = (fmap, *net, *zqr)
+        key = (tuple((t.shape, t.stride(), t.dtype) for t in inputs), fmap.device,
+               torch.is_inference_mode_enabled(), torch.backends.cudnn.allow_tf32,
+               torch.get_float32_matmul_precision(), self.cfg, self.iters,
+               corr_lookup, corr_lookup_alt, corr_lookup_alt_plain)
+        ub = self.update_block
+        weights = tuple(t.data_ptr() for t in (*ub.parameters(), *ub.buffers()))
+        n = len(net)
+        graph = self._graphs.get(key, weights, lambda f, *s: self._refine(f, list(s[:n]), s[n:]),
+                                 inputs, _COUNTERS)
+        if graph is None:
+            return None
+        with span("raft.iter"), span("raft.replay"):
+            return graph(inputs)
+
+    def _refine(self, fmap, net, zqr, x1=None, x2=None, flow_init=None, mix_weight=None,
+                generator=None):
+        """The section after the encoders: the correlation pyramid, the
+        iterations and, in test mode, the convex upsampling; :meth:`forward`'s
+        outputs. ``zqr``: the context convolutions' outputs, split here into
+        the GRUs' inputs; (x1, x2): the normalised images (NCHW), which only
+        ``mix_fmap_image`` in train mode reads."""
+        cfg = self.cfg
+        factor = 2**cfg.n_downsample
+        inp = [z.split(cfg.hidden_dims[i], dim=1) for i, z in enumerate(zqr)]
         with span("raft.pyramid"):
             corr_dt = cfg.corr_storage_dtype
             fmap1, fmap2 = (f.to(corr_dt).permute(0, 2, 3, 1) for f in fmap.chunk(2, dim=0))
@@ -291,6 +351,7 @@ class RAFTStereo(nn.Module):
                 # in fp32 by one weight a forward and then pooled
                 # (raft_stereo/corr.py:216-228)
                 vol_feat = corr_volume(fmap1, fmap2, normalize=True, out_dtype=corr_dt)
+                fine = (x1.shape[2] // factor, x1.shape[3] // factor)
                 fi1, fi2 = (interp_bilinear_align(x.to(corr_dt), fine).permute(0, 2, 3, 1)
                             for x in (x1, x2))
                 vol_img = corr_volume(fi1, fi2, normalize=True, out_dtype=corr_dt)

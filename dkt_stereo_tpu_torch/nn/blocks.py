@@ -132,26 +132,34 @@ def fused_fullres_layer1(x, stem_weight, layer1: nn.Sequential, norm_fn="instanc
     elif norm_fn == "instance":
         sf = s.float()
         a_s, b_s = in_affine(sf.sum(dim=(1, 2)), sf.square().sum(dim=(1, 2)), count)
+        del sf
 
         def aff(_i, st, ssq):
             return in_affine(st, ssq, count)
     else:
         raise ValueError(f"fused_fullres_layer1: norm_fn must be 'instance' or 'batch', got {norm_fn!r}")
 
+    # each full-resolution tensor is dropped as soon as it is dead: without
+    # autograd that halves the chain's peak (autograd keeps what it saved)
     w = [c.weight for c in convs]
     y1, s1, ss1 = encoder_stage(s, a_s, b_s, w[0])
     a1, b1 = aff(0, s1, ss1)
     y2, s2, ss2 = encoder_stage(y1, a1, b1, w[1])
+    del y1
     a2, b2 = aff(1, s2, ss2)
     # block-1 output o1 = relu(relu(norm(y2)) + relu(norm(s))) is the third
     # stage's transformed input; emit it for the block-2 residual
     y3, s3, ss3, o1 = encoder_stage(y2, a2, b2, w[2], v=s, a2=a_s, b2=b_s, emit_h=True)
+    del y2, s
     a3, b3 = aff(2, s3, ss3)
     y4, s4, ss4 = encoder_stage(y3, a3, b3, w[3])
+    del y3
     a4, b4 = aff(3, s4, ss4)
     t4 = (y4.float() * a4[:, None, None, :] + b4[:, None, None, :]).clamp_min(0.0)
-    o2 = (o1.float() + t4).clamp_min(0.0).to(dt)
-    return o2.permute(0, 3, 1, 2)
+    del y4
+    o2 = o1.float()
+    del o1
+    return (o2 + t4).clamp_min(0.0).to(dt).permute(0, 3, 1, 2)
 
 
 def _fused_gate(fused_fullres, downsample, norm_fn, x):

@@ -56,6 +56,11 @@ def cross_band_stats(group, tensor_h: int, halo: int, band_h: int, full_h: int,
         _BAND = prev
 
 
+def banded() -> bool:
+    """Whether a :func:`cross_band_stats` context is open."""
+    return _BAND is not None
+
+
 def _win0(i: int, ctx: dict) -> int:
     """Band ``i``'s window start in the padded frame (``eval/tiled.py``)."""
     return min(max(i * ctx["bh"] - ctx["halo"], 0), ctx["fh"] - ctx["th"])
@@ -124,12 +129,35 @@ def _banded_instance_stats(x: torch.Tensor, ctx: dict, eps: float) -> torch.Tens
     return (x - mean.to(x.dtype)) * scale
 
 
+class _Moments(torch.autograd.Function):
+    """``(E[t], E[t^2])`` over H and W, in fp32, of a bf16 ``t``: the ops
+    of ``t.float()``, ``mean`` and ``square``, with autograd's gradient of
+    them bit for bit, but ``t`` itself kept for the backward (which casts
+    it again) in place of its fp32 copy: half the bytes."""
+
+    @staticmethod
+    def forward(ctx, t):
+        tf = t.float()
+        ctx.save_for_backward(t)
+        return tf.mean(dim=(2, 3), keepdim=True), tf.square().mean(dim=(2, 3), keepdim=True)
+
+    @staticmethod
+    def backward(ctx, g_mean, g_msq):
+        (t,) = ctx.saved_tensors
+        tf = t.float()
+        n = t.shape[2] * t.shape[3]
+        # mean's backward (expand, / n) and square's (grad * (2 * tf)), summed
+        g = g_mean.expand(tf.shape) / n + (g_msq.expand(tf.shape) / n) * (2.0 * tf)
+        return g.to(t.dtype)
+
+
 class InstanceNorm(nn.Module):
     """Per-sample, per-channel normalization over H and W.
 
     fp32 inputs use the centred two-pass variance. bf16 inputs take the
     single-pass ``E[x^2] - mean^2`` form with fp32 sums (the JAX package's
-    bf16 path) and keep the elementwise math in bf16. The single-pass
+    bf16 path) and keep the elementwise math in bf16; with autograd
+    recording, the sums go through :class:`_Moments`. The single-pass
     variance is clamped at 0 before ``rsqrt``: cancellation can make it
     slightly negative, where the JAX form gives NaN (a deliberate divergence,
     logged in ROADMAP.md Queue 3).
@@ -152,9 +180,13 @@ class InstanceNorm(nn.Module):
         s = self.stats_stride
         t = x[:, :, ::s, ::s] if s > 1 else x
         if x.dtype == torch.bfloat16:
-            tf = t.float()
-            mean = tf.mean(dim=(2, 3), keepdim=True)
-            var = (tf.square().mean(dim=(2, 3), keepdim=True) - mean.square()).clamp_min(0.0)
+            if torch.is_grad_enabled() and t.requires_grad:
+                mean, msq = _Moments.apply(t)
+            else:
+                tf = t.float()
+                mean = tf.mean(dim=(2, 3), keepdim=True)
+                msq = tf.square().mean(dim=(2, 3), keepdim=True)
+            var = (msq - mean.square()).clamp_min(0.0)
             scale = torch.rsqrt(var + self.eps).to(x.dtype)
             return (x - mean.to(x.dtype)) * scale
         mean = t.mean(dim=(2, 3), keepdim=True)

@@ -137,6 +137,32 @@ def test_instance_norm_bf16_clamps_negative_variance():
     assert torch.isfinite(out).all() and out.abs().max() == 0
 
 
+@pytest.mark.parametrize("stride", [1, 4])
+def test_instance_norm_bf16_backward_keeps_the_bf16_input(stride):
+    """With autograd recording, bf16 statistics keep the bf16 input for the
+    backward rather than its fp32 copy, and give the output and gradient of
+    autograd through ``t.float()``, ``mean`` and ``square`` bit for bit."""
+    g = torch.Generator().manual_seed(stride)
+    x0 = (3 * torch.randn((3, 5, 33, 47), generator=g) + 1).bfloat16()
+    gy = torch.randn(x0.shape, generator=g)
+
+    def plain(x):
+        tf = x[:, :, ::stride, ::stride].float()
+        mean = tf.mean(dim=(2, 3), keepdim=True)
+        var = (tf.square().mean(dim=(2, 3), keepdim=True) - mean.square()).clamp_min(0.0)
+        return (x - mean.to(x.dtype)) * torch.rsqrt(var + 1e-5).to(x.dtype)
+
+    xa, xb = (x0.clone().requires_grad_() for _ in range(2))
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        ya = InstanceNorm(stats_stride=stride)(xa)
+    yb = plain(xb)
+    (ya.float() * gy).sum().backward()
+    (yb.float() * gy).sum().backward()
+    assert torch.equal(ya, yb) and torch.equal(xa.grad, xb.grad)
+    assert not [t for t in saved if t.dtype == torch.float32 and t.numel() > 15]
+
+
 def test_in_affine_matches_jax(rng):
     s = rng.standard_normal((2, 8)).astype(np.float32) * 50
     ss = (s**2 / 100 + rng.uniform(1, 5, (2, 8))).astype(np.float32) * 100

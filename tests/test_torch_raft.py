@@ -6,6 +6,7 @@ registry.
 """
 
 import ast
+from collections import OrderedDict
 import json
 from pathlib import Path
 
@@ -183,3 +184,140 @@ def test_registry_and_unported_options():
     from dkt_stereo_tpu_torch.train.state import DKTHyperParams
 
     assert DKTHyperParams(batched_teachers=True).batched_teachers
+
+
+
+def _fake_capture(calls, counters=()):
+    """``capture_cuda``'s contract on the CPU: buffers like the inputs, the
+    body run once on them, and a replay that runs it again into the same
+    output buffers without raising the launch counters."""
+
+    def capture(body, inputs):
+        calls.append(len(inputs))
+        bufs = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype).zero_() for t in inputs]
+        outs = [o.clone() for o in body(*bufs)]
+
+        def replay():
+            before = [c.launches for c in counters]
+            for o, new in zip(outs, body(*bufs)):
+                o.copy_(new)
+            for c, n in zip(counters, before):
+                c.launches = n
+
+        return replay, bufs, outs
+
+    capture.device_type = "cpu"
+    return capture
+
+
+def test_graph_engagement_rule(monkeypatch):
+    """The refinement's CUDA graph engages only for a test-mode forward on
+    the card without gradients, ``flow_init``, a ``torch.func`` transform,
+    banded evaluation or an autocast region around it: CPU tensors never
+    reach the cache, and the other cases run eagerly."""
+    from dkt_stereo_tpu_torch.nn import norms
+
+    model = create_model(PALLAS, iters=1, device="cpu", seed=0)
+    x = torch.zeros(1, 32, 64, 3)
+    with torch.inference_mode():
+        for _ in range(2):
+            model(x, x)
+    assert not model._graphs.entries  # the CUDA capture serves no CPU tensor
+
+    calls = []
+    model._graphs.capture = _fake_capture(calls)
+    with torch.no_grad():
+        assert model._graphable(x, None)
+        assert not model._graphable(x, torch.zeros(1, 8, 16, 1))
+        with torch.autocast("cpu", dtype=torch.bfloat16):
+            assert not model._graphable(x, None)
+        monkeypatch.setattr(norms, "_BAND", {"halo": 0, "n": 1})
+        assert not model._graphable(x, None)
+        monkeypatch.setattr(norms, "_BAND", None)
+        seen = []
+        torch.func.vmap(lambda t: seen.append(model._graphable(t, None)) or t)(torch.zeros(2, 3))
+        assert seen == [False]
+    assert not model._graphable(x, None)  # gradients on
+
+    train = create_model(PALLAS, iters=1, device="cpu", seed=0, test_mode=False)
+    train._graphs.capture = _fake_capture(calls)
+    with torch.no_grad():
+        for _ in range(2):
+            train(x, x)
+            model(x, x, flow_init=torch.zeros(1, 8, 16, 1))
+    for _ in range(2):
+        model(x, x)
+    assert not calls and not model._graphs.entries and not train._graphs.entries
+
+
+def test_graph_first_forward_eager_then_captured():
+    """A key's first forward runs eagerly and its second captures; the
+    replays give the eager forward's bits, in the span ``raft.replay``
+    inside ``raft.iter``, and a returned disparity is the caller's own:
+    the next replay leaves it as it was."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dkt_stereo_tpu_torch.models import raft_stereo
+    from dkt_stereo_tpu_torch.train.profiling import take_spans
+
+    model = create_model(PALLAS, iters=2, device="cpu", seed=0)
+    calls = []
+    model._graphs.capture = _fake_capture(calls, raft_stereo._COUNTERS)
+    rng = np.random.default_rng(3)
+    x1, x2, y1, y2 = (torch.tensor(rng.uniform(0, 255, (1, 32, 64, 3)), dtype=torch.float32)
+                      for _ in range(4))
+    with torch.inference_mode():
+        want = model(x1, x2)
+        assert not calls
+        got = model(x1, x2)
+        assert calls == [7]  # fmap, the GRUs' three states and three context inputs
+        other = model(y1, y2)
+        take_spans()
+        with profile(activities=[ProfilerActivity.CPU]):
+            again = model(x1, x2)
+        spans = take_spans()
+    assert calls == [7] and len(model._graphs.entries) == 1  # one key: the shapes
+    replay, outer = spans[-2:]  # the fake replay's eager spans end first
+    assert (replay.name, outer.name) == ("raft.replay", "raft.iter")
+    assert replay.parent == outer.id and outer.parent is None
+    for w, g, a, o in zip(want, got, again, other):
+        assert torch.equal(w, g) and torch.equal(w, a) and not torch.equal(w, o)
+
+
+class _Launches:
+    launches = 0
+
+
+def test_graph_cache_keys_weights_and_counters():
+    """GraphCache: least recently used keys out at MAX_KEYS, a change of
+    the weights' addresses drops every graph, the capture raises no counter
+    and each replay adds what the capture counted; a copy starts empty."""
+    import copy
+
+    from dkt_stereo_tpu_torch.models.graphs import MAX_KEYS, GraphCache
+
+    counter = _Launches()
+    cache = GraphCache()
+
+    def body(x):
+        counter.launches += 3
+        return (x * 2,)
+
+    calls = []
+    cache.capture = _fake_capture(calls, [counter])
+    x = torch.ones(2)
+    get = lambda key, w=(1,): cache.get(key, w, body, (x,), (counter,))  # noqa: E731
+    assert get("a") is None and not calls
+    graph = get("a")
+    assert calls == [1] and counter.launches == 0
+    (out,) = graph((torch.full((2,), 5.0),))
+    assert torch.equal(out, torch.full((2,), 10.0)) and counter.launches == 3
+    graph((x,))
+    assert counter.launches == 6
+    for key in "bcde"[:MAX_KEYS]:
+        assert get(key) is None
+    assert "a" not in cache.entries and len(cache.entries) == MAX_KEYS
+    assert get("a") is None and "b" not in cache.entries
+    assert get("c") is not None and calls == [1, 1]
+    assert get("c", w=(2,)) is None and list(cache.entries) == ["c"]
+    assert copy.deepcopy(cache).entries == OrderedDict()
